@@ -1,0 +1,303 @@
+"""Smoke run of pygsti_tpu_torch on one NVIDIA card: build, check, fit.
+
+    python3 chip_smoke.py     # needs one CUDA card
+
+Phases, each fatal on failure:
+  1. build   -- compile every CUDA source of the package (nvcc, in parallel)
+  2. kernels -- each kernel against its plain PyTorch version on the card, at
+                the shapes the 2-qubit fit gives it, in float64 and float32,
+                with times beside the plain version, a batched-einsum
+                yardstick and the least time the card could take
+  3. fit     -- the 2-qubit iterative GST fit at full width (smq2Q_XYICNOT,
+                13,958 circuits, 1,616 parameters, chi2 stages then Poisson
+                logL) through run_iterative_gst on the card, with every
+                kernel's launch count over exactly this phase
+  4. checks  -- the fitted model's probabilities against a numpy reference,
+                and the blocked J^T J / J^T f on the card against the CPU path
+  5. profile -- device time by kernel of one J^T J / J^T f and one residual
+                at the fitted point, from torch.profiler
+Then a JSON line of kernel numbers, the card's name and power limit, and the
+last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+# H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float64 and
+# float32 rates outside the tensor cores, which is where this kernel's
+# multiply-adds run.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67e12}
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+MAXL = 64
+LM_MAXITER = 100     # the optimizer's default cap on every stage
+MINCLIP = 1e-4
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_time_ms(fn, reps):
+    """Mean device time of fn() over `reps` runs after one warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_build():
+    from pygsti_tpu_torch.ops import build
+    t0 = time.time()
+    sources = sorted(f[:-3] for f in os.listdir(build.CSRC_DIR) if f.endswith('.cu'))
+    started = [build.start_build(name) for name in sources]   # all at once
+    for name, job in zip(sources, started):
+        out = build.finish_build(*job)
+        log("build %s: %s" % (name, " | ".join(
+            l.strip() for l in out.splitlines() if 'registers' in l or 'spill' in l)))
+    for name in sources:
+        build.load_library(name)
+    log("build: %d source(s) in %.3f s" % (len(sources), time.time() - t0))
+
+
+def einsum_yardstick(cols, G, E, F):
+    """The same function as one batched einsum over the stashed
+    back-propagated effects: a loop forms Bc before each layer, then
+    A[b,n,k,i,j] = sum_t onehot[b,t,k] Bc[b,t,n,i] F[b,t,j] is one
+    batched matrix product."""
+    B, D = cols.shape
+    K1 = G.shape[0]
+    onehot = torch.nn.functional.one_hot(cols.long(), K1).to(G.dtype)   # [B,D,K1]
+    Gsel = G[cols.long()]                                               # [B,D,d,d]
+    stash = torch.empty((B, D) + tuple(E.shape[1:]), dtype=G.dtype, device=G.device)
+    bc = E
+    for t in range(D - 1, -1, -1):
+        stash[:, t] = bc
+        bc = torch.einsum('bni,bij->bnj', bc, Gsel[:, t])
+    W = onehot[..., None] * F[:, :, None, :]                            # [B,D,K1,d]
+    A = torch.einsum('btni,btkj->bnkij', stash, W)
+    return A, bc
+
+
+def phase_kernels(layout, model, device):
+    """Every kernel against its plain version at the fit's shapes."""
+    from pygsti_tpu_torch.objectivefns.objectivefns import bucket_plan
+    from pygsti_tpu_torch.ops.bwd_jacobian import (bwd_jacobian_accumulate,
+                                                   bwd_jacobian_accumulate_plain)
+    n_out = 4
+    K1, d = len(model.op_keys) + 1, model.dim
+    NT = (K1 - 1) * d * d + d + n_out * d      # tensor entries: ops, prep, effects
+    buckets, _ = bucket_plan(layout, n_out, NT, device)
+    gen = torch.Generator(device='cpu').manual_seed(1234)
+    G = torch.cat([model.tensors_fn()(torch.as_tensor(model.to_vector())).ops,
+                   torch.eye(d, dtype=torch.float64)[None]]).to(device)
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        tot = {'ms': 0.0, 'plain_ms': 0.0, 'einsum_ms': 0.0, 'bytes': 0, 'flops': 0}
+        max_rel, max_abs = 0.0, 0.0
+        for bk in buckets:
+            cols = bk['cols']
+            B, D = cols.shape
+            E = torch.randn((B, n_out, d), generator=gen, dtype=torch.float64).to(device, dtype)
+            F = torch.randn((B, D, d), generator=gen, dtype=torch.float64).to(device, dtype)
+            Gd = G.to(dtype)
+            A, Bf = bwd_jacobian_accumulate(cols, Gd, E, F)
+            torch.cuda.synchronize()
+            A2, Bf2 = bwd_jacobian_accumulate_plain(cols, Gd, E, F)
+            A3, Bf3 = einsum_yardstick(cols, Gd, E, F)
+            err = max(float((A - A2).abs().max()), float((Bf - Bf2).abs().max()))
+            scale = max(float(A2.abs().max()), float(Bf2.abs().max()))
+            yard = float((A3 - A2).abs().max()) / scale
+            if not (err <= TOL[dtype] * scale and yard <= 1e3 * TOL[dtype]):
+                raise SystemExit("kernel bwd_jacobian disagrees with its plain "
+                                 "version: %s B=%d D=%d max_abs_err=%g (scale %g), "
+                                 "einsum rel %g" % (dtype, B, D, err, scale, yard))
+            max_rel, max_abs = max(max_rel, err / scale), max(max_abs, err)
+            del A2, Bf2, A3, Bf3
+            tot['ms'] += cuda_time_ms(lambda: bwd_jacobian_accumulate(cols, Gd, E, F), 20)
+            tot['plain_ms'] += cuda_time_ms(lambda: bwd_jacobian_accumulate_plain(cols, Gd, E, F), 2)
+            tot['einsum_ms'] += cuda_time_ms(lambda: einsum_yardstick(cols, Gd, E, F), 2)
+            item = torch.finfo(dtype).bits // 8
+            # each input read once, each output written once
+            tot['bytes'] += (cols.numel() * 4 + (Gd.numel() + E.numel() + F.numel()) * item
+                             + (B * n_out * K1 * d * d + B * n_out * d) * item)
+            # per layer and pair: d*d multiply-adds into A, d*d into the new Bc
+            tot['flops'] += B * n_out * D * 2 * (2 * d * d)
+        t_bytes = tot['bytes'] / PEAK_BYTES_PER_S * 1e3
+        t_ops = tot['flops'] / PEAK_FLOPS[dtype] * 1e3
+        rows[dtype] = dict(tot, max_rel=max_rel, max_abs=max_abs,
+                           bound_ms=max(t_bytes, t_ops),
+                           bound_by='bytes' if t_bytes >= t_ops else 'operations')
+        log("kernel bwd_jacobian %s: %d launches per Jacobian (blocks %s), max rel err "
+            "%.3e (tol %.0e), kernel %.4f ms, plain %.4f ms, einsum yardstick %.4f ms, "
+            "bound %.4f ms (%s: %.1f MB, %.2f GFLOP)"
+            % (str(dtype).split('.')[-1], len(buckets),
+               [tuple(b['cols'].shape) for b in buckets], max_rel, TOL[dtype],
+               tot['ms'], tot['plain_ms'], tot['einsum_ms'], rows[dtype]['bound_ms'],
+               rows[dtype]['bound_by'], tot['bytes'] / 1e6, tot['flops'] / 1e9))
+    return rows
+
+
+def reference_probs(model, circuits):
+    """Plain numpy: p = E (G_L ... G_1 rho) circuit by circuit."""
+    ops = {k: o.dense() for k, o in model.operations.items()}
+    rho = next(iter(model.preps.values())).dense()
+    effects = next(iter(model.povms.values())).dense()
+    out = []
+    for c in circuits:
+        s = rho
+        for layer in c.layertup:
+            s = ops[layer] @ s
+        out.append(effects @ s)
+    return np.concatenate(out)
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
+                         "is false")
+    sys.path.insert(0, HERE)
+    import pygsti_tpu_torch
+    if not os.path.abspath(pygsti_tpu_torch.__file__).startswith(HERE + os.sep):
+        raise SystemExit("pygsti_tpu_torch was not found beside chip_smoke.py")
+    from pygsti_tpu_torch.algorithms.core import run_iterative_gst
+    from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.modelpacks import smq2Q_XYICNOT as mp
+    from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.protocols.estimate import misfit_sigma
+
+    device = torch.device('cuda', 0)
+    log("torch %s, CUDA %s, %s x%d" % (torch.__version__, torch.version.cuda,
+                                       torch.cuda.get_device_name(0),
+                                       torch.cuda.device_count()))
+    phase_build()
+
+    # -- the design (host): lists, target, datagen --------------------------
+    t0 = time.time()
+    target = mp.target_model('full')
+    maxlengths = [L for L in (1, 2, 4, 8, 16, 32, 64) if L <= MAXL]
+    lists = create_lsgst_circuit_lists(target, mp.prep_fiducials(), mp.meas_fiducials(),
+                                       mp.germs(), maxlengths)
+    final = list(lists[-1])
+    log("design: %d lists, final list %d circuits, %d parameters, max depth %d (%.2f s)"
+        % (len(lists), len(final), target.num_params, max(c.depth for c in final),
+           time.time() - t0))
+    if len(final) != 13958 or target.num_params != 1616:
+        raise SystemExit("unexpected design size")
+    layout = SimpleForwardSimulator(target, device).create_layout(final)
+
+    kernel_rows = phase_kernels(layout, target, device)
+
+    # -- the fit ------------------------------------------------------------
+    datagen = mp.target_model('full TP').depolarize(op_noise=0.01, spam_noise=0.01)
+    t0 = time.time()
+    ds = simulate_data(datagen, final, 1000, seed=1234, device=device)
+    log("data: %d circuits x 1000 shots simulated on the card in %.2f s"
+        % (len(ds), time.time() - t0))
+    builders = ([ObjectiveFunctionBuilder(
+        'chi2', regularization={'min_prob_clip_for_weighting': MINCLIP})],
+        [ObjectiveFunctionBuilder(
+            'logl', regularization={'min_prob_clip': MINCLIP, 'radius': MINCLIP})])
+    log("fit: LM maxiter %d per stage (the optimizer's default)" % LM_MAXITER)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    t0 = time.time()
+    models, results = run_iterative_gst(ds, target, lists, {'maxiter': LM_MAXITER},
+                                        builders[0], builders[1], device=device)
+    torch.cuda.synchronize()
+    fit_wall = time.time() - t0
+    launches = {'bwd_jacobian': bwd_jacobian_accumulate.launches}
+    total_iters = 0
+    for i, stage_results in enumerate(results):
+        for r in stage_results:
+            q = r.optimizer_specific_qtys
+            total_iters += q['iterations']
+            log("fit stage %d (%d circuits) %s: %d LM iterations, %.3f s, objective %.6f, %s"
+                % (i, len(lists[i]), r.objective.name, q['iterations'], q['wall_s'],
+                   r.f, q['msg']))
+    fit_value = results[-1][-1].chi2_k_distributed_qty
+    dof = ds.degrees_of_freedom(final) - models[-1].num_params
+    nsigma = misfit_sigma(fit_value, dof)
+    log("fit: %d LM iterations in %.3f s wall; final 2*DeltaLogL %.6f, k %d, N_sigma %.4f"
+        % (total_iters, fit_wall, fit_value, dof, nsigma))
+    log("fit: kernel launches %s; peak device memory %.1f MB"
+        % (launches, torch.cuda.max_memory_allocated() / 1e6))
+    if launches['bwd_jacobian'] == 0:
+        raise SystemExit("the fit never launched the bwd_jacobian kernel")
+    theta = models[-1].to_vector()
+    if not (np.all(np.isfinite(theta)) and np.isfinite(fit_value) and np.isfinite(nsigma)):
+        raise SystemExit("non-finite fit result")
+    if not nsigma < 10:
+        raise SystemExit("the fit is far from the statistical optimum: N_sigma %g" % nsigma)
+
+    # -- checks against references on small inputs ---------------------------
+    fitted = models[-1]
+    check = final[:: len(final) // 200][:200]
+    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(
+        SimpleForwardSimulator(fitted, device).create_layout(check))
+    p_ref = reference_probs(fitted, check)
+    dp = float(np.max(np.abs(p_card - p_ref)))
+    log("check: probabilities of %d circuits vs numpy reference: max |dp| %.3e (tol 1e-10)"
+        % (len(check), dp))
+    if p_card.shape != p_ref.shape or not dp < 1e-10:
+        raise SystemExit("probabilities disagree with the numpy reference")
+    small = list(lists[0])
+    objs = [ObjectiveFunctionBuilder('logl').build(fitted, ds, small, device=dev)
+            for dev in (device, 'cpu')]
+    (ls_c, jtj_c, jtf_c), (ls_h, jtj_h, jtf_h) = (o.jtj_jtf(theta) for o in objs)
+    rel = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+              for a, b in ((ls_c, ls_h), (jtj_c, jtj_h), (jtf_c, jtf_h)))
+    log("check: blocked lsvec/JTJ/JTf on the card vs the CPU path (%d circuits): "
+        "max rel diff %.3e (tol 1e-9)" % (len(small), rel))
+    if not rel < 1e-9:
+        raise SystemExit("the card's Jacobian disagrees with the CPU path")
+
+    obj = ObjectiveFunctionBuilder('logl').build(fitted, ds, final, device=device)
+    obj.jtj_jtf(theta)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        obj.jtj_jtf(theta)
+        obj.lsvec(theta)
+        torch.cuda.synchronize()
+    log("profile: one jtj_jtf + one lsvec on the final list (%d circuits)" % len(final))
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+
+    r64 = kernel_rows[torch.float64]
+    log(json.dumps({"kernels": [{
+        "name": "bwd_jacobian", "route": "cuda",
+        "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
+        "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
+        "launches": launches['bwd_jacobian'],
+        "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
+        "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
+        # no single PyTorch call computes this function; the batched-einsum
+        # formulation is reported beside it as a yardstick only
+        "library_ms": None, "einsum_yardstick_ms": r64['einsum_ms']}]}))
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(smi)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()

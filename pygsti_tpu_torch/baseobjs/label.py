@@ -1,0 +1,155 @@
+"""Circuit-layer labels (counterpart of pygsti_tpu/baseobjs/label.py).
+
+* ``LabelTup``    -- a gate name plus the qubits it acts on, e.g.
+                     ``Label('Gxpi2', 0)`` <-> ``"Gxpi2:0"``.
+* ``LabelStr``    -- a bare name, e.g. ``Label('rho0')``.
+* ``LabelTupTup`` -- a layer of parallel simple labels; ``Label(())`` is the
+                     empty layer (global idle), printed ``"[]"``.
+
+Labels are immutable, hashable, compare equal to the equivalent plain tuple
+or string, and serve as dict keys in models.
+"""
+
+from __future__ import annotations
+
+
+class Label(object):
+    """Factory: dispatches to LabelTup / LabelStr / LabelTupTup."""
+
+    def __new__(cls, name, state_space_labels=None):
+        if isinstance(name, (LabelTup, LabelStr, LabelTupTup)):
+            return name
+        if state_space_labels is not None:
+            if isinstance(state_space_labels, (int, str)):
+                state_space_labels = (state_space_labels,)
+            return LabelTup.init(name, tuple(state_space_labels))
+        if isinstance(name, str):
+            return LabelStr(name)
+        if isinstance(name, (tuple, list)):
+            if len(name) == 0:
+                return LabelTupTup.init(())
+            if isinstance(name[0], str):
+                return LabelTup.init(name[0], tuple(name[1:]))
+            return LabelTupTup.init(tuple(Label(sub) for sub in name))
+        raise ValueError("Cannot create Label from %r" % (name,))
+
+
+_label_intern = {}
+
+
+class LabelTup(tuple):
+    """A simple label: (name, *state_space_labels); interned."""
+
+    __slots__ = ()
+
+    @classmethod
+    def init(cls, name, sslbls):
+        if len(sslbls) == 0:
+            return LabelStr(name)
+        key = (name,) + tuple(sslbls)
+        cached = _label_intern.get(key)
+        if cached is None:
+            cached = tuple.__new__(cls, key)
+            _label_intern[key] = cached
+        return cached
+
+    def __new__(cls, tup):
+        return tuple.__new__(cls, tup)
+
+    @property
+    def name(self):
+        return self[0]
+
+    @property
+    def sslbls(self):
+        return tuple(self[1:])
+
+    @property
+    def components(self):
+        return (self,)
+
+    @property
+    def is_simple(self):
+        return True
+
+    def __str__(self):
+        return self.name + ":" + ":".join(str(s) for s in self.sslbls)
+
+    def __repr__(self):
+        return "Label(%s)" % str(tuple(self))
+
+    def __reduce__(self):
+        return (LabelTup, (tuple(self),))
+
+
+class LabelStr(str):
+    """A label that is just a name (no state-space labels), e.g. 'rho0'."""
+
+    __slots__ = ()
+
+    @property
+    def name(self):
+        return str(self)
+
+    @property
+    def sslbls(self):
+        return None
+
+    @property
+    def components(self):
+        return (self,)
+
+    @property
+    def is_simple(self):
+        return True
+
+    def __repr__(self):
+        return "Label('%s')" % str(self)
+
+    def __reduce__(self):
+        return (LabelStr, (str(self),))
+
+
+class LabelTupTup(tuple):
+    """A layer label: a tuple of parallel simple labels."""
+
+    __slots__ = ()
+
+    @classmethod
+    def init(cls, component_labels):
+        return tuple.__new__(cls, tuple(component_labels))
+
+    def __new__(cls, tup):
+        return tuple.__new__(cls, tup)
+
+    @property
+    def name(self):
+        return "COMPOUND"
+
+    @property
+    def sslbls(self):
+        if len(self) == 0:
+            return None
+        s = []
+        for comp in self:
+            if comp.sslbls is None:
+                return None
+            s.extend(comp.sslbls)
+        return tuple(s)
+
+    @property
+    def components(self):
+        return tuple(self)
+
+    @property
+    def is_simple(self):
+        return False
+
+    def __str__(self):
+        return "[" + "".join(str(c) for c in self) + "]"
+
+    def __repr__(self):
+        return "Label(%s)" % str(self)
+
+    def __reduce__(self):
+        return (LabelTupTup, (tuple(self),))

@@ -1,0 +1,65 @@
+"""Plaquette-structured circuit lists (counterpart of
+pygsti_tpu/circuits/circuitstructure.py, trimmed to what
+``make_lsgst_structs`` builds)."""
+
+from __future__ import annotations
+
+import collections
+
+from pygsti_tpu_torch.circuits.circuit import Circuit
+from pygsti_tpu_torch.circuits.circuitlist import CircuitList
+
+
+class FiducialPairPlaquette(object):
+    """Circuits prep_fid + base + meas_fid, keyed (meas_index, prep_index)."""
+
+    def __init__(self, base, fidpairs, num_rows=None, num_cols=None,
+                 op_label_aliases=None):
+        self.base = base
+        self.fidpairs = collections.OrderedDict(fidpairs)
+        self.elements = collections.OrderedDict(
+            ((i, j), prep + base + meas)
+            for (i, j), (prep, meas) in self.fidpairs.items())
+        self.num_rows = num_rows
+        self.num_cols = num_cols
+        self.op_label_aliases = op_label_aliases
+
+    def __len__(self):
+        return len(self.elements)
+
+    @property
+    def circuits(self):
+        return list(self.elements.values())
+
+
+class GermFiducialPairPlaquette(FiducialPairPlaquette):
+    """FiducialPairPlaquette whose base is germ^power."""
+
+    def __init__(self, germ, power, fidpairs, num_rows=None, num_cols=None,
+                 op_label_aliases=None):
+        self.germ = germ
+        self.power = power
+        base = germ.repeat(power) if power > 0 else Circuit((), germ.line_labels)
+        super().__init__(base, fidpairs, num_rows, num_cols, op_label_aliases)
+
+
+class PlaquetteGridCircuitStructure(CircuitList):
+    """A CircuitList made of plaquettes on an (L, germ) grid, with extra
+    circuits (the LGST set) first."""
+
+    def __init__(self, plaquettes, x_values, y_values, xlabel, ylabel,
+                 additional_circuits=None, op_label_aliases=None, name=None):
+        self._plaquettes = collections.OrderedDict(plaquettes)
+        self.xs = list(x_values)
+        self.ys = list(y_values)
+        self.xlabel = xlabel
+        self.ylabel = ylabel
+        circuits = collections.OrderedDict(
+            (c, None) for c in (additional_circuits or []))
+        for plaq in self._plaquettes.values():
+            circuits.update((c, None) for c in plaq.circuits)
+        super().__init__(list(circuits.keys()), op_label_aliases, name)
+
+    @property
+    def plaquettes(self):
+        return self._plaquettes

@@ -1,0 +1,87 @@
+"""Forward simulation: batched circuit evaluation in torch (counterpart of
+pygsti_tpu/forwardsims/forwardsim.py, SimpleForwardSimulator's scan path).
+
+The JAX package contracts every step with a one-hot over all ops, a choice
+made for the TPU's matrix unit.  On the card a direct gather of each
+circuit's op, ``G[idx]``, followed by a batched matvec does less work, so
+the depth loop here is: gather, ``bmm``, next layer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from pygsti_tpu_torch import DTYPE
+from pygsti_tpu_torch.baseobjs.outcomelabeldict import OutcomeLabelDict
+from pygsti_tpu_torch.circuits.circuit import Circuit
+from pygsti_tpu_torch.layouts.layout import CircuitOutcomeProbabilityLayout
+
+
+def layout_tensors(layout, device):
+    """The layout's index arrays as int64 tensors on `device`, cached on the
+    layout itself (one entry per device), so no cache can outlive or
+    mistake its layout."""
+    cache = layout.__dict__.setdefault('_device_tensors', {})
+    key = str(torch.device(device))
+    hit = cache.get(key)
+    if hit is None:
+        hit = {name: torch.as_tensor(getattr(layout, name), dtype=torch.int64,
+                                     device=device)
+               for name in ('op_indices', 'prep_index', 'elem_circuit',
+                            'elem_effect')}
+        cache[key] = hit
+    return hit
+
+
+def propagate(G, rho, op_idx):
+    """Push states rho [B, d] through layers op_idx [B, D] of the op stack
+    G [K1, d, d]; returns the final states [B, d]."""
+    for t in range(op_idx.shape[1]):
+        rho = torch.bmm(G[op_idx[:, t]], rho.unsqueeze(-1)).squeeze(-1)
+    return rho
+
+
+class SimpleForwardSimulator(object):
+    """Dense state-propagation simulator on one device."""
+
+    def __init__(self, model, device="cuda"):
+        self.model = model
+        self.device = torch.device(device)
+
+    def create_layout(self, circuits, dataset=None):
+        return CircuitOutcomeProbabilityLayout(circuits, self.model)
+
+    def probs_fn(self, layout):
+        """A pure function v -> probabilities [n_elements] for `layout`."""
+        compute = self.model.tensors_fn()
+        idx = layout_tensors(layout, self.device)
+        dim = self.model.dim
+
+        def probs(v):
+            t = compute(v)
+            eye = torch.eye(dim, dtype=t.ops.dtype, device=t.ops.device)[None]
+            G = torch.cat([t.ops, eye], dim=0)            # [K+1, d, d]
+            rho = propagate(G, t.preps[idx['prep_index']], idx['op_indices'])
+            E = t.effects[idx['elem_effect']]             # [E, d]
+            return (E * rho[idx['elem_circuit']]).sum(dim=1)
+
+        return probs
+
+    def bulk_fill_probs(self, layout):
+        v = torch.as_tensor(self.model.to_vector(), dtype=DTYPE, device=self.device)
+        with torch.no_grad():
+            return self.probs_fn(layout)(v).cpu().numpy()
+
+    def bulk_probs(self, circuits):
+        """{circuit: OutcomeLabelDict(outcome -> probability)}."""
+        circuits = [c if isinstance(c, Circuit) else Circuit(c) for c in circuits]
+        layout = self.create_layout(circuits)
+        p = self.bulk_fill_probs(layout)
+        out = {}
+        for i, c in enumerate(layout.circuits):
+            start = layout.element_slices[i].start
+            d = OutcomeLabelDict()
+            for k, outcome in enumerate(layout.outcomes[i]):
+                d[outcome] = float(p[start + k])
+            out[c] = d
+        return out

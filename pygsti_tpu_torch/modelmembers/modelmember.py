@@ -1,0 +1,52 @@
+"""ModelMember base: a parameterization = static structure + pure function
+(counterpart of pygsti_tpu/modelmembers/modelmember.py).
+
+A member owns ``num_params``, its current parameter values (host numpy),
+``gpindices`` (its slice of the parent model's flat vector) and
+``to_dense(v)``: a pure torch function of its own parameter slice ``v`` that
+returns its dense representation (superoperator, state vector or stack of
+effect vectors) on ``v``'s device and dtype.  ``dense()`` evaluates it on the
+host at the current values.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+
+
+class ModelMember(object):
+    """Base class for operations / states / POVMs."""
+
+    def __init__(self, initial_paramvals=None):
+        self._paramvals = np.asarray(initial_paramvals, dtype=float) \
+            if initial_paramvals is not None else np.empty(0)
+        self.gpindices = None
+
+    @property
+    def num_params(self):
+        return len(self._paramvals)
+
+    def to_vector(self):
+        return self._paramvals.copy()
+
+    def from_vector(self, v):
+        self._paramvals = np.asarray(v, dtype=float).copy()
+
+    def to_dense(self, v):
+        """Pure torch function: own-params vector -> dense tensor."""
+        raise NotImplementedError()
+
+    def dense(self):
+        """Dense numpy representation at the current parameter values."""
+        v = torch.as_tensor(self.to_vector(), dtype=torch.float64)
+        return self.to_dense(v).numpy().copy()
+
+    @property
+    def dim(self):
+        return self._dim
+
+    def copy(self):
+        return copy.deepcopy(self)

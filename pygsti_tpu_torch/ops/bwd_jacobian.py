@@ -1,0 +1,95 @@
+"""Per-op gradient binning for the backward half of the blocked Jacobian.
+
+``bwd_jacobian_accumulate`` launches the hand-written CUDA kernel in
+``csrc/bwd_jacobian.cu`` (it replaces the Pallas TPU kernel
+``pygsti_tpu/ops/pallas_kernels.py: bwd_jacobian_accumulate``) for tensors
+on a CUDA device, and runs ``bwd_jacobian_accumulate_plain`` for tensors on
+the CPU.  On a CUDA tensor it launches the kernel or raises; it never falls
+back to the plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+_KERNEL_SYMBOLS = {torch.float64: 'bwd_jacobian_accumulate_f64',
+                   torch.float32: 'bwd_jacobian_accumulate_f32'}
+
+
+def bwd_jacobian_accumulate_plain(cols, G, E, F):
+    """The scan/einsum form (pygsti_tpu bwd_jacobian_accumulate_reference).
+
+    cols [B, D] int; G [K1, d, d]; E [B, NOUT, d]; F [B, D, d] (state before
+    each layer).  Returns (A [B, NOUT, K1, d, d], B_final [B, NOUT, d])."""
+    B, D = cols.shape
+    K1, d, _ = G.shape
+    NOUT = E.shape[1]
+    A = torch.zeros((B, NOUT, K1, d, d), dtype=G.dtype, device=G.device)
+    Bc = E
+    for t in range(D - 1, -1, -1):
+        onehot = torch.nn.functional.one_hot(cols[:, t].long(), K1).to(G.dtype)
+        A += torch.einsum('bk,bni,bj->bnkij', onehot, Bc, F[:, t])
+        yb = torch.einsum('bni,kij->bnkj', Bc, G)
+        Bc = torch.einsum('bnkj,bk->bnj', yb, onehot)
+    return A, Bc
+
+
+def _check(cols, G, E, F):
+    if cols.dim() != 2 or G.dim() != 3 or E.dim() != 3 or F.dim() != 3:
+        raise ValueError("expected cols [B,D], G [K1,d,d], E [B,NOUT,d], "
+                         "F [B,D,d]")
+    B, D = cols.shape
+    K1, d, d2 = G.shape
+    if d2 != d or E.shape[0] != B or E.shape[2] != d \
+            or tuple(F.shape) != (B, D, d):
+        raise ValueError("shape mismatch: cols %s G %s E %s F %s"
+                         % (tuple(cols.shape), tuple(G.shape),
+                            tuple(E.shape), tuple(F.shape)))
+    if cols.dtype != torch.int32:
+        raise TypeError("cols must be int32, got %s" % cols.dtype)
+    if not (G.dtype == E.dtype == F.dtype):
+        raise TypeError("G, E and F must share one dtype")
+    devs = {t.device for t in (cols, G, E, F)}
+    if len(devs) != 1:
+        raise ValueError("all inputs must lie on one device, got %s" % devs)
+
+
+def bwd_jacobian_accumulate(cols, G, E, F):
+    """(A [B, NOUT, K1, d, d], B_final [B, NOUT, d]); see the module note.
+
+    ``bwd_jacobian_accumulate.launches`` counts kernel launches."""
+    _check(cols, G, E, F)
+    if G.device.type == 'cpu':
+        return bwd_jacobian_accumulate_plain(cols, G, E, F)
+    if G.device.type != 'cuda':
+        raise ValueError("unsupported device %s" % G.device)
+    symbol = _KERNEL_SYMBOLS.get(G.dtype)
+    if symbol is None:
+        raise TypeError("the CUDA kernel takes float32 or float64, got %s"
+                        % G.dtype)
+    for name, t in (('cols', cols), ('G', G), ('E', E), ('F', F)):
+        if not t.is_contiguous():
+            raise ValueError("%s must be contiguous" % name)
+    from pygsti_tpu_torch.ops.build import load_library
+    fn = getattr(load_library('bwd_jacobian'), symbol)
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, D = cols.shape
+    K1, d, _ = G.shape
+    NOUT = E.shape[1]
+    A = torch.empty((B, NOUT, K1, d, d), dtype=G.dtype, device=G.device)
+    b_final = torch.empty((B, NOUT, d), dtype=G.dtype, device=G.device)
+    with torch.cuda.device(G.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(cols.data_ptr(), G.data_ptr(), E.data_ptr(), F.data_ptr(),
+                 A.data_ptr(), b_final.data_ptr(), B, D, K1, d, NOUT, stream)
+    if err != 0:
+        raise RuntimeError("bwd_jacobian kernel launch failed: CUDA error %d"
+                           % err)
+    bwd_jacobian_accumulate.launches += 1
+    return A, b_final
+
+
+bwd_jacobian_accumulate.launches = 0

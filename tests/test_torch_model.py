@@ -1,0 +1,127 @@
+"""The port's host layers and model against the JAX package's: circuit lists,
+member dense forms, tensors_fn and the parameter conversion."""
+
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import pygsti_tpu.modelpacks.smq1Q_XYI as jmp1
+import pygsti_tpu.modelpacks.smq2Q_XYICNOT as jmp2
+from pygsti_tpu.circuits.gstcircuits import create_lsgst_circuit_lists as j_lists
+
+import pygsti_tpu_torch.modelpacks.smq1Q_XYI as tmp1
+import pygsti_tpu_torch.modelpacks.smq2Q_XYICNOT as tmp2
+from pygsti_tpu_torch.circuits.circuit import Circuit
+from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists as t_lists
+from pygsti_tpu_torch.convert import model_from_dense, model_from_vector
+
+PACKS = {'1Q': (jmp1, tmp1), '2Q': (jmp2, tmp2)}
+
+
+@pytest.mark.parametrize("pack", sorted(PACKS))
+def test_circuit_lists_equal(pack):
+    """Nested lists at maxL <= 4: the same circuits in the same order,
+    with the same strings."""
+    jmp, tmp = PACKS[pack]
+    jl = j_lists(jmp.target_model('full'), jmp.prep_fiducials(),
+                 jmp.meas_fiducials(), jmp.germs(), [1, 2, 4])
+    tl = t_lists(tmp.target_model('full'), tmp.prep_fiducials(),
+                 tmp.meas_fiducials(), tmp.germs(), [1, 2, 4])
+    assert [len(x) for x in jl] == [len(x) for x in tl]
+    for a, b in zip(jl, tl):
+        assert [c.str for c in a] == [c.str for c in b]
+        assert [tuple(str(l) for l in c.layertup) for c in a] == \
+            [tuple(str(l) for l in c.layertup) for c in b]
+        assert [c.line_labels for c in a] == [c.line_labels for c in b]
+
+
+@pytest.mark.parametrize("s", ["{}@(0,1)", "Gxpi2:0Gypi2:1@(0,1)",
+                               "(Gxpi2:0Gypi2:0)^2@(0)", "[]@(0,1)",
+                               "Gcnot:0:1^3Gxpi2:1@(0,1)", "[Gxpi2:0Gypi2:1]"])
+def test_parser_round_trip(s):
+    """A parsed circuit, its string, and its layers re-parsed agree."""
+    c = Circuit(s)
+    assert Circuit(c.str) == c
+    rebuilt = Circuit(c.layertup, c.line_labels)
+    assert rebuilt == c and Circuit(rebuilt.str) == c
+
+
+def _check_members(jm, tm):
+    """Each member's torch to_dense of its own slice equals the JAX
+    member's dense form within 1e-14 (the same arithmetic, all exact
+    copies or one subtraction)."""
+    v = torch.as_tensor(tm.to_vector())
+    for jd, td in ((jm.preps, tm.preps), (jm.povms, tm.povms),
+                   (jm.operations, tm.operations)):
+        assert [str(k) for k in jd.keys()] == [str(k) for k in td.keys()]
+        for (_, jobj), (_, tobj) in zip(jd.items(), td.items()):
+            assert type(jobj).__name__ == type(tobj).__name__
+            dense = tobj.to_dense(v[tobj.gpindices]).numpy()
+            assert np.max(np.abs(dense - np.asarray(jobj.to_dense()))) < 1e-14
+
+
+@pytest.mark.parametrize("pack,gate_type", [(p, g) for p in sorted(PACKS)
+                                            for g in ('full', 'full TP')])
+def test_member_dense_and_param_order(pack, gate_type):
+    jmp, tmp = PACKS[pack]
+    jm = jmp.target_model(gate_type).depolarize(op_noise=0.03, spam_noise=0.02)
+    tm = tmp.target_model(gate_type).depolarize(op_noise=0.03, spam_noise=0.02)
+    assert tm.num_params == jm.num_params
+    assert np.max(np.abs(tm.to_vector() - jm.to_vector())) < 1e-14
+    _check_members(jm, tm)
+
+
+@pytest.mark.parametrize("name", ["Gxpi2", "Gypi2", "Gcnot"])
+def test_static_standard_op(name):
+    """The static ops of a named gate: the same superoperator as the JAX
+    package's within 1e-14, and constant under to_dense."""
+    from pygsti_tpu.modelmembers.operations import StaticStandardOp as JOp
+    from pygsti_tpu_torch.modelmembers.operations import StaticStandardOp as TOp
+    op = TOp(name)
+    assert op.num_params == 0
+    dense = op.to_dense(torch.zeros(0, dtype=torch.float64)).numpy()
+    assert np.max(np.abs(dense - JOp(name).to_dense())) < 1e-14
+
+
+def _tensors(model, theta):
+    t = model.tensors_fn()(torch.as_tensor(theta))
+    return [x.numpy() for x in (t.ops, t.preps, t.effects)]
+
+
+@pytest.mark.parametrize("pack,gate_type", [('1Q', 'full TP'), ('2Q', 'full')])
+def test_tensors_fn_and_convert(pack, gate_type):
+    """tensors_fn at a random theta, and the port's models rebuilt by
+    convert.py from the JAX model's vector and from its dense members, all
+    within 1e-14 of the JAX package's tensors_fn."""
+    jmp, tmp = PACKS[pack]
+    jm = jmp.target_model(gate_type)
+    rng = np.random.RandomState(7)
+    theta = jm.to_vector() + 0.01 * rng.randn(jm.num_params)
+    jt = jm.tensors_fn()(theta)
+    ref = [np.asarray(x) for x in (jt.ops, jt.preps, jt.effects)]
+
+    from_vec = model_from_vector(tmp.target_model(gate_type), theta)
+    jm.from_vector(theta)
+    from_dense = model_from_dense(
+        {str(k): o.to_dense() for k, o in jm.operations.items()},
+        {str(k): p.to_dense() for k, p in jm.preps.items()},
+        {str(k): dict(p.items()) for k, p in jm.povms.items()},
+        gate_type=gate_type)
+    assert np.max(np.abs(from_dense.to_vector() - theta)) < 1e-14
+    for model in (from_vec, from_dense):
+        for a, b in zip(_tensors(model, model.to_vector()), ref):
+            assert a.shape == b.shape
+            assert np.max(np.abs(a - b)) < 1e-14
+
+
+def test_port_imports_no_jax():
+    """The port's package loads without JAX and without pygsti_tpu."""
+    code = ("import sys, pygsti_tpu_torch.algorithms.core, pygsti_tpu_torch.convert,"
+            " pygsti_tpu_torch.data.datasetconstruction,"
+            " pygsti_tpu_torch.modelpacks.smq2Q_XYICNOT;"
+            " bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')];"
+            " assert not bad, bad")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
