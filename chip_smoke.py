@@ -6,8 +6,10 @@ Phases, each fatal on failure:
   1. build   -- compile every CUDA source of the package (nvcc, in parallel)
   2. kernels -- each kernel against its plain PyTorch version on the card, at
                 the shapes the 2-qubit fit gives it, in float64 and float32,
-                with times beside the plain version, a batched-einsum
-                yardstick and the least time the card could take
+                also on op indices out of range and bitwise between two
+                launches, with times per shape beside the least time the
+                card could take, the plain version and a batched-einsum
+                yardstick
   3. fit     -- the 2-qubit iterative GST fit at full width (smq2Q_XYICNOT,
                 13,958 circuits, 1,616 parameters, chi2 stages then Poisson
                 logL) through run_iterative_gst on the card, with every
@@ -59,6 +61,25 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def card_and_host_ms(fn, reps):
+    """(card ms, host ms) per run of fn() over `reps` runs after one warm-up.
+    The stream first sleeps ~10 ms on the card, so every run is queued
+    before the start event: the card's time leaves out the host's dispatch,
+    which the host clock around the queueing gives instead."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / reps
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, host_ms
+
+
 def phase_build():
     from pygsti_tpu_torch.ops import build
     t0 = time.time()
@@ -104,10 +125,22 @@ def phase_kernels(layout, model, device):
     gen = torch.Generator(device='cpu').manual_seed(1234)
     G = torch.cat([model.tensors_fn()(torch.as_tensor(model.to_vector())).ops,
                    torch.eye(d, dtype=torch.float64)[None]]).to(device)
+    def check(what, dtype, cols, A, Bf, A2, Bf2):
+        """Max abs error of (A, Bf) against (A2, Bf2); fatal beyond tolerance."""
+        err = max(float((A - A2).abs().max()), float((Bf - Bf2).abs().max()))
+        scale = max(float(A2.abs().max()), float(Bf2.abs().max()))
+        if not err <= TOL[dtype] * scale:
+            raise SystemExit("kernel bwd_jacobian disagrees with its plain version (%s): "
+                             "%s B=%d D=%d max_abs_err=%g (scale %g)"
+                             % (what, dtype, *cols.shape, err, scale))
+        return err, scale
+
     rows = {}
     for dtype in (torch.float64, torch.float32):
-        tot = {'ms': 0.0, 'plain_ms': 0.0, 'einsum_ms': 0.0, 'bytes': 0, 'flops': 0}
+        tot = {'ms': 0.0, 'card_ms': 0.0, 'host_ms': 0.0, 'plain_ms': 0.0,
+               'einsum_ms': 0.0, 'bytes': 0, 'flops': 0}
         max_rel, max_abs = 0.0, 0.0
+        name = str(dtype).split('.')[-1]
         for bk in buckets:
             cols = bk['cols']
             B, D = cols.shape
@@ -115,38 +148,65 @@ def phase_kernels(layout, model, device):
             F = torch.randn((B, D, d), generator=gen, dtype=torch.float64).to(device, dtype)
             Gd = G.to(dtype)
             A, Bf = bwd_jacobian_accumulate(cols, Gd, E, F)
+            A_again, Bf_again = bwd_jacobian_accumulate(cols, Gd, E, F)
             torch.cuda.synchronize()
+            if not (torch.equal(A, A_again) and torch.equal(Bf, Bf_again)):
+                raise SystemExit("kernel bwd_jacobian is not bitwise deterministic: "
+                                 "%s B=%d D=%d" % (dtype, B, D))
+            del A_again, Bf_again
             A2, Bf2 = bwd_jacobian_accumulate_plain(cols, Gd, E, F)
-            A3, Bf3 = einsum_yardstick(cols, Gd, E, F)
-            err = max(float((A - A2).abs().max()), float((Bf - Bf2).abs().max()))
-            scale = max(float(A2.abs().max()), float(Bf2.abs().max()))
+            err, scale = check('fit layers', dtype, cols, A, Bf, A2, Bf2)
+            A3, _ = einsum_yardstick(cols, Gd, E, F)
             yard = float((A3 - A2).abs().max()) / scale
-            if not (err <= TOL[dtype] * scale and yard <= 1e3 * TOL[dtype]):
-                raise SystemExit("kernel bwd_jacobian disagrees with its plain "
-                                 "version: %s B=%d D=%d max_abs_err=%g (scale %g), "
-                                 "einsum rel %g" % (dtype, B, D, err, scale, yard))
+            if not yard <= 1e3 * TOL[dtype]:
+                raise SystemExit("the einsum yardstick disagrees with the plain version: "
+                                 "%s B=%d D=%d rel %g" % (dtype, B, D, yard))
             max_rel, max_abs = max(max_rel, err / scale), max(max_abs, err)
-            del A2, Bf2, A3, Bf3
-            tot['ms'] += cuda_time_ms(lambda: bwd_jacobian_accumulate(cols, Gd, E, F), 20)
-            tot['plain_ms'] += cuda_time_ms(lambda: bwd_jacobian_accumulate_plain(cols, Gd, E, F), 2)
-            tot['einsum_ms'] += cuda_time_ms(lambda: einsum_yardstick(cols, Gd, E, F), 2)
+            del A2, Bf2, A3
+            # op indices -1 and K1 select no op: 5% of the layers each
+            r = torch.rand(cols.shape, generator=gen).to(device)
+            bad = torch.where(r < 0.05, -1, torch.where(r < 0.10, K1, cols)).to(torch.int32)
+            A, Bf = bwd_jacobian_accumulate(bad, Gd, E, F)
+            A2, Bf2 = bwd_jacobian_accumulate_plain(bad, Gd, E, F)
+            err_oob, _ = check('op indices out of range', dtype, bad, A, Bf, A2, Bf2)
+            max_abs = max(max_abs, err_oob)
+            del A, Bf, A2, Bf2, bad
+            ms = cuda_time_ms(lambda: bwd_jacobian_accumulate(cols, Gd, E, F), 20)
             item = torch.finfo(dtype).bits // 8
             # each input read once, each output written once
-            tot['bytes'] += (cols.numel() * 4 + (Gd.numel() + E.numel() + F.numel()) * item
-                             + (B * n_out * K1 * d * d + B * n_out * d) * item)
+            nbytes = (cols.numel() * 4 + (Gd.numel() + E.numel() + F.numel()) * item
+                      + (B * n_out * K1 * d * d + B * n_out * d) * item)
             # per layer and pair: d*d multiply-adds into A, d*d into the new Bc
-            tot['flops'] += B * n_out * D * 2 * (2 * d * d)
+            flops = B * n_out * D * 2 * (2 * d * d)
+            bound = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+            card_ms, host_ms = card_and_host_ms(
+                lambda: bwd_jacobian_accumulate(cols, Gd, E, F), 20)
+            log("kernel bwd_jacobian %s bucket B=%d D=%d: %.4f ms, bound %.4f ms "
+                "(%.1f%% of bound, %.1f MB); the card alone %.4f ms (%.1f%% of bound), "
+                "host dispatch %.4f ms per call"
+                % (name, B, D, ms, bound, 100 * bound / ms, nbytes / 1e6,
+                   card_ms, 100 * bound / card_ms, host_ms))
+            tot['ms'] += ms
+            tot['card_ms'] += card_ms
+            tot['host_ms'] += host_ms
+            tot['plain_ms'] += cuda_time_ms(lambda: bwd_jacobian_accumulate_plain(cols, Gd, E, F), 2)
+            tot['einsum_ms'] += cuda_time_ms(lambda: einsum_yardstick(cols, Gd, E, F), 2)
+            tot['bytes'] += nbytes
+            tot['flops'] += flops
         t_bytes = tot['bytes'] / PEAK_BYTES_PER_S * 1e3
         t_ops = tot['flops'] / PEAK_FLOPS[dtype] * 1e3
         rows[dtype] = dict(tot, max_rel=max_rel, max_abs=max_abs,
                            bound_ms=max(t_bytes, t_ops),
                            bound_by='bytes' if t_bytes >= t_ops else 'operations')
         log("kernel bwd_jacobian %s: %d launches per Jacobian (blocks %s), max rel err "
-            "%.3e (tol %.0e), kernel %.4f ms, plain %.4f ms, einsum yardstick %.4f ms, "
+            "%.3e (tol %.0e; also held on op indices out of range, and bitwise "
+            "between two launches), kernel %.4f ms (%.1f%% of bound; the card alone "
+            "%.4f ms, host dispatch %.4f ms), plain %.4f ms, einsum yardstick %.4f ms, "
             "bound %.4f ms (%s: %.1f MB, %.2f GFLOP)"
-            % (str(dtype).split('.')[-1], len(buckets),
-               [tuple(b['cols'].shape) for b in buckets], max_rel, TOL[dtype],
-               tot['ms'], tot['plain_ms'], tot['einsum_ms'], rows[dtype]['bound_ms'],
+            % (name, len(buckets), [tuple(b['cols'].shape) for b in buckets], max_rel,
+               TOL[dtype], tot['ms'], 100 * rows[dtype]['bound_ms'] / tot['ms'],
+               tot['card_ms'], tot['host_ms'],
+               tot['plain_ms'], tot['einsum_ms'], rows[dtype]['bound_ms'],
                rows[dtype]['bound_by'], tot['bytes'] / 1e6, tot['flops'] / 1e9))
     return rows
 

@@ -5,7 +5,9 @@
 ``pygsti_tpu/ops/pallas_kernels.py: bwd_jacobian_accumulate``) for tensors
 on a CUDA device, and runs ``bwd_jacobian_accumulate_plain`` for tensors on
 the CPU.  On a CUDA tensor it launches the kernel or raises; it never falls
-back to the plain version.
+back to the plain version.  An op index outside ``[0, K1)`` selects no op,
+as the JAX reference's one-hot contraction does: that layer adds nothing to
+A and zeroes the back-propagated effect.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 _KERNEL_SYMBOLS = {torch.float64: 'bwd_jacobian_accumulate_f64',
                    torch.float32: 'bwd_jacobian_accumulate_f32'}
+_kernels = {}          # dtype -> the ctypes function, resolved once
 
 
 def bwd_jacobian_accumulate_plain(cols, G, E, F):
@@ -27,9 +30,11 @@ def bwd_jacobian_accumulate_plain(cols, G, E, F):
     K1, d, _ = G.shape
     NOUT = E.shape[1]
     A = torch.zeros((B, NOUT, K1, d, d), dtype=G.dtype, device=G.device)
+    ops = torch.arange(K1, device=cols.device)
     Bc = E
     for t in range(D - 1, -1, -1):
-        onehot = torch.nn.functional.one_hot(cols[:, t].long(), K1).to(G.dtype)
+        # a comparison, not F.one_hot: an index outside [0, K1) gives a zero row
+        onehot = (cols[:, t, None].long() == ops).to(G.dtype)
         A += torch.einsum('bk,bni,bj->bnkij', onehot, Bc, F[:, t])
         yb = torch.einsum('bni,kij->bnkj', Bc, G)
         Bc = torch.einsum('bnkj,bk->bnj', yb, onehot)
@@ -56,6 +61,23 @@ def _check(cols, G, E, F):
         raise ValueError("all inputs must lie on one device, got %s" % devs)
 
 
+def _kernel(dtype):
+    """The ctypes function of the kernel for ``dtype``, built and bound on
+    first use."""
+    fn = _kernels.get(dtype)
+    if fn is None:
+        symbol = _KERNEL_SYMBOLS.get(dtype)
+        if symbol is None:
+            raise TypeError("the CUDA kernel takes float32 or float64, got %s"
+                            % dtype)
+        from pygsti_tpu_torch.ops.build import load_library
+        fn = getattr(load_library('bwd_jacobian'), symbol)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _kernels[dtype] = fn
+    return fn
+
+
 def bwd_jacobian_accumulate(cols, G, E, F):
     """(A [B, NOUT, K1, d, d], B_final [B, NOUT, d]); see the module note.
 
@@ -65,26 +87,28 @@ def bwd_jacobian_accumulate(cols, G, E, F):
         return bwd_jacobian_accumulate_plain(cols, G, E, F)
     if G.device.type != 'cuda':
         raise ValueError("unsupported device %s" % G.device)
-    symbol = _KERNEL_SYMBOLS.get(G.dtype)
-    if symbol is None:
-        raise TypeError("the CUDA kernel takes float32 or float64, got %s"
-                        % G.dtype)
+    fn = _kernel(G.dtype)
     for name, t in (('cols', cols), ('G', G), ('E', E), ('F', F)):
         if not t.is_contiguous():
             raise ValueError("%s must be contiguous" % name)
-    from pygsti_tpu_torch.ops.build import load_library
-    fn = getattr(load_library('bwd_jacobian'), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     B, D = cols.shape
     K1, d, _ = G.shape
     NOUT = E.shape[1]
+    if B == 0 or D == 0 or NOUT == 0:     # nothing to launch
+        return (torch.zeros((B, NOUT, K1, d, d), dtype=G.dtype, device=G.device),
+                E.clone())
     A = torch.empty((B, NOUT, K1, d, d), dtype=G.dtype, device=G.device)
     b_final = torch.empty((B, NOUT, d), dtype=G.dtype, device=G.device)
+    args = (cols.data_ptr(), G.data_ptr(), E.data_ptr(), F.data_ptr(),
+            A.data_ptr(), b_final.data_ptr(), B, D, K1, d, NOUT)
     with torch.cuda.device(G.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(cols.data_ptr(), G.data_ptr(), E.data_ptr(), F.data_ptr(),
-                 A.data_ptr(), b_final.data_ptr(), B, D, K1, d, NOUT, stream)
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err < 0:
+        raise ValueError("bwd_jacobian: the op stack G [%d, %d, %d] and one "
+                         "layer's buffers need %d bytes of shared memory, "
+                         "more than one block may opt in to on %s (its "
+                         "cudaDevAttrMaxSharedMemoryPerBlockOptin)"
+                         % (K1, d, d, -err, torch.cuda.get_device_name(G.device)))
     if err != 0:
         raise RuntimeError("bwd_jacobian kernel launch failed: CUDA error %d"
                            % err)

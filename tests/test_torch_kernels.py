@@ -46,6 +46,29 @@ def test_plain_matches_jax_reference_f64(shape):
     assert _rel(Bf_t.numpy(), np.asarray(Bf_j)) < 1e-12
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_matches_jax_reference_out_of_range_ops(shape):
+    """Op indices -1 and K1 select no op in the JAX reference (a zero
+    one-hot row: nothing added to A, the effect row zeroed); the plain
+    version must do the same, at the same 1e-12 relative in float64."""
+    cols, G, E, F = _inputs(4, *shape)
+    B, D, K1 = shape[0], shape[1], shape[2]
+    rng = np.random.RandomState(5)
+    # even rows only: one such layer zeroes the row's B_final for good
+    even = (np.arange(B) % 2 == 0)[:, None]
+    cols[even & (rng.rand(B, D) < 0.15)] = -1
+    cols[even & (rng.rand(B, D) < 0.15)] = K1
+    cols[0, 1], cols[2, 2] = -1, K1
+    A_j, Bf_j = pk.bwd_jacobian_accumulate_reference(
+        jnp.asarray(cols), jnp.asarray(G), jnp.asarray(E), jnp.asarray(F))
+    A_t, Bf_t = bwd_jacobian_accumulate(
+        torch.as_tensor(cols), torch.as_tensor(G), torch.as_tensor(E),
+        torch.as_tensor(F))
+    assert np.abs(np.asarray(A_j)).max() > 0
+    assert _rel(A_t.numpy(), np.asarray(A_j)) < 1e-12
+    assert _rel(Bf_t.numpy(), np.asarray(Bf_j)) < 1e-12
+
+
 def test_plain_matches_pallas_kernel_f32():
     """float32 against the Pallas kernel in interpret mode (as
     tests/test_pallas_kernels.py runs it): 1e-5 relative covers float32
