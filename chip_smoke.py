@@ -10,14 +10,18 @@ Phases, each fatal on failure:
                 launches, with times per shape beside the least time the
                 card could take, the plain version and a batched-einsum
                 yardstick
-  3. fit     -- the 2-qubit iterative GST fit at full width (smq2Q_XYICNOT,
+  3. fit     -- the 2-qubit GST protocol at full width (smq2Q_XYICNOT,
                 13,958 circuits, 1,616 parameters, chi2 stages then Poisson
-                logL) through run_iterative_gst on the card, with every
-                kernel's launch count over exactly this phase
+                logL, then the three stages of 'stdgaugeopt') through
+                GateSetTomography.run on the card, with checkpoints, and
+                with every kernel's launch count over exactly this phase
   4. checks  -- the fitted model's probabilities against a numpy reference,
-                and the blocked J^T J / J^T f on the card against the CPU path
+                the gauge-optimized model's against the fitted model's, and
+                the blocked J^T J / J^T f on the card against the CPU path
   5. profile -- device time by kernel of one J^T J / J^T f and one residual
                 at the fitted point, from torch.profiler
+  6. lgst    -- linear-inversion GST on the same data (numpy on the host, as
+                in the JAX package), gauge-optimized to the target on the card
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -26,6 +30,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -233,14 +238,18 @@ def main():
     import pygsti_tpu_torch
     if not os.path.abspath(pygsti_tpu_torch.__file__).startswith(HERE + os.sep):
         raise SystemExit("pygsti_tpu_torch was not found beside chip_smoke.py")
-    from pygsti_tpu_torch.algorithms.core import run_iterative_gst
+    from pygsti_tpu_torch.algorithms.core import run_lgst
+    from pygsti_tpu_torch.algorithms.gaugeopt import gaugeopt_to_target
     from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
     from pygsti_tpu_torch.data.datasetconstruction import simulate_data
     from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
     from pygsti_tpu_torch.modelpacks import smq2Q_XYICNOT as mp
     from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
     from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
-    from pygsti_tpu_torch.protocols.estimate import misfit_sigma
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyCheckpoint,
+                                                GateSetTomographyDesign, GSTInitialModel,
+                                                GSTObjFnBuilders)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
 
     device = torch.device('cuda', 0)
     log("torch %s, CUDA %s, %s x%d" % (torch.__version__, torch.version.cuda,
@@ -270,54 +279,107 @@ def main():
     ds = simulate_data(datagen, final, 1000, seed=1234, device=device)
     log("data: %d circuits x 1000 shots simulated on the card in %.2f s"
         % (len(ds), time.time() - t0))
-    builders = ([ObjectiveFunctionBuilder(
-        'chi2', regularization={'min_prob_clip_for_weighting': MINCLIP})],
+    builders = GSTObjFnBuilders(
+        [ObjectiveFunctionBuilder(
+            'chi2', regularization={'min_prob_clip_for_weighting': MINCLIP})],
         [ObjectiveFunctionBuilder(
             'logl', regularization={'min_prob_clip': MINCLIP, 'radius': MINCLIP})])
     log("fit: LM maxiter %d per stage (the optimizer's default)" % LM_MAXITER)
+    data = ProtocolData(GateSetTomographyDesign(target, lists), ds)
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()),
+                            gaugeopt_suite='stdgaugeopt', objfn_builders=builders,
+                            optimizer={'maxiter': LM_MAXITER}, verbosity=0, device=device)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     bwd_jacobian_accumulate.launches = 0
-    t0 = time.time()
-    models, results = run_iterative_gst(ds, target, lists, {'maxiter': LM_MAXITER},
-                                        builders[0], builders[1], device=device)
-    torch.cuda.synchronize()
-    fit_wall = time.time() - t0
-    launches = {'bwd_jacobian': bwd_jacobian_accumulate.launches}
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.time()
+        results = gst.run(data, checkpoint_path=os.path.join(ckdir, 'chip_smoke'))
+        torch.cuda.synchronize()
+        run_wall = time.time() - t0
+        launches = {'bwd_jacobian': bwd_jacobian_accumulate.launches}
+        ckfiles = sorted(os.listdir(ckdir))
+        cksizes = [os.path.getsize(os.path.join(ckdir, f)) for f in ckfiles]
+        last_ck = GateSetTomographyCheckpoint.read(
+            os.path.join(ckdir, 'chip_smoke_iteration_%d.json' % (len(lists) - 1)))
+    est = results.estimates['GateSetTomography']
+    timers = est.parameters['profiler']
     total_iters = 0
-    for i, stage_results in enumerate(results):
+    for i, stage_results in enumerate(est.parameters['optimizer_results']):
         for r in stage_results:
             q = r.optimizer_specific_qtys
             total_iters += q['iterations']
             log("fit stage %d (%d circuits) %s: %d LM iterations, %.3f s, objective %.6f, %s"
                 % (i, len(lists[i]), r.objective.name, q['iterations'], q['wall_s'],
                    r.f, q['msg']))
-    fit_value = results[-1][-1].chi2_k_distributed_qty
-    dof = ds.degrees_of_freedom(final) - models[-1].num_params
-    nsigma = misfit_sigma(fit_value, dof)
-    log("fit: %d LM iterations in %.3f s wall; final 2*DeltaLogL %.6f, k %d, N_sigma %.4f"
-        % (total_iters, fit_wall, fit_value, dof, nsigma))
+    # the window of the earlier smoke runs: the iterations alone (each LM
+    # stage ends in a read of its result, so the card has finished), without
+    # the checkpoint files written between them
+    fit_wall = est.parameters['fit_time'] - timers['checkpoint writes']
+    fit_value = est.parameters['final_objfn_value']
+    dof = est.parameters['final_dof']
+    nsigma = est.misfit_sigma()
+    log("fit: %d LM iterations in %.3f s wall (GateSetTomography.run as a whole: %.3f s); "
+        "final 2*DeltaLogL %.6f, k %d, N_sigma %.4f"
+        % (total_iters, fit_wall, run_wall, fit_value, dof, nsigma))
     log("fit: kernel launches %s; peak device memory %.1f MB"
         % (launches, torch.cuda.max_memory_allocated() / 1e6))
+    log("run: phase times of GateSetTomography.run (host clock):\n"
+        + "\n".join("  %-40s %.3f s" % kv for kv in sorted(timers.items())))
+    fitted = est.models['final iteration estimate']
+    gauged = est.models['stdgaugeopt']
+    for i, st in enumerate(est.parameters['gaugeopt_stats']['stdgaugeopt']):
+        log("gaugeopt stage %d: %s group, %d parameters; Adam %d steps in %.3f s "
+            "(%.3f ms per step); L-BFGS-B %d iterations, %d evaluations in %.3f s; "
+            "objective %.9g -> %.9g"
+            % (i + 1, st['group'], st['num_params'], st['adam_steps'], st['adam_s'],
+               1e3 * st['adam_s'] / max(st['adam_steps'], 1), st['lbfgs_iterations'],
+               st['lbfgs_evaluations'], st['lbfgs_s'], st['objective_before'],
+               st['objective_after']))
+        if not (np.isfinite(st['objective_after'])
+                and st['objective_after'] <= st['objective_before']):
+            raise SystemExit("gauge-opt stage %d ended at %r from %r"
+                             % (i + 1, st['objective_after'], st['objective_before']))
+    # Stage 1 weighs every element alike, so its objective is the squared
+    # Frobenius distance to the target: that distance must not rise there.
+    # Stages 2 and 3 weigh gates or SPAM only, and stage 3 adds the SPAM
+    # positivity penalty, so the distance after all three may be larger.
+    stage1 = est.parameters['gaugeopt_stats']['stdgaugeopt'][0]
+    dist_before, dist_after = fitted.frobeniusdist(target), gauged.frobeniusdist(target)
+    dist_stage1 = float(np.sqrt(stage1['objective_after']))
+    log("gaugeopt: Frobenius distance to the target %.9g before, %.9g after stage 1, "
+        "%.9g after 'stdgaugeopt'" % (dist_before, dist_stage1, dist_after))
+    log("checkpoints: %d files, %s bytes" % (len(ckfiles), cksizes))
     if launches['bwd_jacobian'] == 0:
         raise SystemExit("the fit never launched the bwd_jacobian kernel")
-    theta = models[-1].to_vector()
+    theta = fitted.to_vector()
     if not (np.all(np.isfinite(theta)) and np.isfinite(fit_value) and np.isfinite(nsigma)):
         raise SystemExit("non-finite fit result")
     if not nsigma < 10:
         raise SystemExit("the fit is far from the statistical optimum: N_sigma %g" % nsigma)
+    if not (abs(stage1['objective_before'] - dist_before ** 2) <= 1e-9 * dist_before ** 2
+            and dist_stage1 < dist_before and np.isfinite(dist_after)):
+        raise SystemExit("gauge-opt stage 1 did not bring the model closer to the target")
+    if len(ckfiles) != len(lists) or \
+            not np.array_equal(last_ck.mdl_list[-1].to_vector(), theta):
+        raise SystemExit("the last checkpoint does not read back to the final model")
 
     # -- checks against references on small inputs ---------------------------
-    fitted = models[-1]
     check = final[:: len(final) // 200][:200]
-    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(
-        SimpleForwardSimulator(fitted, device).create_layout(check))
+    check_layout = SimpleForwardSimulator(fitted, device).create_layout(check)
+    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(check_layout)
     p_ref = reference_probs(fitted, check)
     dp = float(np.max(np.abs(p_card - p_ref)))
     log("check: probabilities of %d circuits vs numpy reference: max |dp| %.3e (tol 1e-10)"
         % (len(check), dp))
     if p_card.shape != p_ref.shape or not dp < 1e-10:
         raise SystemExit("probabilities disagree with the numpy reference")
+    dp = float(np.max(np.abs(
+        SimpleForwardSimulator(gauged, device).bulk_fill_probs(check_layout) - p_card)))
+    log("check: probabilities of the 'stdgaugeopt' model vs the fitted model's: "
+        "max |dp| %.3e (tol 1e-9: a gauge transformation changes none)" % dp)
+    if not dp < 1e-9:
+        raise SystemExit("gauge optimization changed the model's probabilities")
     small = list(lists[0])
     objs = [ObjectiveFunctionBuilder('logl').build(fitted, ds, small, device=dev)
             for dev in (device, 'cpu')]
@@ -338,6 +400,46 @@ def main():
         torch.cuda.synchronize()
     log("profile: one jtj_jtf + one lsvec on the final list (%d circuits)" % len(final))
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
+
+    # -- LGST on the same data, gauge-optimized on the card -------------------
+    t0 = time.time()
+    lgst = run_lgst(ds, mp.prep_fiducials(), mp.meas_fiducials(), target, verbosity=2)
+    t1 = time.time()
+    stats = {}
+    lgst_go = gaugeopt_to_target(lgst, target, device=device, stats=stats)
+    t2 = time.time()
+    lgst_dist = lgst_go.frobeniusdist(datagen)
+    lgst_2dlogl = 2 * ObjectiveFunctionBuilder('logl').build(
+        lgst_go, ds, small, device=device).fn()
+    log("lgst: %d x %d fiducial pairs, %d ops: run_lgst %.3f s on the host; gaugeopt_to_target "
+        "(%s group, %d parameters) %.3f s on the card (Adam %.3f ms per step), objective "
+        "%.6g -> %.6g; Frobenius "
+        "distance to the data-generating model %.6g; 2*DeltaLogL on the first list "
+        "(%d circuits) %.6g"
+        % (len(mp.prep_fiducials()), len(mp.meas_fiducials()), len(target.operations),
+           t1 - t0, stats['group'], stats['num_params'], t2 - t1,
+           1e3 * stats['adam_s'] / stats['adam_steps'], stats['objective_before'],
+           stats['objective_after'], lgst_dist, len(small), lgst_2dlogl))
+    if not (np.isfinite(lgst_dist) and np.isfinite(lgst_2dlogl) and lgst_dist <= 0.5):
+        raise SystemExit("LGST is not finite or far from the data-generating model")
+    # what one gauge-opt step costs the card against what it costs the host
+    pstats = {}
+    with torch.profiler.profile(activities=acts) as prof:
+        gaugeopt_to_target(lgst, target, device=device, maxiter=100, stats=pstats)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    evals = pstats['adam_steps'] + pstats['lbfgs_evaluations'] + 1
+    log("profile: gaugeopt_to_target (%s group, %d parameters), %d Adam steps + %d L-BFGS-B "
+        "evaluations: the card busy %.3f ms in %d kernel launches (%.4f ms and %.0f launches "
+        "per evaluation of value and gradient); unprofiled, an Adam step took %.3f ms of "
+        "wall time in the run above, so the card was busy %.1f%% of it"
+        % (pstats['group'], pstats['num_params'], pstats['adam_steps'],
+           pstats['lbfgs_evaluations'], busy_ms, sum(e.count for e in kernels),
+           busy_ms / evals, sum(e.count for e in kernels) / evals,
+           1e3 * stats['adam_s'] / stats['adam_steps'],
+           100 * (busy_ms / evals) / (1e3 * stats['adam_s'] / stats['adam_steps'])))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{

@@ -1,8 +1,9 @@
-"""Carry a JAX-package model's parameters into the port.
+"""Carry a JAX-package model's parameters, and its gauge-group elements,
+into the port.
 
-Both functions take plain numpy data -- what ``pygsti_tpu``'s
-``model.to_vector()`` or its members' dense matrices give -- and never
-import the JAX package.  Labels are given as strings ('Gxpi2:1', '[]',
+The functions take plain numpy data -- what ``pygsti_tpu``'s
+``model.to_vector()``, its members' dense matrices or a gauge group's
+parameter vector give -- and never import the JAX package.  Labels are given as strings ('Gxpi2:1', '[]',
 'Gcnot:0:1', 'rho0', 'Mdefault').
 """
 
@@ -13,7 +14,13 @@ import collections
 import numpy as np
 
 from pygsti_tpu_torch.circuits.circuitparser import parse_label_str
+from pygsti_tpu_torch.models import gaugegroup as _gg
 from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
+
+_GAUGE_GROUPS = {cls.name: cls for cls in (
+    _gg.TrivialGaugeGroup, _gg.FullGaugeGroup, _gg.TPGaugeGroup, _gg.DiagGaugeGroup,
+    _gg.TPDiagGaugeGroup, _gg.UnitaryGaugeGroup, _gg.SpamGaugeGroup,
+    _gg.TPSpamGaugeGroup)}
 
 
 def model_from_vector(template, theta):
@@ -48,3 +55,26 @@ def model_from_dense(ops, preps, povms, gate_type='full', basis='pp'):
     for lbl, mx in ops.items():
         m.operations[parse_label_str(lbl)] = np.asarray(mx, dtype=float)
     return m
+
+
+def gauge_group_from_name(group_name, dim, basis='pp'):
+    """The port's gauge group for a JAX-package group's ``name`` ('Full',
+    'TP', 'Diag', 'TP Diag', 'Unitary', 'Spam', 'TP Spam', 'Trivial') on a
+    `dim`-dimensional superoperator space."""
+    if group_name not in _GAUGE_GROUPS:
+        raise ValueError("no gauge group named %r in the port (it has %s)"
+                         % (group_name, sorted(_GAUGE_GROUPS)))
+    cls = _GAUGE_GROUPS[group_name]
+    return cls(dim, basis) if cls is _gg.UnitaryGaugeGroup else cls(dim)
+
+
+def gauge_element_from_params(group_name, params, dim, basis='pp'):
+    """The port's GaugeGroupElement for a JAX-package group's name and
+    parameter vector: both packages parameterize each group alike, so one
+    vector means one transformation in both."""
+    params = np.asarray(params, dtype=float)
+    group = gauge_group_from_name(group_name, dim, basis)
+    if params.shape != (group.num_params,):
+        raise ValueError("params has shape %s; the %s group on dimension %d has %d "
+                         "parameters" % (params.shape, group_name, dim, group.num_params))
+    return group.compute_element(params)

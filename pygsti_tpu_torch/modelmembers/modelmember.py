@@ -16,8 +16,10 @@ import copy
 import numpy as np
 import torch
 
+from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
 
-class ModelMember(object):
+
+class ModelMember(NicelySerializable):
     """Base class for operations / states / POVMs."""
 
     def __init__(self, initial_paramvals=None):
@@ -50,3 +52,9 @@ class ModelMember(object):
 
     def copy(self):
         return copy.deepcopy(self)
+
+    def transform_inplace(self, s_matrix, s_inverse):
+        """Apply a gauge transformation given as host numpy matrices
+        (members that support it override)."""
+        raise NotImplementedError("%s does not support gauge transforms"
+                                  % type(self).__name__)

@@ -1,6 +1,7 @@
 """Operation parameterizations as pure torch functions (counterpart of
 pygsti_tpu/modelmembers/operations.py: the static ops, FullArbitraryOp and
-FullTPOp)."""
+FullTPOp, each with its gauge transform and serialization, and the
+Hermitian-from-real-parameters map of the unitary gauge group)."""
 
 from __future__ import annotations
 
@@ -33,6 +34,17 @@ class StaticArbitraryOp(LinearOperator):
     def dense(self):
         return self._mx.copy()
 
+    def transform_inplace(self, s, sinv):
+        self._mx = sinv @ self._mx @ s
+
+    def _to_nice_serialization(self):
+        return {'mx': self._mx}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        # the static subclasses serialize as their dense matrix
+        return StaticArbitraryOp(np.asarray(state['mx']))
+
 
 class StaticUnitaryOp(StaticArbitraryOp):
     """A fixed superoperator built from a unitary."""
@@ -61,6 +73,17 @@ class FullArbitraryOp(LinearOperator):
     def to_dense(self, v):
         return v.reshape(self._dim, self._dim)
 
+    def _to_nice_serialization(self):
+        return {'mx': self.dense()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(np.asarray(state['mx']))
+
+    def transform_inplace(self, s, sinv):
+        d = self._dim
+        self._paramvals = (sinv @ self._paramvals.reshape(d, d) @ s).reshape(-1)
+
 
 class FullTPOp(LinearOperator):
     """Trace-preserving superop: first row fixed to [1,0,...,0]; the other
@@ -79,3 +102,29 @@ class FullTPOp(LinearOperator):
         first_row = torch.zeros((1, d), dtype=v.dtype, device=v.device)
         first_row[0, 0] = 1.0
         return torch.cat([first_row, v.reshape(d - 1, d)], dim=0)
+
+    def _to_nice_serialization(self):
+        return {'mx': self.dense()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(np.asarray(state['mx']))
+
+    def transform_inplace(self, s, sinv):
+        d = self._dim
+        mx = sinv @ self.dense() @ s
+        assert np.allclose(mx[0], np.eye(d)[0], atol=1e-6), "Gauge transform broke TP"
+        mx[0] = np.eye(d)[0]  # clean numerical noise
+        self._paramvals = mx[1:, :].reshape(-1)
+
+
+def _real_params_to_hermitian(v, d):
+    """Real vector (d*d: the diagonal, then (re, im) of the upper triangle
+    row by row) -> Hermitian complex [d, d] tensor on v's device."""
+    ctype = torch.complex128 if v.dtype == torch.float64 else torch.complex64
+    iu = torch.triu_indices(d, d, offset=1, device=v.device)
+    upper = torch.complex(v[d::2], v[d + 1::2]).to(ctype)
+    h = torch.zeros((d, d), dtype=ctype, device=v.device)
+    h = h.index_put((iu[0], iu[1]), upper)
+    h = h + h.conj().T
+    return h + torch.diag(v[:d].to(ctype))

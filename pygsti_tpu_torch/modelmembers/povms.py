@@ -1,8 +1,11 @@
 """POVMs as pure torch functions (counterpart of
-pygsti_tpu/modelmembers/povms.py: UnconstrainedPOVM, TPPOVM).  A POVM's dense
-rep is the stack of its effect vectors [n_outcomes, dim]."""
+pygsti_tpu/modelmembers/povms.py: UnconstrainedPOVM, TPPOVM, each with its
+gauge transform and serialization).  A POVM's dense rep is the stack of its
+effect vectors [n_outcomes, dim]."""
 
 from __future__ import annotations
+
+import collections
 
 import numpy as np
 import torch
@@ -31,6 +34,18 @@ class POVM(ModelMember):
     def num_outcomes(self):
         return len(self._outcome_labels)
 
+    def items(self):
+        """[(outcome label, dense effect vector)] at the current values."""
+        return list(zip(self._outcome_labels, self.dense()))
+
+    def _to_nice_serialization(self):
+        return {'effects': [[ol, ev] for ol, ev in self.items()]}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(collections.OrderedDict(
+            (ol, np.asarray(ev)) for ol, ev in state['effects']))
+
 
 class UnconstrainedPOVM(POVM):
     """Every effect fully parameterized."""
@@ -42,6 +57,10 @@ class UnconstrainedPOVM(POVM):
 
     def to_dense(self, v):
         return v.reshape(self.num_outcomes, self._dim)
+
+    def transform_inplace(self, s, sinv):
+        dense = self._paramvals.reshape(self.num_outcomes, self._dim)
+        self._paramvals = (dense @ s).reshape(-1)
 
 
 class TPPOVM(POVM):
@@ -65,3 +84,10 @@ class TPPOVM(POVM):
         ident = torch.as_tensor(self._identity_vec, dtype=v.dtype, device=v.device)
         last = ident - free.sum(dim=0)
         return torch.cat([free, last[None, :]], dim=0)
+
+    def transform_inplace(self, s, sinv):
+        # only the free effects move; the last stays identity minus their
+        # sum, which is right for the groups that fix the identity vector
+        # (TP, unitary, TP-spam), as in the JAX package
+        free = self._paramvals.reshape(self.num_outcomes - 1, self._dim) @ s
+        self._paramvals = free.reshape(-1)

@@ -1,5 +1,6 @@
 """State preparations as pure torch functions (counterpart of
-pygsti_tpu/modelmembers/states.py: StaticState, FullState, TPState)."""
+pygsti_tpu/modelmembers/states.py: StaticState, FullState, TPState, each
+with its gauge transform and serialization)."""
 
 from __future__ import annotations
 
@@ -16,6 +17,13 @@ class State(ModelMember):
         super().__init__(initial_paramvals)
         self._dim = dim
 
+    def _to_nice_serialization(self):
+        return {'vec': self.dense()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(np.asarray(state['vec']))
+
 
 class StaticState(State):
     """Fixed state vector."""
@@ -31,6 +39,9 @@ class StaticState(State):
     def dense(self):
         return self._vec.copy()
 
+    def transform_inplace(self, s, sinv):
+        self._vec = sinv @ self._vec
+
 
 class FullState(State):
     """Every component is a parameter."""
@@ -41,6 +52,9 @@ class FullState(State):
 
     def to_dense(self, v):
         return v
+
+    def transform_inplace(self, s, sinv):
+        self._paramvals = sinv @ self._paramvals
 
 
 class TPState(State):
@@ -59,3 +73,8 @@ class TPState(State):
     def to_dense(self, v):
         first = torch.full((1,), self._first, dtype=v.dtype, device=v.device)
         return torch.cat([first, v])
+
+    def transform_inplace(self, s, sinv):
+        new = sinv @ np.concatenate([[self._first], self._paramvals])
+        assert np.isclose(new[0], self._first, atol=1e-6), "Gauge transform broke TP state"
+        self._paramvals = new[1:]

@@ -5,7 +5,9 @@ POVMs (counterpart of pygsti_tpu/models/explicitmodel.py).
 (stacked op matrices, prep vectors and effect rows) on ``v``'s device and
 dtype.  The parameter vector is laid out preps, POVMs, operations, each in
 insertion order, exactly as in the JAX package, so one vector means one
-model in both.
+model in both.  A model is gauge-transformed in place by a
+GaugeGroupElement (host numpy) and serializes to the JAX package's state
+layout, so either package's checkpoint reads here.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from pygsti_tpu_torch.baseobjs.label import Label
+from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
 from pygsti_tpu_torch.models.model import OpModel
 from pygsti_tpu_torch.modelmembers.modelmember import ModelMember
 from pygsti_tpu_torch.modelmembers import operations as _op
@@ -164,4 +167,63 @@ class ExplicitOpModel(OpModel):
             D = np.diag([1.0] + [1.0 - spam_noise] * (d - 1))
             for lbl, p in list(m.preps.items()):
                 m.preps[lbl] = type(p)(D @ p.dense())
+        return m
+
+    def transform_inplace(self, s):
+        """Apply the gauge transformation of element `s` (has
+        .transform_matrix and .transform_matrix_inverse): rho -> Sinv rho,
+        E -> E S, G -> Sinv G S."""
+        smx = s.transform_matrix if hasattr(s, 'transform_matrix') else np.asarray(s)
+        sinv = s.transform_matrix_inverse if hasattr(s, 'transform_matrix_inverse') \
+            else np.linalg.inv(smx)
+        for _, obj in self._iter_parameterized_objs():
+            obj.transform_inplace(smx, sinv)
+        self._mark_for_rebuild()
+
+    def frobeniusdist(self, other):
+        """RMS Frobenius distance over corresponding members."""
+        total, count = 0.0, 0
+        for mine, theirs in ((self.operations, other.operations),
+                             (self.preps, other.preps), (self.povms, other.povms)):
+            for lbl in mine:
+                diff = mine[lbl].dense() - theirs[lbl].dense()
+                total += np.sum(diff ** 2)
+                count += diff.size
+        return np.sqrt(total / count) if count else 0.0
+
+    # -- serialization --------------------------------------------------------
+    def to_nice_serialization(self):
+        """The JAX package's state layout, with the port's module names.
+        The port's models carry a dimension and no state-space labels, so
+        'dim' stands where the JAX package writes its state space."""
+        def ser(obj):
+            return obj.to_nice_serialization()
+        return {
+            'module': type(self).__module__, 'class': type(self).__name__,
+            'dim': self.dim,
+            'basis': self.basis.name,
+            'default_gate_type': self.default_gate_type,
+            'default_prep_type': self.default_prep_type,
+            'default_povm_type': self.default_povm_type,
+            'preps': [[str(lbl), ser(o)] for lbl, o in self.preps.items()],
+            'povms': [[str(lbl), ser(o)] for lbl, o in self.povms.items()],
+            'operations': [[list(lbl) if isinstance(lbl, tuple) else str(lbl), ser(o)]
+                           for lbl, o in self.operations.items()],
+        }
+
+    @classmethod
+    def from_nice_serialization(cls, state):
+        """Reads the port's states and the JAX package's (whose state space
+        is given as per-factor Hilbert dimensions)."""
+        if 'dim' in state:
+            dim = state['dim']
+        else:
+            dim = int(np.prod(state['state_space_udims'])) ** 2
+        m = cls(dim, state['basis'], state['default_gate_type'],
+                state['default_prep_type'], state['default_povm_type'])
+        for kind in ('preps', 'povms', 'operations'):
+            members = getattr(m, kind)
+            for lbl, s in state[kind]:
+                key = Label(tuple(lbl)) if isinstance(lbl, list) else Label(lbl)
+                members[key] = NicelySerializable.from_nice_serialization(s)
         return m

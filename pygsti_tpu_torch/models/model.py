@@ -7,9 +7,10 @@ from __future__ import annotations
 import numpy as np
 
 from pygsti_tpu_torch.baseobjs.basis import Basis
+from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
 
 
-class Model(object):
+class Model(NicelySerializable):
     """Base model: parameter-vector owner."""
 
     def __init__(self, dim):

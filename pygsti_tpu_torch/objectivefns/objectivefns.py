@@ -333,6 +333,47 @@ class TimeIndependentMDCObjectiveFunction(object):
         return self.layout.num_elements
 
 
+# -- CPTP / SPAM penalty pieces -------------------------------------------------
+# (used by the gauge objective; the penalty rows of the fit's own objective
+# are not ported)
+_NEG_EIG_SQRT_SHIFT = 1e-6
+
+
+class HermitianSpectralSum(torch.autograd.Function):
+    """sum_i g(ev_i) over the eigenvalues of a Hermitian matrix [..., n, n]
+    (one value per matrix of the batch), for g(x) = -min(x, 0) (`which` =
+    'neg') or g(x) = |x| ('abs').  The backward is the first-order formula
+    d = sum_i g'(ev_i) u_i^dag dA u_i, i.e. the gradient U diag(g') U^dag:
+    the derivative of eigenvectors divides by eigenvalue gaps and is not
+    finite at the degenerate spectra of rank-deficient Choi and density
+    matrices, which is also why the JAX package writes these two by hand."""
+
+    @staticmethod
+    def forward(ctx, A, which):
+        ev, U = torch.linalg.eigh(A)
+        if which == 'neg':
+            val, slopes = -torch.sum(torch.clamp(ev, max=0.0), dim=-1), -(ev < 0).to(ev.dtype)
+        elif which == 'abs':
+            val, slopes = torch.sum(torch.abs(ev), dim=-1), torch.sign(ev)
+        else:
+            raise ValueError("unknown spectral sum %r" % (which,))
+        ctx.save_for_backward(U, slopes)
+        return val
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        U, slopes = ctx.saved_tensors
+        grad = (U * slopes[..., None, :].to(U.dtype)) @ U.conj().transpose(-1, -2)
+        return grad_out[..., None, None] * grad, None
+
+
+def _sum_neg_evals(A):
+    """-sum of the negative eigenvalues of a Hermitian matrix (or of each
+    of a batch), with a derivative that stays finite at degenerate
+    eigenvalues."""
+    return HermitianSpectralSum.apply(A, 'neg')
+
+
 # -- the blocked Jacobian ------------------------------------------------------
 
 def bucket_plan(layout, n_out, NT, device):

@@ -1,6 +1,7 @@
 """The port's host layers and model against the JAX package's: circuit lists,
 member dense forms, tensors_fn and the parameter conversion."""
 
+import json
 import subprocess
 import sys
 
@@ -117,11 +118,25 @@ def test_tensors_fn_and_convert(pack, gate_type):
             assert np.max(np.abs(a - b)) < 1e-14
 
 
-def test_port_imports_no_jax():
-    """The port's package loads without JAX and without pygsti_tpu."""
-    code = ("import sys, pygsti_tpu_torch.algorithms.core, pygsti_tpu_torch.convert,"
-            " pygsti_tpu_torch.data.datasetconstruction,"
-            " pygsti_tpu_torch.modelpacks.smq2Q_XYICNOT;"
-            " bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')];"
-            " assert not bad, bad")
-    subprocess.run([sys.executable, "-c", code], check=True, timeout=120)
+def test_port_imports_no_jax(tmp_path):
+    """Every module of the port loads, and a checkpoint the JAX package
+    wrote reads back, in a process that ends with neither JAX nor
+    pygsti_tpu imported."""
+    from pygsti_tpu.protocols.gst import GateSetTomographyCheckpoint as JCheckpoint
+    jm = jmp1.target_model('full TP').depolarize(op_noise=0.02)
+    path = str(tmp_path / 'jax_iteration_0.json')
+    JCheckpoint([jm], 0, jmp1.germs()[:3], None, 'GateSetTomography').write(path)
+    code = ("import sys, importlib, json, pkgutil, pygsti_tpu_torch\n"
+            "names = [m.name for m in pkgutil.walk_packages(pygsti_tpu_torch.__path__,\n"
+            "                                                'pygsti_tpu_torch.')]\n"
+            "for name in names: importlib.import_module(name)\n"
+            "assert 'pygsti_tpu_torch.protocols.gst' in names and len(names) > 45, names\n"
+            "from pygsti_tpu_torch.protocols.gst import GateSetTomographyCheckpoint\n"
+            "ck = GateSetTomographyCheckpoint.read(%r)\n"
+            "assert type(ck.mdl_list[0]).__module__ == 'pygsti_tpu_torch.models.explicitmodel'\n"
+            "print(json.dumps(ck.mdl_list[0].to_vector().tolist()))\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n" % path)
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert np.array_equal(np.array(json.loads(out.strip().splitlines()[-1])), jm.to_vector())
