@@ -20,7 +20,14 @@ Phases, each fatal on failure:
                 the blocked J^T J / J^T f on the card against the CPU path
   5. profile -- device time by kernel of one J^T J / J^T f and one residual
                 at the fitted point, from torch.profiler
-  6. lgst    -- linear-inversion GST on the same data (numpy on the host, as
+  6. cptp fit-- the CPTP-constrained fit of the same data at full width
+                ('CPTPLND': every member an exponentiated Lindblad error
+                generator, 1,920 parameters) through GateSetTomography.run
+                from the target, with checkpoints and its own launch count;
+                the fitted operations must be CPTP and cannot fit better
+                than the 'full' model; and the card's time for the model's
+                tensors and their Jacobian beside the 'full' model's
+  7. lgst    -- linear-inversion GST on the same data (numpy on the host, as
                 in the JAX package), gauge-optimized to the target on the card
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -230,6 +237,154 @@ def reference_probs(model, circuits):
     return np.concatenate(out)
 
 
+def log_stages(prefix, est, lists):
+    """Print each LM stage of an estimate; returns the total of iterations."""
+    total_iters = 0
+    for i, stage_results in enumerate(est.parameters['optimizer_results']):
+        for r in stage_results:
+            q = r.optimizer_specific_qtys
+            total_iters += q['iterations']
+            log("%s stage %d (%d circuits) %s: %d LM iterations, %.3f s, objective %.6f, %s"
+                % (prefix, i, len(lists[i]), r.objective.name, q['iterations'], q['wall_s'],
+                   r.f, q['msg']))
+    return total_iters
+
+
+def phase_cptp_fit(mp, lists, ds, builders, full_value, full_model, check, device):
+    """The CPTPLND fit at full width; returns its kernel launch count."""
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyCheckpoint,
+                                                GateSetTomographyDesign, GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.tools.jamiolkowski import fast_jamiolkowski_iso_std
+
+    t0 = time.time()
+    target = mp.target_model('CPTPLND')
+    log("cptp: target model of %d parameters, members %s, built in %.2f s"
+        % (target.num_params,
+           sorted({type(o).__name__ for _, o in target._iter_parameterized_objs()}),
+           time.time() - t0))
+    if target.num_params != 1920:
+        raise SystemExit("unexpected CPTPLND model size")
+    data = ProtocolData(GateSetTomographyDesign(target, lists), ds)
+    gst = GateSetTomography(GSTInitialModel(target_model=target, starting_point='target'),
+                            gaugeopt_suite=None, objfn_builders=builders,
+                            optimizer={'maxiter': LM_MAXITER}, verbosity=0, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.time()
+        results = gst.run(data, checkpoint_path=os.path.join(ckdir, 'cptp'))
+        torch.cuda.synchronize()
+        run_wall = time.time() - t0
+        launches = bwd_jacobian_accumulate.launches
+        ckfiles = sorted(os.listdir(ckdir))
+        cksizes = [os.path.getsize(os.path.join(ckdir, f)) for f in ckfiles]
+        last_ck = GateSetTomographyCheckpoint.read(
+            os.path.join(ckdir, 'cptp_iteration_%d.json' % (len(lists) - 1)))
+    est = results.estimates['GateSetTomography']
+    timers = est.parameters['profiler']
+    total_iters = log_stages('cptp', est, lists)
+    fit_wall = est.parameters['fit_time'] - timers['checkpoint writes']
+    value = est.parameters['final_objfn_value']
+    dof = est.parameters['final_dof']
+    nsigma = est.misfit_sigma()
+    log("cptp: %d LM iterations in %.3f s wall, %.1f ms per iteration "
+        "(GateSetTomography.run as a whole: %.3f s); final 2*DeltaLogL %.6f "
+        "(the 'full' fit: %.6f), k %d, N_sigma %.4f"
+        % (total_iters, fit_wall, 1e3 * fit_wall / max(total_iters, 1), run_wall, value,
+           full_value, dof, nsigma))
+    log("cptp: kernel launches {'bwd_jacobian': %d}; peak device memory %.1f MB; "
+        "checkpoints: %d files, %s bytes"
+        % (launches, torch.cuda.max_memory_allocated() / 1e6, len(ckfiles), cksizes))
+    fitted = est.models['final iteration estimate']
+    theta = fitted.to_vector()
+    if launches == 0:
+        raise SystemExit("the CPTPLND fit never launched the bwd_jacobian kernel")
+    if not (np.all(np.isfinite(theta)) and np.isfinite(value) and np.isfinite(nsigma)):
+        raise SystemExit("non-finite CPTPLND fit result")
+    if not nsigma < 10:
+        raise SystemExit("the CPTPLND fit is far from the statistical optimum: N_sigma %g"
+                         % nsigma)
+    # the CPTPLND family lies inside the 'full' family up to gauge
+    if value < full_value * (1 - 1e-6):
+        raise SystemExit("the CPTPLND fit (%.6f) is below the 'full' fit (%.6f)"
+                         % (value, full_value))
+    min_eval, tp_dev = np.inf, 0.0
+    for lbl, op in fitted.operations.items():
+        mx = op.dense()
+        choi = fast_jamiolkowski_iso_std(mx, fitted.basis)
+        min_eval = min(min_eval, float(np.linalg.eigvalsh((choi + choi.conj().T) / 2).min()))
+        tp_dev = max(tp_dev, float(np.max(np.abs(mx[0] - np.eye(fitted.dim)[0]))))
+    log("cptp: fitted operations: least Choi eigenvalue %.3e (tol -1e-9), first row off e0 "
+        "by at most %.3e (tol 1e-9)" % (min_eval, tp_dev))
+    if not (min_eval >= -1e-9 and tp_dev <= 1e-9):
+        raise SystemExit("a fitted CPTPLND operation is not CPTP")
+    check_layout = SimpleForwardSimulator(fitted, device).create_layout(check)
+    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(check_layout)
+    p_ref = reference_probs(fitted, check)
+    dp = float(np.max(np.abs(p_card - p_ref)))
+    log("cptp: probabilities of %d circuits vs numpy reference: max |dp| %.3e (tol 1e-10)"
+        % (len(check), dp))
+    if p_card.shape != p_ref.shape or not dp < 1e-10:
+        raise SystemExit("CPTPLND probabilities disagree with the numpy reference")
+    if len(ckfiles) != len(lists) or \
+            not np.array_equal(last_ck.mdl_list[-1].to_vector(), theta):
+        raise SystemExit("the last CPTPLND checkpoint does not read back to the final model")
+
+    # what the parameterization costs: the model's tensors and their Jacobian
+    # Tv = d tensors / d theta, once per LM iteration; Tv as the objective
+    # takes it (as many tangents as the largest member has parameters)
+    # beside plain forward mode over all P tangents
+    per_iter_ms = 1e3 * fit_wall / max(total_iters, 1)
+    for name, model in (('CPTPLND', fitted), ('full', full_model)):
+        flat, jac = model.flat_tensors_fn(), model.flat_tensors_jacobian_fn()
+        v = torch.as_tensor(model.to_vector(), device=device)
+
+        def tensors_and_tv():
+            flat(v)
+            return jac(v)
+
+        def tensors_and_tv_all_tangents():
+            flat(v)
+            return torch.func.jacfwd(flat)(v)
+        Tv = tensors_and_tv()
+        dtv = float((Tv.cpu() - jac(v.cpu())).abs().max())
+        dall = float((Tv - tensors_and_tv_all_tangents()).abs().max())
+        ms = cuda_time_ms(tensors_and_tv, 20)
+        card_ms, host_ms = card_and_host_ms(tensors_and_tv, 20)
+        all_ms = cuda_time_ms(tensors_and_tv_all_tangents, 20)
+        all_card_ms, all_host_ms = card_and_host_ms(tensors_and_tv_all_tangents, 20)
+        log("cptp: tensors_fn + Tv of the %s model (%d parameters, Tv %s): %.3f ms "
+            "(the card alone %.3f ms, host dispatch %.3f ms)%s; with all %d tangents "
+            "%.3f ms (the card alone %.3f ms, host dispatch %.3f ms), max |diff| %.3e; "
+            "Tv on the card vs the CPU max |diff| %.3e (tol 1e-10)"
+            % (name, model.num_params, tuple(Tv.shape), ms, card_ms, host_ms,
+               ", %.1f%% of the %.1f ms of one LM iteration of this fit"
+               % (100 * ms / per_iter_ms, per_iter_ms) if name == 'CPTPLND' else "",
+               model.num_params, all_ms, all_card_ms, all_host_ms, dall, dtv))
+        if not (dtv < 1e-10 and dall < 1e-10):
+            raise SystemExit("Tv of the %s model on the card disagrees with the CPU or "
+                             "with plain forward mode" % name)
+    # the library's matrix exponential in the band of norms where error
+    # generators of a near-target model lie, beside the port's shifted form
+    import scipy.linalg
+    from pygsti_tpu_torch.modelmembers.operations import _matrix_exp
+    a = np.random.RandomState(0).randn(16, 16)
+    a *= 0.045 / np.linalg.norm(a, 1)
+    at, ref = torch.as_tensor(a, device=device), scipy.linalg.expm(a)
+    err_lib = float(np.max(np.abs(torch.linalg.matrix_exp(at).cpu().numpy() - ref)))
+    err_own = float(np.max(np.abs(_matrix_exp(at).cpu().numpy() - ref)))
+    log("cptp: matrix exponential of a 16x16 float64 matrix of 1-norm 0.045 on the card vs "
+        "scipy: torch.linalg.matrix_exp max |diff| %.3e, the port's exp(A + I) / e %.3e "
+        "(tol 1e-13)" % (err_lib, err_own))
+    if not err_own < 1e-13:
+        raise SystemExit("the port's matrix exponential disagrees with scipy on the card")
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -304,14 +459,7 @@ def main():
             os.path.join(ckdir, 'chip_smoke_iteration_%d.json' % (len(lists) - 1)))
     est = results.estimates['GateSetTomography']
     timers = est.parameters['profiler']
-    total_iters = 0
-    for i, stage_results in enumerate(est.parameters['optimizer_results']):
-        for r in stage_results:
-            q = r.optimizer_specific_qtys
-            total_iters += q['iterations']
-            log("fit stage %d (%d circuits) %s: %d LM iterations, %.3f s, objective %.6f, %s"
-                % (i, len(lists[i]), r.objective.name, q['iterations'], q['wall_s'],
-                   r.f, q['msg']))
+    total_iters = log_stages('fit', est, lists)
     # the window of the earlier smoke runs: the iterations alone (each LM
     # stage ends in a read of its result, so the card has finished), without
     # the checkpoint files written between them
@@ -401,6 +549,9 @@ def main():
     log("profile: one jtj_jtf + one lsvec on the final list (%d circuits)" % len(final))
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15))
 
+    # -- the CPTP-constrained fit of the same data ----------------------------
+    cptp_launches = phase_cptp_fit(mp, lists, ds, builders, fit_value, fitted, check, device)
+
     # -- LGST on the same data, gauge-optimized on the card -------------------
     t0 = time.time()
     lgst = run_lgst(ds, mp.prep_fiducials(), mp.meas_fiducials(), target, verbosity=2)
@@ -446,7 +597,9 @@ def main():
         "name": "bwd_jacobian", "route": "cuda",
         "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
-        "launches": launches['bwd_jacobian'],
+        "launches": launches['bwd_jacobian'] + cptp_launches,
+        "launches_by_path": {"full fit": launches['bwd_jacobian'],
+                             "cptp fit": cptp_launches},
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -49,7 +49,22 @@ def pp_matrices(matrix_dim):
     return mxs
 
 
+def std_labels(matrix_dim):
+    """Labels "(i,j)" of the matrix units, row-major."""
+    d = matrix_dim
+    return ["(%d,%d)" % (i, j) for i in range(d) for j in range(d)]
+
+
+def pp_labels(matrix_dim):
+    """Pauli strings over 'IXYZ', the first qubit's letter varying slowest."""
+    nq = int(round(np.log2(matrix_dim)))
+    if nq == 0:
+        return [""]
+    return ["".join(t) for t in itertools.product('IXYZ', repeat=nq)]
+
+
 _BUILTIN = {'std': std_matrices, 'pp': pp_matrices}
+_LABELS = {'std': std_labels, 'pp': pp_labels}
 
 
 class Basis(object):
@@ -75,6 +90,11 @@ class Basis(object):
     def elements(self):
         """ndarray [d**2, d, d] of basis elements."""
         return _BUILTIN[self.name](self.matrix_dim)
+
+    @property
+    def labels(self):
+        """One string per basis element, in the order of ``elements``."""
+        return _LABELS[self.name](self.matrix_dim)
 
     @property
     def real(self):

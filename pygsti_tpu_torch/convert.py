@@ -16,6 +16,7 @@ import numpy as np
 from pygsti_tpu_torch.circuits.circuitparser import parse_label_str
 from pygsti_tpu_torch.models import gaugegroup as _gg
 from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
+from pygsti_tpu_torch.models.modelconstruction import _make_op, _make_povm, _make_prep
 
 _GAUGE_GROUPS = {cls.name: cls for cls in (
     _gg.TrivialGaugeGroup, _gg.FullGaugeGroup, _gg.TPGaugeGroup, _gg.DiagGaugeGroup,
@@ -55,6 +56,40 @@ def model_from_dense(ops, preps, povms, gate_type='full', basis='pp'):
     for lbl, mx in ops.items():
         m.operations[parse_label_str(lbl)] = np.asarray(mx, dtype=float)
     return m
+
+
+def model_from_types(ops, preps, povms, theta, basis='pp'):
+    """An ExplicitOpModel of members given by parameterization name, holding
+    the JAX-package parameter vector `theta`.
+
+    ops: {label: (gate type, ideal superoperator [d, d])};
+    preps: {label: (prep type, ideal vector [d])};
+    povms: {label: (povm type, {outcome: ideal effect [d]})};
+    each type any name of models/modelconstruction.py ('CPTPLND', 'GLND',
+    'H+S', 'full unitary', 'full TP', ...), read off the JAX model by the
+    caller.  Insertion order of each dict becomes the model's order.  The
+    members are built at their ideal values and then given `theta`, which
+    means the same model in both packages: the model orders preps, POVMs,
+    operations; a composed member its factors; a Lindblad error generator
+    its blocks 'ham', 'other_diag', 'other'; a 'ham' or 'other_diag' block
+    one real number per basis element; an 'other' block its real diagonal
+    first, then (re, im) pairs of the strict lower triangle of the Cholesky
+    factor row by row ('cholesky' mode) or of the upper triangle of the
+    Hermitian matrix row by row ('elements' mode); a 'full unitary' its
+    Hermitian generator like the latter."""
+    (gate_type, first), (prep_type, _), (povm_type, _) = (
+        next(iter(d.values())) for d in (ops, preps, povms))
+    m = ExplicitOpModel(np.asarray(first).shape[0], basis, gate_type, prep_type, povm_type)
+    nq = m.num_qubits
+    for lbl, (typ, vec) in preps.items():
+        m.preps[parse_label_str(lbl)] = _make_prep(np.asarray(vec, dtype=float), typ,
+                                                   m.basis, nq)
+    for lbl, (typ, effects) in povms.items():
+        m.povms[parse_label_str(lbl)] = _make_povm(collections.OrderedDict(
+            (str(k), np.asarray(v, dtype=float)) for k, v in effects.items()), typ, m.basis, nq)
+    for lbl, (typ, mx) in ops.items():
+        m.operations[parse_label_str(lbl)] = _make_op(np.asarray(mx, dtype=float), typ, m.basis)
+    return model_from_vector(m, theta)
 
 
 def gauge_group_from_name(group_name, dim, basis='pp'):

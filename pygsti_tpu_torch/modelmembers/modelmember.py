@@ -53,6 +53,15 @@ class ModelMember(NicelySerializable):
     def copy(self):
         return copy.deepcopy(self)
 
+    def error_map_form(self):
+        """None, or (error_map, pre, post) when this member's dense form is
+        ``post @ E @ pre`` with E the dense matrix of `error_map`, a member
+        that holds all of this member's parameters and has
+        ``same_function_as(other)``; `pre` and `post` are host arrays or None
+        (the identity).  A model evaluates error maps that are the same
+        function of their parameters in one batched call."""
+        return None
+
     def transform_inplace(self, s_matrix, s_inverse):
         """Apply a gauge transformation given as host numpy matrices
         (members that support it override)."""

@@ -1,15 +1,72 @@
 """Operation parameterizations as pure torch functions (counterpart of
-pygsti_tpu/modelmembers/operations.py: the static ops, FullArbitraryOp and
-FullTPOp, each with its gauge transform and serialization, and the
-Hermitian-from-real-parameters map of the unitary gauge group)."""
+pygsti_tpu/modelmembers/operations.py).
+
+The dense families (static ops, FullArbitraryOp, FullTPOp) carry a gauge
+transform.  The unitary and Lindblad families (FullUnitaryOp, ComposedOp,
+LindbladErrorgen and its coefficient blocks, ExpErrorgenOp, FullCPTPOp) do
+not: as in the JAX package, transforming one raises NotImplementedError.
+Every member serializes; a Lindblad member writes its structure (basis,
+block types, modes, labels) and parameter values, and its generators are
+rebuilt on reading.
+
+Members keep their constants as host numpy and serve them to ``to_dense`` as
+tensors on the device and dtype of the parameter vector, cached per member.
+"""
 
 from __future__ import annotations
 
+import functools
+import math
+
 import numpy as np
+import scipy.linalg
 import torch
 
+from pygsti_tpu_torch.baseobjs.basis import Basis
+from pygsti_tpu_torch.baseobjs.errorgenlabel import (GlobalElementaryErrorgenLabel,
+                                                     LocalElementaryErrorgenLabel)
+from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
 from pygsti_tpu_torch.modelmembers.modelmember import ModelMember
+from pygsti_tpu_torch.tools import jamiolkowski as _jam
+from pygsti_tpu_torch.tools import lindbladtools as _lt
 from pygsti_tpu_torch.tools import optools as _ot
+from pygsti_tpu_torch.tools.basistools import change_basis
+
+
+def _complex_dtype(dtype):
+    return torch.complex128 if dtype == torch.float64 else torch.complex64
+
+
+def _matrix_exp(a):
+    """exp(a) for a square real or complex tensor, as exp(a + I) / e.
+
+    torch.linalg.matrix_exp picks its polynomial by the 1-norm of its
+    argument, and the one it takes for float64 norms between 3.4e-4 and
+    5e-2 is off by up to 1e-11 absolute (measured against scipy on torch
+    2.13; at every other norm it agrees to 1e-15).  Error generators of a
+    model near its target have exactly such norms.  exp(a + I) = e exp(a)
+    holds exactly because I commutes with a, and moves the argument to norms
+    of about 1, where the routine is accurate; the division costs one
+    rounding."""
+    eye = torch.eye(a.shape[-1], dtype=a.dtype, device=a.device)
+    return torch.linalg.matrix_exp(a + eye) * math.exp(-1.0)
+
+
+class _TensorConstants(object):
+    """Serves numpy attributes as tensors, cached per (attribute, device,
+    dtype).  The cache stays out of copies, pickles and serialized states."""
+
+    def _const(self, name, device, dtype):
+        cache = self.__dict__.setdefault('_tensor_cache', {})
+        key = (name, str(device), dtype)
+        if key not in cache:
+            cache[key] = torch.as_tensor(getattr(self, name), dtype=dtype, device=device)
+        return cache[key]
+
+    def __getstate__(self):
+        state = dict(self.__dict__)
+        state.pop('_tensor_cache', None)
+        return state
 
 
 class LinearOperator(ModelMember):
@@ -128,3 +185,498 @@ def _real_params_to_hermitian(v, d):
     h = h.index_put((iu[0], iu[1]), upper)
     h = h + h.conj().T
     return h + torch.diag(v[:d].to(ctype))
+
+
+def _hermitian_to_real_params(h):
+    """Hermitian [d, d] -> real vector (d*d): the diagonal, then (re, im) of
+    the upper triangle row by row; inverse of _real_params_to_hermitian."""
+    d = h.shape[0]
+    iu = np.triu_indices(d, 1)
+    upper = np.asarray(h)[iu]
+    return np.concatenate([np.real(np.diag(h)),
+                           np.stack([upper.real, upper.imag], axis=1).reshape(-1)])
+
+
+def _lower_tri_to_params(L):
+    """Lower-triangular [n, n] -> real vector (n*n): the real diagonal, then
+    (re, im) of the strict lower triangle row by row."""
+    il = np.tril_indices(L.shape[0], -1)
+    lower = np.asarray(L)[il]
+    return np.concatenate([np.real(np.diag(L)),
+                           np.stack([lower.real, lower.imag], axis=1).reshape(-1)])
+
+
+def _params_to_lower_tri(v, n):
+    """Inverse of _lower_tri_to_params: complex [n, n] tensor on v's device."""
+    il = torch.tril_indices(n, n, offset=-1, device=v.device)
+    lower = torch.complex(v[n::2], v[n + 1::2])
+    L = torch.zeros((n, n), dtype=lower.dtype, device=v.device)
+    L = L.index_put((il[0], il[1]), lower)
+    return L + torch.diag_embed(v[:n]).to(lower.dtype)
+
+
+class FullUnitaryOp(_TensorConstants, LinearOperator):
+    """Superoperator constrained to be unitary: parameterized by a Hermitian
+    generator H via U = expm(-iH).  The parameters are H's diagonal, then
+    (re, im) of its upper triangle."""
+
+    def __init__(self, unitary, basis='pp'):
+        u = np.asarray(unitary, dtype=complex)
+        self.udim = u.shape[0]
+        h = 1j * scipy.linalg.logm(u)
+        super().__init__(self.udim ** 2, _hermitian_to_real_params((h + h.conj().T) / 2))
+        b = Basis.cast(basis, self.udim ** 2)
+        self.basis = b.name
+        M = b.create_transform_matrix('std')
+        self._std2basis = np.linalg.inv(M)
+        self._basis2std = np.asarray(M)
+
+    def to_unitary(self, v):
+        """The complex unitary expm(-iH)."""
+        return _matrix_exp(-1j * _real_params_to_hermitian(v, self.udim))
+
+    def to_dense(self, v):
+        u = self.to_unitary(v)
+        s_std = torch.kron(u, u.conj())
+        out = self._const('_std2basis', v.device, u.dtype) @ s_std \
+            @ self._const('_basis2std', v.device, u.dtype)
+        return out.real
+
+    def _to_nice_serialization(self):
+        return {'udim': self.udim, 'basis': self.basis, 'paramvals': self.to_vector()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        op = cls(np.eye(state['udim']), state['basis'])
+        op.from_vector(state['paramvals'])
+        return op
+
+
+class _WrapsOneMember(object):
+    """A member whose parameters are those of one inner member
+    (``self._inner``), which also answers the errorgen-coefficient API."""
+
+    @property
+    def num_params(self):
+        return self._inner.num_params
+
+    def to_vector(self):
+        return self._inner.to_vector()
+
+    def from_vector(self, v):
+        self._inner.from_vector(v)
+
+    def errorgen_coefficient_labels(self):
+        return self._inner.errorgen_coefficient_labels()
+
+    def errorgen_coefficients(self):
+        return self._inner.errorgen_coefficients()
+
+    def set_errorgen_coefficients(self, coeff_dict, truncate=False):
+        self._inner.set_errorgen_coefficients(coeff_dict, truncate)
+
+
+class ComposedOp(LinearOperator):
+    """Composition of factor operations applied left to right in circuit
+    order: dense = F_{n-1} @ ... @ F_1 @ F_0.  Its parameters are the
+    factors' in order."""
+
+    def __init__(self, factors):
+        self.factors = list(factors)
+        super().__init__(self.factors[0].dim, np.empty(0))
+
+    @property
+    def num_params(self):
+        return sum(f.num_params for f in self.factors)
+
+    def to_vector(self):
+        return np.concatenate([f.to_vector() for f in self.factors])
+
+    def from_vector(self, v):
+        off = 0
+        for f in self.factors:
+            f.from_vector(v[off:off + f.num_params])
+            off += f.num_params
+
+    def to_dense(self, v):
+        mx, off = None, 0
+        for f in self.factors:
+            fm = f.to_dense(v[off:off + f.num_params])
+            mx = fm if mx is None else fm @ mx
+            off += f.num_params
+        return mx
+
+    def error_map_form(self):
+        """(the one parameterized factor, product of the static factors
+        before it, product of those after it) when exactly one factor has
+        parameters and is an error map."""
+        live = [i for i, f in enumerate(self.factors) if f.num_params > 0]
+        if len(live) != 1 or not hasattr(self.factors[live[0]], 'same_function_as'):
+            return None
+
+        def product(factors):
+            mx = None
+            for f in factors:
+                mx = f.dense() if mx is None else f.dense() @ mx
+            return mx
+        i = live[0]
+        return self.factors[i], product(self.factors[:i]), product(self.factors[i + 1:])
+
+    def _errorgen_factors(self):
+        return [f for f in self.factors if hasattr(f, 'errorgen_coefficient_labels')]
+
+    def errorgen_coefficient_labels(self):
+        return [l for f in self._errorgen_factors() for l in f.errorgen_coefficient_labels()]
+
+    def errorgen_coefficients(self):
+        out = {}
+        for f in self._errorgen_factors():
+            out.update(f.errorgen_coefficients())
+        return out
+
+    def set_errorgen_coefficients(self, coeff_dict, truncate=False):
+        for f in self._errorgen_factors():
+            f.set_errorgen_coefficients(coeff_dict, truncate)
+
+    def _to_nice_serialization(self):
+        return {'factors': [f.to_nice_serialization() for f in self.factors]}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls([NicelySerializable.from_nice_serialization(s) for s in state['factors']])
+
+
+class LindbladCoefficientBlock(_TensorConstants):
+    """One block of Lindblad coefficients with its generators.
+
+    block_type 'ham': real coefficients of the H-type generators.
+    'other_diag': diagonal S-type coefficients; param_mode 'elements' (free,
+    may go negative) or 'cholesky' (coefficient = parameter squared >= 0;
+    the parameter 0 is a stationary point of every objective, so a fit
+    started there keeps that coefficient at 0).
+    'other': the full block M_ij; 'elements' (Hermitian M: its diagonal, then
+    (re, im) of the upper triangle) or 'cholesky' (M = L L^dag, positive
+    semidefinite: L's real diagonal, then (re, im) of its strict lower
+    triangle).
+
+    `generators` is [n, dim, dim] for 'ham'/'other_diag' (real up to
+    rounding: an imaginary part is refused here once, not dropped on every
+    call) and complex [n, n, dim, dim] for 'other'."""
+
+    def __init__(self, block_type, basis_element_labels, generators, param_mode='elements',
+                 initial_coeffs=None):
+        self.block_type = block_type
+        self.basis_element_labels = list(basis_element_labels)
+        self.param_mode = param_mode
+        n = self._n = len(self.basis_element_labels)
+        gens = np.asarray(generators)
+        self._dim = gens.shape[-1]
+        if block_type in ('ham', 'other_diag'):
+            if np.iscomplexobj(gens):
+                if np.max(np.abs(gens.imag), initial=0.0) > 1e-12:
+                    raise ValueError("%r generators must be real in the model's basis"
+                                     % block_type)
+                gens = gens.real
+            self._gens = np.array(gens.reshape(n, -1), dtype=float)
+            coeffs = np.zeros(n) if initial_coeffs is None else np.asarray(initial_coeffs, float)
+            if param_mode == 'cholesky' and block_type == 'other_diag':
+                self.initial_params = np.sqrt(np.clip(coeffs, 0, None))
+            else:
+                self.initial_params = coeffs.copy()
+        elif block_type == 'other':
+            # real(sum_ij M_ij G_ij) = sum re(M) re(G) - im(M) im(G): one real
+            # product with the stacked [2 n^2, dim^2] generators
+            flat = gens.reshape(n * n, -1)
+            self._gens = np.concatenate([flat.real, -flat.imag])
+            M = np.zeros((n, n), dtype=complex) if initial_coeffs is None \
+                else np.asarray(initial_coeffs, complex)
+            if param_mode == 'cholesky':
+                # the shift keeps L's diagonal off exact zero (1e-7 for M = 0),
+                # where d(L L^dag)/dL vanishes and no fit could leave
+                try:
+                    L = np.linalg.cholesky(M + 1e-14 * np.eye(n))
+                except np.linalg.LinAlgError:
+                    raise ValueError("the initial 'other' block is not positive "
+                                     "semidefinite: it has no Cholesky factor")
+                self.initial_params = _lower_tri_to_params(L)
+            else:
+                self.initial_params = _hermitian_to_real_params(M)
+        else:
+            raise ValueError("Invalid block type %r" % block_type)
+
+    @property
+    def num_params(self):
+        return self._n if self.block_type in ('ham', 'other_diag') else self._n * self._n
+
+    def coefficient_matrix(self, v):
+        """Coefficients as a tensor: real [n] for 'ham'/'other_diag', complex
+        Hermitian [n, n] for 'other'."""
+        if self.block_type == 'ham':
+            return v
+        if self.block_type == 'other_diag':
+            return v * v if self.param_mode == 'cholesky' else v
+        if self.param_mode == 'cholesky':
+            L = _params_to_lower_tri(v, self._n)
+            return L @ L.mH
+        return _real_params_to_hermitian(v, self._n)
+
+    def errorgen(self, v):
+        """This block's part of the error generator, real [dim, dim]."""
+        coeffs = self.coefficient_matrix(v)
+        if self.block_type == 'other':
+            coeffs = torch.cat([coeffs.real.reshape(-1), coeffs.imag.reshape(-1)])
+        gens = self._const('_gens', v.device, v.dtype)
+        return (coeffs.to(v.dtype) @ gens).reshape(self._dim, self._dim)
+
+    def coefficients(self, v):
+        """{('H', label) | ('S', label) | ('O', label_i, label_j): value} at
+        the host parameter values `v`."""
+        cm = self.coefficient_matrix(torch.as_tensor(np.asarray(v, dtype=float))).numpy()
+        lbls = self.basis_element_labels
+        if self.block_type in ('ham', 'other_diag'):
+            typ = 'H' if self.block_type == 'ham' else 'S'
+            return {(typ, l): float(c) for l, c in zip(lbls, cm)}
+        return {('O', li, lj): complex(cm[i, j])
+                for i, li in enumerate(lbls) for j, lj in enumerate(lbls)}
+
+
+@functools.lru_cache(maxsize=None)
+def _block_generators(basis_name, dim, block_type, labels):
+    """Generators of one block over the basis elements named `labels`, in
+    the model's basis; shared (read-only) by every member that asks."""
+    b = Basis(basis_name, dim)
+    all_labels = b.labels
+    els = [b.elements[all_labels.index(l)] for l in labels]
+
+    def in_basis(std_gen):
+        return change_basis(std_gen, 'std', b)
+
+    if block_type in ('ham', 'other_diag'):
+        typ = 'H' if block_type == 'ham' else 'S'
+        gens = np.stack([in_basis(_lt.create_elementary_errorgen(typ, e)) for e in els])
+    else:
+        n = len(els)
+        gens = np.empty((n, n, dim, dim), dtype=complex)
+        for a, ea in enumerate(els):
+            for c, ec in enumerate(els):
+                gens[a, c] = in_basis(_lt.create_lindbladian_term_errorgen('O', ea, ec))
+    gens.flags.writeable = False
+    return gens
+
+
+class LindbladErrorgen(ModelMember):
+    """Lindblad error generator: the sum of its coefficient blocks' parts
+    ('ham', then 'other_diag', then 'other', each a
+    LindbladCoefficientBlock).  Its parameters are the blocks' in order."""
+
+    def __init__(self, dim, blocks, basis='pp'):
+        self.blocks = list(blocks)
+        self._dim = dim
+        self.basis = Basis.cast(basis, dim).name
+        super().__init__(np.concatenate([b.initial_params for b in self.blocks])
+                         if self.blocks else np.empty(0))
+
+    def _block_slices(self):
+        off = 0
+        for b in self.blocks:
+            yield b, slice(off, off + b.num_params)
+            off += b.num_params
+
+    def to_dense(self, v):
+        out = torch.zeros((self._dim, self._dim), dtype=v.dtype, device=v.device)
+        for b, sl in self._block_slices():
+            out = out + b.errorgen(v[sl])
+        return out
+
+    def coefficients(self):
+        """{(type, basis label(s)): coefficient} at the current parameters."""
+        out = {}
+        for b, sl in self._block_slices():
+            out.update(b.coefficients(self._paramvals[sl]))
+        return out
+
+    def errorgen_coefficient_labels(self):
+        """LocalElementaryErrorgenLabels of the 'ham' and 'other_diag'
+        blocks; an 'other' block's coefficients have no elementary label."""
+        types = {'ham': 'H', 'other_diag': 'S'}
+        return [LocalElementaryErrorgenLabel(types[b.block_type], (str(l),))
+                for b in self.blocks if b.block_type in types
+                for l in b.basis_element_labels]
+
+    def errorgen_coefficients(self):
+        return {LocalElementaryErrorgenLabel(typ, tuple(str(b) for b in bels)): val
+                for (typ, *bels), val in self.coefficients().items() if typ in ('H', 'S')}
+
+    def set_errorgen_coefficients(self, coeff_dict, truncate=False):
+        """Set H and S coefficients from {label: value}; labels may be
+        local, global or (type, basis label) tuples.  A 'cholesky'
+        'other_diag' block stores sqrt(value): a negative value raises
+        ValueError unless `truncate`, which clips it to 0."""
+        n_qubits = int(round(np.log2(np.sqrt(self._dim))))
+        lookup = {}
+        for lbl, val in coeff_dict.items():
+            if isinstance(lbl, GlobalElementaryErrorgenLabel):
+                lbl = LocalElementaryErrorgenLabel.cast(lbl, tuple(range(n_qubits)))
+            elif not isinstance(lbl, LocalElementaryErrorgenLabel):
+                lbl = LocalElementaryErrorgenLabel(
+                    lbl[0], tuple(lbl[1:]) if len(lbl) > 2 else (lbl[1],))
+            lookup[(lbl.errorgen_type, lbl.basis_element_labels[0])] = val
+        pv = self._paramvals.copy()
+        for b, sl in self._block_slices():
+            if b.block_type not in ('ham', 'other_diag'):
+                continue
+            typ = 'H' if b.block_type == 'ham' else 'S'
+            cur = b.coefficients(pv[sl])
+            new = np.array([lookup.get((typ, str(l)), cur[(typ, l)])
+                            for l in b.basis_element_labels], float)
+            if b.block_type == 'other_diag' and b.param_mode == 'cholesky':
+                if not truncate and np.any(new < -1e-12):
+                    raise ValueError("Negative S coefficient in CPTP-constrained block")
+                new = np.sqrt(np.clip(new, 0, None))
+            pv[sl] = new
+        self.from_vector(pv)
+
+    def _to_nice_serialization(self):
+        return {'dim': self._dim, 'basis': self.basis, 'paramvals': self.to_vector(),
+                'blocks': [{'block_type': b.block_type, 'param_mode': b.param_mode,
+                            'basis_element_labels': list(b.basis_element_labels)}
+                           for b in self.blocks]}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        blocks = [LindbladCoefficientBlock(
+            s['block_type'], s['basis_element_labels'],
+            _block_generators(state['basis'], state['dim'], s['block_type'],
+                              tuple(s['basis_element_labels'])), s['param_mode'])
+            for s in state['blocks']]
+        eg = cls(state['dim'], blocks, state['basis'])
+        eg.from_vector(state['paramvals'])
+        return eg
+
+
+def build_lindblad_errorgen(basis, parameterization='GLND', dim=None, initial_coeffs=None,
+                            max_weight=None):
+    """A LindbladErrorgen over all non-identity elements of `basis`.
+
+    parameterization: 'H' (Hamiltonian only), 'H+S' / 'H+s' (plus diagonal
+    stochastic; capital S = constrained >= 0), 'S' / 's' (stochastic only),
+    'GLND' (Hamiltonian plus the full Hermitian block, unconstrained),
+    'CPTPLND' (Hamiltonian plus the full block as a Cholesky factor: CPTP).
+    `max_weight` keeps the basis elements of Pauli weight <= max_weight.
+    `initial_coeffs`: {('H' | 'S', label): value}."""
+    b = basis if isinstance(basis, Basis) else Basis.cast(basis, dim)
+    lbls = b.labels[1:]
+    if max_weight is not None:
+        lbls = [l for l in lbls if sum(ch != 'I' for ch in l) <= max_weight]
+    lbls = tuple(lbls)
+    init = initial_coeffs or {}
+    if parameterization not in ('H', 'H+S', 'H+s', 'S', 's', 'GLND', 'CPTPLND'):
+        raise ValueError("Unknown Lindblad parameterization %r" % parameterization)
+
+    def gens(block_type):
+        return _block_generators(b.name, b.dim, block_type, lbls)
+
+    blocks = []
+    if parameterization in ('H', 'H+S', 'H+s', 'GLND', 'CPTPLND'):
+        blocks.append(LindbladCoefficientBlock(
+            'ham', lbls, gens('ham'), 'elements',
+            np.array([init.get(('H', l), 0.0) for l in lbls])))
+    if parameterization in ('H+S', 'H+s', 'S', 's'):
+        blocks.append(LindbladCoefficientBlock(
+            'other_diag', lbls, gens('other_diag'),
+            'cholesky' if 'S' in parameterization else 'elements',
+            np.array([init.get(('S', l), 0.0) for l in lbls])))
+    if parameterization in ('GLND', 'CPTPLND'):
+        M0 = np.diag([complex(init.get(('S', l), 0.0)) for l in lbls])
+        blocks.append(LindbladCoefficientBlock(
+            'other', lbls, gens('other'),
+            'cholesky' if parameterization == 'CPTPLND' else 'elements', M0))
+    return LindbladErrorgen(b.dim, blocks, b)
+
+
+class ExpErrorgenOp(_WrapsOneMember, LinearOperator):
+    """exp(L) for an error generator L."""
+
+    def __init__(self, errorgen):
+        self.errorgen = self._inner = errorgen
+        super().__init__(errorgen.dim, np.empty(0))
+
+    def to_dense(self, v):
+        return _matrix_exp(self.errorgen.to_dense(v))
+
+    def error_map_form(self):
+        return self, None, None
+
+    def same_function_as(self, other):
+        """Whether `other` maps a parameter vector to the same dense matrix:
+        the same class, blocks, modes and generators."""
+        def blocks(m):
+            return [(b.block_type, b.param_mode, b._gens.shape) for b in m.errorgen.blocks]
+        return type(other) is type(self) and blocks(other) == blocks(self) and all(
+            np.array_equal(a._gens, b._gens)
+            for a, b in zip(self.errorgen.blocks, other.errorgen.blocks))
+
+    def _to_nice_serialization(self):
+        return {'errorgen': self.errorgen.to_nice_serialization()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(NicelySerializable.from_nice_serialization(state['errorgen']))
+
+
+class FullCPTPOp(_TensorConstants, LinearOperator):
+    """Channel parameterized by the Cholesky factor of its trace-normalized
+    Choi matrix: the parameters are L's real diagonal, then (re, im) of its
+    strict lower triangle, and the dense superoperator is the inverse
+    Jamiolkowski image of L L^dag / tr(L L^dag).  Completely positive with a
+    Choi matrix of trace one at every parameter value (as in the JAX
+    package, that normalizes the trace and does not enforce trace
+    preservation row by row)."""
+
+    def __init__(self, choi_mx, basis='pp', truncate=False):
+        choi = np.asarray(choi_mx, complex)
+        d = choi.shape[0]
+        trc = np.trace(choi).real
+        if not np.isclose(trc, 1.0):
+            if not truncate:
+                raise ValueError("choi_mx must have trace 1 (or truncate=True)")
+            choi = choi - np.eye(d) / d * (trc - 1.0)
+        evals, U = np.linalg.eigh((choi + choi.conj().T) / 2)
+        if not (truncate or np.all(evals >= -1e-12)):
+            raise ValueError("choi_mx must be positive semidefinite (or truncate=True)")
+        choi = (U * evals.clip(1e-16, None)) @ U.conj().T
+        super().__init__(d, _lower_tri_to_params(np.linalg.cholesky(choi)))
+        b = Basis.cast(basis, d)
+        self.basis_name = b.name
+        # the linear map choi (flat) -> superoperator (flat)
+        units = np.eye(d * d).reshape(d * d, d, d)
+        self._jam_inv = np.stack([_jam.jamiolkowski_iso_inv(e, b, b).reshape(-1)
+                                  for e in units], axis=1)
+
+    @classmethod
+    def from_superop_matrix(cls, superop_mx, basis='pp', truncate=False):
+        b = Basis.cast(basis, np.asarray(superop_mx).shape[0])
+        return cls(_jam.jamiolkowski_iso(superop_mx, b, b), b, truncate)
+
+    def to_dense(self, v):
+        d = self._dim
+        L = _params_to_lower_tri(v, d)
+        choi = L @ L.mH
+        choi = choi / torch.trace(choi)
+        out = self._const('_jam_inv', v.device, choi.dtype) @ choi.reshape(-1)
+        return out.reshape(d, d).real
+
+    @property
+    def kraus_operators(self):
+        """Kraus operators of the channel at the current parameters."""
+        return _ot.kraus_decomposition(self.dense(), self.basis_name)
+
+    def _to_nice_serialization(self):
+        return {'dim': self._dim, 'basis': self.basis_name, 'paramvals': self.to_vector()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        d = state['dim']
+        op = cls(np.eye(d) / d, state['basis'])
+        op.from_vector(state['paramvals'])
+        return op

@@ -1,16 +1,22 @@
 """POVMs as pure torch functions (counterpart of
 pygsti_tpu/modelmembers/povms.py: UnconstrainedPOVM, TPPOVM, each with its
-gauge transform and serialization).  A POVM's dense rep is the stack of its
-effect vectors [n_outcomes, dim]."""
+gauge transform and serialization; ComputationalBasisPOVM and ComposedPOVM,
+which serialize and, as in the JAX package, have no gauge transform).  A
+POVM's dense rep is the stack of its effect vectors [n_outcomes, dim]."""
 
 from __future__ import annotations
 
 import collections
+import math
 
 import numpy as np
 import torch
 
+from pygsti_tpu_torch.baseobjs.basis import Basis
+from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
 from pygsti_tpu_torch.modelmembers.modelmember import ModelMember
+from pygsti_tpu_torch.modelmembers.operations import _WrapsOneMember
+from pygsti_tpu_torch.tools.basistools import stdmx_to_vec
 
 
 def _effect_items(effect_dict):
@@ -91,3 +97,66 @@ class TPPOVM(POVM):
         # (TP, unitary, TP-spam), as in the JAX package
         free = self._paramvals.reshape(self.num_outcomes - 1, self._dim) @ s
         self._paramvals = free.reshape(-1)
+
+
+class ComputationalBasisPOVM(POVM):
+    """Z-basis measurement of n qubits, 0 parameters; outcomes '0..0' to
+    '1..1' in binary order."""
+
+    def __init__(self, nqubits, basis='pp'):
+        self.nqubits = nqubits
+        udim = 2 ** nqubits
+        self.basis = Basis.cast(basis, udim * udim).name
+        effects = np.empty((udim, udim * udim))
+        for i in range(udim):
+            e = np.zeros((udim, udim), dtype=complex)
+            e[i, i] = 1.0
+            effects[i] = np.real(stdmx_to_vec(e, self.basis))
+        super().__init__(udim * udim, [format(i, '0%db' % nqubits) for i in range(udim)],
+                         np.empty(0))
+        self._effects = effects
+
+    def to_dense(self, v):
+        return torch.as_tensor(self._effects, dtype=v.dtype, device=v.device)
+
+    def dense(self):
+        return self._effects.copy()
+
+    def _to_nice_serialization(self):
+        return {'nqubits': self.nqubits, 'basis': self.basis}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(state['nqubits'], state['basis'])
+
+
+class ComposedPOVM(_WrapsOneMember, POVM):
+    """An error map acting before a base POVM: the error map is applied to
+    the state, then the base POVM measures, so effects' = base_effects @
+    M_err (the map stands on the right of the effect rows).  Its parameters
+    are the error map's."""
+
+    def __init__(self, errormap, povm=None, mx_basis='pp'):
+        if povm is None:
+            povm = ComputationalBasisPOVM(
+                int(round(math.log(math.sqrt(errormap.dim), 2))), mx_basis)
+        self.base_povm = povm
+        self.error_map = self._inner = errormap
+        super().__init__(povm.dim, povm.outcome_labels, np.empty(0))
+
+    def to_dense(self, v):
+        return self.base_povm.to_dense(v[:0]) @ self.error_map.to_dense(v)
+
+    def error_map_form(self):
+        if self.base_povm.num_params or not hasattr(self.error_map, 'same_function_as'):
+            return None
+        return self.error_map, None, self.base_povm.dense()
+
+    def _to_nice_serialization(self):
+        return {'error_map': self.error_map.to_nice_serialization(),
+                'base_povm': self.base_povm.to_nice_serialization()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(NicelySerializable.from_nice_serialization(state['error_map']),
+                   NicelySerializable.from_nice_serialization(state['base_povm']))

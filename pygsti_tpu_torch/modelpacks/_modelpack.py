@@ -16,12 +16,25 @@ from pygsti_tpu_torch.baseobjs.basis import Basis
 from pygsti_tpu_torch.baseobjs.label import Label
 from pygsti_tpu_torch.circuits.circuit import Circuit
 from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
+from pygsti_tpu_torch.models.modelconstruction import (LINDBLAD_SPAM_TYPES, _make_op,
+                                                        _make_povm, _make_prep)
 from pygsti_tpu_torch.tools import optools as _ot
 from pygsti_tpu_torch.tools.basistools import stdmx_to_vec
 from pygsti_tpu_torch.tools.internalgates import standard_gatename_unitaries
 
-_SPAM_TYPE = {'full': 'full', 'full arbitrary': 'full', 'full TP': 'full TP',
-              'TP': 'full TP'}
+
+
+def _spam_type(gate_type):
+    """The SPAM type that goes with a gate type: 'full TP' and 'full' keep
+    their family, a Lindblad type with a SPAM form is used as it is, every
+    other type ('static', the unitary types, 'H') gets computational SPAM."""
+    if gate_type in ('full TP', 'TP'):
+        return 'full TP'
+    if gate_type in ('full', 'full arbitrary'):
+        return 'full'
+    if gate_type in LINDBLAD_SPAM_TYPES:
+        return gate_type
+    return 'computational'
 
 
 def _embed_unitary_superop(u, target_qubits, all_qubits):
@@ -74,12 +87,13 @@ class GSTModelPack(object):
 
     @classmethod
     def target_model(cls, gate_type='full'):
-        """The ideal model with 'full' or 'full TP' members."""
-        if gate_type not in _SPAM_TYPE:
-            raise ValueError("Unsupported gate type %r" % gate_type)
+        """The ideal model with every member of type `gate_type` ('static',
+        'full', 'full TP', 'static unitary', 'full unitary', 'CPTPLND',
+        'GLND', 'H+S', 'H+s', 'H', ...), its SPAM following the gate type."""
         qubits = tuple(range(cls._nqubits))
-        dim = 4 ** cls._nqubits
-        spam_type = _SPAM_TYPE[gate_type]
+        nq = cls._nqubits
+        dim = 4 ** nq
+        spam_type = _spam_type(gate_type)
         mdl = ExplicitOpModel(dim, 'pp', gate_type, spam_type, spam_type)
         std = standard_gatename_unitaries()
         for lbl in cls._op_labels():
@@ -87,18 +101,20 @@ class GSTModelPack(object):
                 u, targets = np.eye(2 ** cls._nqubits, dtype=complex), qubits
             else:
                 u, targets = std[lbl.name], lbl.sslbls
-            mdl.operations[lbl] = _embed_unitary_superop(u, targets, qubits)
+            mdl.operations[lbl] = _make_op(_embed_unitary_superop(u, targets, qubits),
+                                           gate_type, mdl.basis)
         udim = 2 ** cls._nqubits
         rho = np.zeros((udim, udim), dtype=complex)
         rho[0, 0] = 1.0
-        mdl.preps[Label('rho0')] = np.real(stdmx_to_vec(rho, mdl.basis))
+        mdl.preps[Label('rho0')] = _make_prep(np.real(stdmx_to_vec(rho, mdl.basis)),
+                                              spam_type, mdl.basis, nq)
         effects = collections.OrderedDict()
         for i in range(udim):
             e = np.zeros((udim, udim), dtype=complex)
             e[i, i] = 1.0
             effects[format(i, '0%db' % cls._nqubits)] = \
                 np.real(stdmx_to_vec(e, mdl.basis))
-        mdl.povms[Label('Mdefault')] = effects
+        mdl.povms[Label('Mdefault')] = _make_povm(effects, spam_type, mdl.basis, nq)
         return mdl
 
     @classmethod

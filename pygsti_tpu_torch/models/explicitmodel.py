@@ -13,11 +13,13 @@ layout, so either package's checkpoint reads here.
 from __future__ import annotations
 
 import collections
+import math
 from typing import NamedTuple, Any
 
 import numpy as np
 import torch
 
+from pygsti_tpu_torch.baseobjs.errorgenlabel import GlobalElementaryErrorgenLabel
 from pygsti_tpu_torch.baseobjs.label import Label
 from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
 from pygsti_tpu_torch.models.model import OpModel
@@ -88,6 +90,12 @@ class ExplicitOpModel(OpModel):
             raise ValueError("Cannot auto-cast %s for type %r" % (kind, t))
         return table[t](val)
 
+    @property
+    def num_qubits(self):
+        """Number of qubits when the dimension is 4**n, else None."""
+        n = int(round(math.log(self.dim, 4)))
+        return n if 4 ** n == self.dim else None
+
     def _iter_parameterized_objs(self):
         for d in (self.preps, self.povms, self.operations):
             for lbl, obj in d.items():
@@ -137,36 +145,188 @@ class ExplicitOpModel(OpModel):
         return m
 
     def tensors_fn(self):
-        """A pure function v -> ModelTensors (safe under torch.func)."""
+        """A pure function v -> ModelTensors (safe under torch.func).
+
+        Members whose dense form is ``post @ E @ pre`` around an error map E
+        (ModelMember.error_map_form) are grouped by their error map's
+        function: each group's maps are evaluated in one call, vmapped over
+        the stacked parameter slices.  The 8 members of a two-qubit Lindblad
+        model then cost one pass through the generator and the matrix
+        exponential instead of 8; under forward-mode differentiation, where
+        the host pays for every op it issues, that is most of the time."""
         self._rebuild_paramvec_if_needed()
-        op_items = [(o.gpindices, o) for o in self.operations.values()]
-        prep_items = [(p.gpindices, p) for p in self.preps.values()]
-        povm_items = [(p.gpindices, p) for p in self.povms.values()]
+        members = list(self.operations.values()) + list(self.preps.values()) \
+            + list(self.povms.values())
+        n_ops, n_preps = len(self.operations), len(self.preps)
+        groups = []      # [error map, [(member position, pre, post)], [param slices]]
+        for pos, m in enumerate(members):
+            form = m.error_map_form()
+            if form is None:
+                continue
+            emap, pre, post = form
+            for g in groups:
+                if g[0].same_function_as(emap):
+                    break
+            else:
+                g = [emap, [], []]
+                groups.append(g)
+            g[1].append((pos, pre, post))
+            g[2].append(m.gpindices)
+        groups = [g for g in groups if len(g[1]) > 1]
+        grouped = {pos for g in groups for pos, _, _ in g[1]}
+        gather = [np.stack([np.arange(sl.start, sl.stop) for sl in g[2]]) for g in groups]
+        consts = {}
+
+        def const(key, array, v, dtype=None):
+            key = (key, str(v.device), v.dtype)
+            if key not in consts:
+                consts[key] = torch.as_tensor(array, dtype=dtype or v.dtype, device=v.device)
+            return consts[key]
 
         def compute(v):
-            ops = torch.stack([o.to_dense(v[sl]) for sl, o in op_items])
-            preps = torch.stack([p.to_dense(v[sl]) for sl, p in prep_items])
-            effects = torch.cat([p.to_dense(v[sl]) for sl, p in povm_items], dim=0)
-            return ModelTensors(ops, preps, effects)
+            dense = [None] * len(members)
+            for gi, (emap, uses, _) in enumerate(groups):
+                idx = const(('idx', gi), gather[gi], v, torch.int64)
+                E = torch.vmap(emap.to_dense)(v[idx])              # [n, d, d]
+                for k, (pos, pre, post) in enumerate(uses):
+                    mx = E[k]
+                    if pre is not None:
+                        mx = mx @ const(('pre', pos), pre, v)
+                    if post is not None:
+                        mx = const(('post', pos), post, v) @ mx
+                    dense[pos] = mx
+            for pos, m in enumerate(members):
+                if pos not in grouped:
+                    dense[pos] = m.to_dense(v[m.gpindices])
+            return ModelTensors(torch.stack(dense[:n_ops]),
+                                torch.stack(dense[n_ops:n_ops + n_preps]),
+                                torch.cat(dense[n_ops + n_preps:], dim=0))
 
         return compute
+
+    def flat_tensors_fn(self):
+        """A pure function v -> every tensor entry as one vector [NT]:
+        operations, then preps, then effects, each row-major."""
+        compute = self.tensors_fn()
+
+        def flat(v):
+            t = compute(v)
+            return torch.cat([t.ops.reshape(-1), t.preps.reshape(-1), t.effects.reshape(-1)])
+
+        return flat
+
+    def flat_tensors_jacobian_fn(self):
+        """A function v -> Tv = d flat tensors / d v, [NT, P].
+
+        Tv is block-diagonal: a member's entries depend on its own
+        parameters only.  So forward mode needs as many tangents as the
+        largest member has parameters, not P: tangent k carries the k-th
+        parameter of every member at once, each member's rows of the result
+        hold its own derivative, and the blocks are put in place by one
+        gather and one mask.  For a Lindblad model of 8 members that is 240
+        tangents through the matrix exponentials instead of 1,920."""
+        self._rebuild_paramvec_if_needed()
+        flat = self.flat_tensors_fn()
+        P = len(self._paramvec)
+        # members in the order of the flat vector, with their row counts
+        members = [(o, o.dim * o.dim) for o in self.operations.values()] \
+            + [(p, p.dim) for p in self.preps.values()] \
+            + [(p, p.num_outcomes * p.dim) for p in self.povms.values()]
+        C = max((m.num_params for m, _ in members), default=0)
+        row_member = np.repeat(np.arange(len(members)), [n for _, n in members])
+        param_member = np.full(P, -1)
+        param_k = np.zeros(P, dtype=np.int64)
+        for i, (m, _) in enumerate(members):
+            param_member[m.gpindices] = i
+            param_k[m.gpindices] = np.arange(m.num_params)
+        seeds = np.zeros((C, P))
+        seeds[param_k, np.arange(P)] = 1.0
+        mask = row_member[:, None] == param_member[None, :]
+        consts = {}
+
+        def jacobian(v):
+            if P == 0:
+                return torch.zeros((len(row_member), 0), dtype=v.dtype, device=v.device)
+            key = (str(v.device), v.dtype)
+            if key not in consts:
+                consts[key] = (torch.as_tensor(seeds, dtype=v.dtype, device=v.device),
+                               torch.as_tensor(param_k, device=v.device),
+                               torch.as_tensor(mask, device=v.device))
+            S, k_of_param, own = consts[key]
+            # vmap of jvp over the C seed tangents: what jacfwd does over the
+            # P unit vectors
+            compressed = torch.vmap(
+                lambda t: torch.func.jvp(flat, (v,), (t,))[1], out_dims=1)(S)    # [NT, C]
+            return compressed[:, k_of_param] * own
+
+        return jacobian
+
+    def set_all_parameterizations(self, gate_type, prep_type='auto', povm_type='auto'):
+        """Convert every operation, prep and POVM in place to the given
+        parameterization (the SPAM types follow `gate_type` when 'auto'),
+        each built from the member's current dense value by the
+        constructors of models/modelconstruction.py."""
+        from pygsti_tpu_torch.models.modelconstruction import (_make_op, _make_prep,
+                                                                _make_povm)
+        nq = self.num_qubits
+        ptype = prep_type if prep_type != 'auto' else gate_type
+        etype = povm_type if povm_type != 'auto' else gate_type
+        for lbl, op in list(self.operations.items()):
+            self.operations[lbl] = _make_op(op.dense(), gate_type, self.basis)
+        for lbl, p in list(self.preps.items()):
+            self.preps[lbl] = _make_prep(p.dense(), ptype, self.basis, nq)
+        for lbl, povm in list(self.povms.items()):
+            self.povms[lbl] = _make_povm(collections.OrderedDict(povm.items()), etype,
+                                         self.basis, nq)
+        self.default_gate_type = gate_type
+
+    def errorgen_coefficients(self, normalized_elem_gens=True):
+        """{member label: {GlobalElementaryErrorgenLabel: coefficient}} over
+        the operations, preps and POVMs that carry an error generator, the
+        qubits named 0..n-1.  normalized_elem_gens=False divides the H
+        coefficients by sqrt(Hilbert-space dimension)."""
+        sslbls = tuple(range(self.num_qubits or 1))
+        d = np.sqrt(np.sqrt(self.dim))
+        out = {}
+        for members in (self.operations, self.preps, self.povms):
+            for lbl, member in members.items():
+                if not hasattr(member, 'errorgen_coefficients'):
+                    continue
+                coeffs = {}
+                for l, v in member.errorgen_coefficients().items():
+                    g = GlobalElementaryErrorgenLabel.cast(l, sslbls)
+                    coeffs[g] = v / d if (g.errorgen_type == 'H'
+                                          and not normalized_elem_gens) else v
+                out[lbl] = coeffs
+        return out
 
     def depolarize(self, op_noise=None, spam_noise=None):
         """A depolarized copy: each op's non-identity block scaled by
         1 - op_noise; with spam_noise only the preps are depolarized, the
-        POVMs are left alone (as in the JAX package and the reference)."""
+        POVMs are left alone (as in the JAX package and the reference).
+        Only the dense families (static, full, full TP) can be rebuilt from
+        the scaled dense value; any other member raises TypeError (the JAX
+        package fails there too, on the member's constructor)."""
         m = self.copy()
         d = self.dim
+
+        def rebuilt(member, dense_types, static_type, D):
+            if isinstance(member, static_type):
+                return static_type(D @ member.dense())
+            if isinstance(member, dense_types):
+                return type(member)(D @ member.dense())
+            raise TypeError("depolarize cannot rebuild a %s from a dense value"
+                            % type(member).__name__)
+
         if op_noise is not None:
             D = np.diag([1.0] + [1.0 - op_noise] * (d - 1))
             for lbl, op in list(m.operations.items()):
-                m.operations[lbl] = type(op)(D @ op.dense()) \
-                    if not isinstance(op, _op.StaticArbitraryOp) \
-                    else _op.StaticArbitraryOp(D @ op.dense())
+                m.operations[lbl] = rebuilt(op, (_op.FullArbitraryOp, _op.FullTPOp),
+                                            _op.StaticArbitraryOp, D)
         if spam_noise is not None:
             D = np.diag([1.0] + [1.0 - spam_noise] * (d - 1))
             for lbl, p in list(m.preps.items()):
-                m.preps[lbl] = type(p)(D @ p.dense())
+                m.preps[lbl] = rebuilt(p, (_st.FullState, _st.TPState), _st.StaticState, D)
         return m
 
     def transform_inplace(self, s):

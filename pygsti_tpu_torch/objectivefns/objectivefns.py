@@ -445,7 +445,8 @@ def _objective_fns(model, layout, sim):
     raw = _SwitchedRaw()
     probs_fn = sim.probs_fn(layout)
     device = sim.device
-    compute = model.tensors_fn()
+    compute_flat = model.flat_tensors_fn()
+    tensors_jacobian = model.flat_tensors_jacobian_fn()
     dim = model.dim
     n_out = layout.num_elements // B
     n_ops = len(model.op_keys)
@@ -455,11 +456,6 @@ def _objective_fns(model, layout, sim):
     o_sz, p_sz = n_ops * dim * dim, n_preps * dim
     j_dtype = DTYPE
     buckets, inv_perm = bucket_plan(layout, n_out, NT, device)
-
-    def compute_flat(v):
-        t = compute(v)
-        return torch.cat([t.ops.reshape(-1), t.preps.reshape(-1),
-                          t.effects.reshape(-1)])
 
     def block_probs_jac(tf, bk):
         """(probs [nb*n_out], Jt [nb*n_out, NT]) for one circuit block:
@@ -503,7 +499,7 @@ def _objective_fns(model, layout, sim):
     @torch.no_grad()
     def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
         tf = compute_flat(v)
-        Tv = torch.func.jacfwd(compute_flat)(v)           # [NT, P]
+        Tv = tensors_jacobian(v)                          # [NT, P]
         M = torch.zeros((NT, NT), dtype=v.dtype, device=device)
         q = torch.zeros(NT, dtype=v.dtype, device=device)
         ls_parts = []
@@ -525,7 +521,7 @@ def _objective_fns(model, layout, sim):
     @torch.no_grad()
     def dlsvec_fn(v, counts, totals, freqs, flag, regs):
         tf = compute_flat(v)
-        Tv = torch.func.jacfwd(compute_flat)(v).to(j_dtype)
+        Tv = tensors_jacobian(v).to(j_dtype)
         J_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)

@@ -4,8 +4,12 @@ pygsti_tpu/protocols/gst.py).
 
 The fit and the gauge optimization run on the protocol's ``device``, the
 card by default.  Not ported yet: the bad-fit actions (wildcard budgets and
-robust re-weighting), reading results back from a directory, and the
-Lindblad and unitary parameterizations among StandardGST's modes.  The JAX
+robust re-weighting) and reading results back from a directory.
+
+A mode whose members LGST cannot carry its estimate into (the Lindblad and
+unitary families) starts from the mode's target, so that the fit keeps the
+mode's parameterization; gauge-transforming such members raises
+NotImplementedError, so these modes run with ``gaugeopt_suite=None``.  The JAX
 package warms its gauge-opt executables in a background thread while the
 fit runs; torch runs eagerly, there is nothing to compile, and the thread
 has no counterpart here.
@@ -24,11 +28,13 @@ from pygsti_tpu_torch.baseobjs.profiler import Profiler
 from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
 from pygsti_tpu_torch.circuits.circuit import Circuit
 from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
+from pygsti_tpu_torch.modelmembers import operations as _opm
+from pygsti_tpu_torch.modelmembers import povms as _pvm
+from pygsti_tpu_torch.modelmembers import states as _stm
 from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
 from pygsti_tpu_torch.models.gaugegroup import (UnitaryGaugeGroup, TPSpamGaugeGroup,
                                                 SpamGaugeGroup,
                                                 default_gauge_group_for_model)
-from pygsti_tpu_torch.models.modelconstruction import _make_op, _make_prep, _make_povm
 from pygsti_tpu_torch.objectivefns.objectivefns import (
     ObjectiveFunctionBuilder, RawPoissonPicDeltaLogLFunction,
     TimeIndependentMDCObjectiveFunction)
@@ -100,8 +106,26 @@ class StandardGSTDesign(GateSetTomographyDesign):
                    qubit_labels=state.get('qubit_labels'))
 
 
+def _lgst_keeps_parameterization(model):
+    """Whether run_lgst can return its estimate in `model`'s own
+    parameterization: every member is of a dense family (full, TP, static).
+    Any other member would come back fully parameterized."""
+    dense = (_opm.FullArbitraryOp, _opm.FullTPOp, _opm.StaticArbitraryOp,
+             _stm.FullState, _stm.TPState, _stm.StaticState,
+             _pvm.UnconstrainedPOVM, _pvm.TPPOVM)
+    return all(isinstance(obj, dense) for _, obj in model._iter_parameterized_objs())
+
+
 class GSTInitialModel(NicelySerializable):
-    """How to seed the GST optimization."""
+    """How to seed the GST optimization.
+
+    starting_point: "User-supplied-Model", "target", "LGST" or
+    "LGST-if-possible" (the default without a model).  The LGST estimate is
+    used only when every member of the target is of a dense family (full,
+    TP, static), which LGST can fill; for any other target (Lindblad,
+    unitary members) "LGST-if-possible" starts from a copy of the target, so
+    the fit keeps the target's parameterization, and "LGST" raises
+    ValueError."""
 
     @classmethod
     def cast(cls, obj):
@@ -128,7 +152,13 @@ class GSTInitialModel(NicelySerializable):
             mdl = self.model
         elif self.starting_point in ("LGST", "LGST-if-possible"):
             mdl = None
-            if hasattr(edesign, 'prep_fiducials'):
+            if not _lgst_keeps_parameterization(target):
+                if self.starting_point == "LGST":
+                    raise ValueError(
+                        "Cannot start from LGST: the target has members that LGST "
+                        "cannot fill (it would return them fully parameterized); "
+                        "use starting_point='target' or 'LGST-if-possible'")
+            elif hasattr(edesign, 'prep_fiducials'):
                 # "LGST-if-possible" starts from the target when LGST fails
                 # (data missing for a fiducial pair, a singular frame):
                 # the JAX package's documented behaviour
@@ -487,10 +517,13 @@ class LinearGateSetTomography(Protocol):
 
 
 class StandardGST(Protocol):
-    """Run GST with several parameterizations ('full', 'full TP'; the mode
-    'Target' and every key of `models_to_test` score a fixed model).  The
-    default modes are the JAX package's; 'CPTPLND' raises until the Lindblad
-    members are ported."""
+    """Run GST with several parameterizations (any type of
+    models/modelconstruction.py; the mode 'Target' and every key of
+    `models_to_test` score a fixed model).  The default modes are the JAX
+    package's.  A Lindblad or unitary mode is fitted from its converted
+    target with its own members (GSTInitialModel), and its members cannot be
+    gauge-transformed: with a gauge-opt suite such a mode raises
+    NotImplementedError after its fit, so pass ``gaugeopt_suite=None``."""
 
     def __init__(self, modes=('full TP', 'CPTPLND', 'Target'), gaugeopt_suite='stdgaugeopt',
                  target_model=None, models_to_test=None, objfn_builders=None,
@@ -554,17 +587,11 @@ class StandardGST(Protocol):
 
 
 def _convert_target(target, parameterization):
-    """A copy of `target` with every member in the given parameterization
-    ('full' or 'full TP'; the others raise ValueError, not ported yet)."""
-    m = ExplicitOpModel(target.dim, target.basis, parameterization,
-                        parameterization, parameterization)
-    for lbl, p in target.preps.items():
-        m.preps[lbl] = _make_prep(p.dense(), parameterization, m.basis)
-    for lbl, povm in target.povms.items():
-        m.povms[lbl] = _make_povm(collections.OrderedDict(povm.items()),
-                                  parameterization, m.basis)
-    for lbl, op in target.operations.items():
-        m.operations[lbl] = _make_op(op.dense(), parameterization, m.basis)
+    """A copy of `target` with every member re-made in the given
+    parameterization from its dense value (any type that
+    models/modelconstruction.py builds)."""
+    m = target.copy()
+    m.set_all_parameterizations(parameterization)
     return m
 
 

@@ -130,7 +130,9 @@ def test_port_imports_no_jax(tmp_path):
             "names = [m.name for m in pkgutil.walk_packages(pygsti_tpu_torch.__path__,\n"
             "                                                'pygsti_tpu_torch.')]\n"
             "for name in names: importlib.import_module(name)\n"
-            "assert 'pygsti_tpu_torch.protocols.gst' in names and len(names) > 45, names\n"
+            "assert 'pygsti_tpu_torch.protocols.gst' in names and len(names) > 48, names\n"
+            "for new in ('tools.lindbladtools', 'tools.jamiolkowski', 'baseobjs.errorgenlabel'):\n"
+            "    assert 'pygsti_tpu_torch.' + new in names, new\n"
             "from pygsti_tpu_torch.protocols.gst import GateSetTomographyCheckpoint\n"
             "ck = GateSetTomographyCheckpoint.read(%r)\n"
             "assert type(ck.mdl_list[0]).__module__ == 'pygsti_tpu_torch.models.explicitmodel'\n"
