@@ -29,6 +29,19 @@ Phases, each fatal on failure:
                 tensors and their Jacobian beside the 'full' model's
   7. lgst    -- linear-inversion GST on the same data (numpy on the host, as
                 in the JAX package), gauge-optimized to the target on the card
+  8. instrument fit -- the 2-qubit fit with a mid-circuit Z measurement of
+                qubit 0 (a TPInstrument 'Iz:0', 2,112 parameters, 14,310
+                circuits expanded to 15,014 rows) through GateSetTomography.run
+                from the target, with checkpoints and its own launch count
+                (the kernel at K1 = 9); the fitted instrument must stay TP,
+                its probabilities match a numpy reference that expands the
+                members, and its checkpoint read back with the instrument
+  9. sparse  -- phase 3's data on a layout of the observed outcomes only,
+                beside the dense one: the omitted-probability correction
+                (objective and gradient equal to the dense ones in the
+                linear regime), the forward-mode ('linearize') Jacobian on
+                the card against the CPU and beside the blocked one (time,
+                peak memory), a short LM fit on it, and the penalty rows
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -224,17 +237,41 @@ def phase_kernels(layout, model, device):
 
 
 def reference_probs(model, circuits):
-    """Plain numpy: p = E (G_L ... G_1 rho) circuit by circuit."""
+    """Plain numpy: p = E (G_L ... G_1 rho) circuit by circuit; a circuit
+    with instruments once per combination of their members, in the
+    layout's order."""
+    import itertools
     ops = {k: o.dense() for k, o in model.operations.items()}
+    insts = {k: dict(zip(i.member_labels, i.dense())) for k, i in model.instruments.items()}
     rho = next(iter(model.preps.values())).dense()
     effects = next(iter(model.povms.values())).dense()
     out = []
     for c in circuits:
-        s = rho
-        for layer in c.layertup:
-            s = ops[layer] @ s
-        out.append(effects @ s)
+        at = [l for l in c.layertup if l in insts]
+        for combo in itertools.product(*[list(insts[l]) for l in at]):
+            members = iter(combo)
+            s = rho
+            for layer in c.layertup:
+                s = (insts[layer][next(members)] if layer in insts else ops[layer]) @ s
+            out.append(effects @ s)
     return np.concatenate(out)
+
+
+def with_z_instrument(model, depol=0.0):
+    """`model` with the TPInstrument 'Iz:0', a Z measurement of qubit 0:
+    members rho -> (P_k x I) rho (P_k x I) in the pp basis, each
+    left-multiplied by the depolarization diag(1, 1 - depol, ...), so that
+    they still sum to a TP map."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.modelmembers.instruments import TPInstrument
+    from pygsti_tpu_torch.tools.basistools import change_basis
+    members = {}
+    for k in (0, 1):
+        P = np.kron(np.diag([1.0 - k, float(k)]), np.eye(2))
+        mx = np.real(change_basis(np.kron(P, P.conj()), 'std', 'pp'))
+        members['p%d' % k] = np.diag([1.0] + [1.0 - depol] * 15) @ mx
+    model.instruments[Label('Iz', 0)] = TPInstrument(members)
+    return model
 
 
 def log_stages(prefix, est, lists):
@@ -383,6 +420,228 @@ def phase_cptp_fit(mp, lists, ds, builders, full_value, full_model, check, devic
     if not err_own < 1e-13:
         raise SystemExit("the port's matrix exponential disagrees with scipy on the card")
     return launches
+
+
+def phase_instrument_fit(mp, lists, datagen, builders, device):
+    """The 2-qubit fit with a mid-circuit measurement at full width; returns
+    its kernel launch count."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.circuits.circuit import Circuit
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyCheckpoint,
+                                                GateSetTomographyDesign, GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+
+    target = with_z_instrument(mp.target_model('full'))
+    gen = with_z_instrument(datagen.copy(), depol=0.01)
+    iz = Circuit([Label('Iz', 0)], line_labels=(0, 1))
+    extra = [p + iz * k + m for k in (1, 2) for p in mp.prep_fiducials()
+             for m in mp.meas_fiducials()]
+    # the instrument circuits first, so that every list is a prefix of the
+    # last and the stages share one layout
+    ilists = [extra + list(l) for l in lists]
+    final = ilists[-1]
+    layout = SimpleForwardSimulator(target, device).create_layout(final)
+    log("instrument: %d circuits (%d with Iz:0), %d rows, %d elements, %d parameters, "
+        "op stack K1 = %d"
+        % (len(final), len(extra), layout.num_rows, layout.num_elements, target.num_params,
+           len(target.op_keys) + 1))
+    if (len(final), layout.num_rows, layout.num_elements, target.num_params) != \
+            (14310, 15014, 60056, 2112):
+        raise SystemExit("unexpected instrument design size")
+    t0 = time.time()
+    ds = simulate_data(gen, final, 1000, seed=1234, device=device)
+    log("instrument: data simulated on the card in %.2f s" % (time.time() - t0))
+    data = ProtocolData(GateSetTomographyDesign(target, ilists), ds)
+    gst = GateSetTomography(GSTInitialModel(target_model=target, starting_point='target'),
+                            gaugeopt_suite=None, objfn_builders=builders,
+                            optimizer={'maxiter': LM_MAXITER}, verbosity=0, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    with tempfile.TemporaryDirectory() as ckdir:
+        t0 = time.time()
+        results = gst.run(data, checkpoint_path=os.path.join(ckdir, 'inst'))
+        torch.cuda.synchronize()
+        run_wall = time.time() - t0
+        launches = bwd_jacobian_accumulate.launches
+        ckfiles = sorted(os.listdir(ckdir))
+        cksizes = [os.path.getsize(os.path.join(ckdir, f)) for f in ckfiles]
+        last_ck = GateSetTomographyCheckpoint.read(
+            os.path.join(ckdir, 'inst_iteration_%d.json' % (len(ilists) - 1)))
+    est = results.estimates['GateSetTomography']
+    total_iters = log_stages('instrument', est, ilists)
+    fit_wall = est.parameters['fit_time'] - est.parameters['profiler']['checkpoint writes']
+    value, nsigma = est.parameters['final_objfn_value'], est.misfit_sigma()
+    log("instrument: %d LM iterations in %.3f s wall, %.1f ms per iteration "
+        "(GateSetTomography.run as a whole: %.3f s); final 2*DeltaLogL %.6f, k %d, "
+        "N_sigma %.4f" % (total_iters, fit_wall, 1e3 * fit_wall / max(total_iters, 1),
+                          run_wall, value, est.parameters['final_dof'], nsigma))
+    log("instrument: kernel launches {'bwd_jacobian': %d}; peak device memory %.1f MB; "
+        "checkpoints: %d files, %s bytes"
+        % (launches, torch.cuda.max_memory_allocated() / 1e6, len(ckfiles), cksizes))
+    fitted = est.models['final iteration estimate']
+    theta = fitted.to_vector()
+    if launches == 0:
+        raise SystemExit("the instrument fit never launched the bwd_jacobian kernel")
+    if not (np.all(np.isfinite(theta)) and np.isfinite(value) and nsigma < 10):
+        raise SystemExit("the instrument fit is not finite or far from the statistical "
+                         "optimum: N_sigma %g" % nsigma)
+    members = fitted.instruments[Label('Iz', 0)].dense()
+    tp_dev = float(np.max(np.abs(members.sum(axis=0)[0] - np.eye(fitted.dim)[0])))
+    log("instrument: the fitted members sum to a map whose first row is off e0 by %.3e "
+        "(tol 1e-9)" % tp_dev)
+    if not tp_dev <= 1e-9:
+        raise SystemExit("the fitted instrument is not trace-preserving")
+    check = final[:100] + final[len(extra)::(len(final) - len(extra)) // 100][:100]
+    sim = SimpleForwardSimulator(fitted, device)
+    p_card = sim.bulk_fill_probs(sim.create_layout(check))
+    p_ref = reference_probs(fitted, check)
+    dp = float(np.max(np.abs(p_card - p_ref)))
+    log("instrument: probabilities of %d circuits (100 with Iz:0) vs a numpy reference that "
+        "expands the members: max |dp| %.3e (tol 1e-10)" % (len(check), dp))
+    if p_card.shape != p_ref.shape or not dp < 1e-10:
+        raise SystemExit("instrument probabilities disagree with the numpy reference")
+    back = last_ck.mdl_list[-1]
+    if len(ckfiles) != len(ilists) or list(back.instruments) != [Label('Iz', 0)] or \
+            not np.array_equal(back.to_vector(), theta):
+        raise SystemExit("the last instrument checkpoint does not read back to the final "
+                         "model with its instrument")
+    objs = [ObjectiveFunctionBuilder('logl').build(fitted, ds, ilists[0], device=dev)
+            for dev in (device, 'cpu')]
+    rel = card_vs_cpu(objs, theta)
+    log("instrument: blocked lsvec/JTJ/JTf (mode %s) on the card vs the CPU path (%d "
+        "circuits): max rel diff %.3e (tol 1e-9)" % (objs[0].jac_mode, len(ilists[0]), rel))
+    if objs[0].jac_mode != 'blocked' or not rel < 1e-9:
+        raise SystemExit("the instrument objective on the card disagrees with the CPU path")
+    return launches
+
+
+def card_vs_cpu(objs, theta):
+    """Largest relative difference of lsvec, J^T J and J^T f between the
+    objectives objs = (on the card, on the CPU) at theta."""
+    (ls_c, jtj_c, jtf_c), (ls_h, jtj_h, jtf_h) = (o.jtj_jtf(theta) for o in objs)
+    return max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+               for a, b in ((ls_c, ls_h), (jtj_c, jtj_h), (jtf_c, jtf_h)))
+
+
+def phase_sparse(datagen, fitted, ds, lists, device):
+    """Sparse observed-outcome layouts and the forward-mode Jacobian on
+    phase 3's data and on 40 shots of the same circuits (where many
+    outcomes go unobserved, as in the JAX package's test), then the
+    penalty rows."""
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
+
+    final, first = list(lists[-1]), list(lists[0])
+    theta, th_fit = datagen.to_vector(), fitted.to_vector()
+    sim = SimpleForwardSimulator(datagen, device)
+    linear = {'min_prob_clip': MINCLIP, 'radius': 1e-9}    # the linear zero-freq regime
+    regs = {'min_prob_clip': MINCLIP, 'radius': MINCLIP}
+    for shots, data in ((1000, ds), (40, simulate_data(datagen, final, 40, seed=7,
+                                                       device=device))):
+        tag = "sparse %d shots:" % shots
+        dense_lay = sim.create_layout(final, data, observed_outcomes_only=False)
+        sparse_lay = sim.create_layout(final, data, observed_outcomes_only=True)
+        dense, sparse = (ObjectiveFunctionBuilder('logl', regularization=linear).build(
+            datagen, data, final, device=device, layout=lay) for lay in (dense_lay, sparse_lay))
+        log("%s %d circuits, %d elements dense, %d observed (%.1f%%); %d circuits with "
+            "omitted outcomes; Jacobian modes: dense %s, sparse %s"
+            % (tag, len(final), dense_lay.num_elements, sparse_lay.num_elements,
+               100 * sparse_lay.num_elements / dense_lay.num_elements,
+               len(sparse_lay.omitted_circuits), dense.jac_mode, sparse.jac_mode))
+        if (dense.jac_mode, sparse.jac_mode) != ('blocked', 'linearize') or \
+                not sparse_lay.has_omitted:
+            raise SystemExit("unexpected sparse layout or Jacobian modes")
+        fd, fs = dense.fn(theta), sparse.fn(theta)
+        nd = float(np.sum(dense.lsvec(theta) ** 2))
+        ns = float(np.sum(sparse.lsvec(theta) ** 2))
+        _, jtj_d, jtf_d = dense.jtj_jtf(theta)
+        _, jtj_s, jtf_s = sparse.jtj_jtf(theta)
+        rel_jtf = float(np.max(np.abs(jtf_s - jtf_d)) / np.max(np.abs(jtf_d)))
+        sym = float(np.max(np.abs(jtj_s - jtj_s.T)))
+        log("%s at the data-generating point, radius 1e-9: fn sparse vs dense rel diff %.3e, "
+            "|lsvec|^2 %.3e (tol 1e-12); JTf %.3e of its largest entry (tol 1e-9); JTJ finite "
+            "%s, max |JTJ - JTJ^T| %.3e" % (tag, abs(fs - fd) / fd, abs(ns - nd) / nd, rel_jtf,
+                                            bool(np.all(np.isfinite(jtj_s))), sym))
+        if not (abs(fs - fd) <= 1e-12 * fd and abs(ns - nd) <= 1e-12 * nd and rel_jtf < 1e-9
+                and np.all(np.isfinite(jtj_s)) and sym <= 1e-8 * np.max(np.abs(jtj_s))):
+            raise SystemExit("the sparse objective disagrees with the dense one")
+        # the cost of one J^T J / J^T f of each Jacobian at full width
+        v = torch.as_tensor(theta, device=device)
+        for name, obj, reps in (('linearize', sparse, 1), ('blocked', dense, 5)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ms = cuda_time_ms(lambda: obj._fns['jtj_jtf'](v, *obj._args()), reps)
+            log("%s one jtj_jtf, %s Jacobian, %d elements, %d parameters: %.2f ms on the "
+                "card, peak device memory %.1f MB" % (tag, name, obj.num_elements, len(theta),
+                                                      ms, torch.cuda.max_memory_allocated() / 1e6))
+        # the forward-mode Jacobian on the card against the CPU, on the first list
+        objs = [ObjectiveFunctionBuilder('logl').build(
+            fitted, data, first, device=dev, layout=SimpleForwardSimulator(fitted, dev)
+            .create_layout(first, data, observed_outcomes_only=True)) for dev in (device, 'cpu')]
+        rel = card_vs_cpu(objs, th_fit)
+        log("%s 'linearize' lsvec/JTJ/JTf on the card vs the CPU path (%d circuits, %d "
+            "elements, %d with omitted outcomes): max rel diff %.3e (tol 1e-9)"
+            % (tag, len(first), objs[0].num_elements, len(objs[0].layout.omitted_circuits), rel))
+        if not rel < 1e-9:
+            raise SystemExit("the forward-mode Jacobian on the card disagrees with the CPU")
+        # a short LM fit on the sparse objective from a dense optimum.  The
+        # 'full' fit's optimum is not one to start from: a 'full' model is
+        # not TP, its probabilities of a circuit sum to 1 only within about
+        # 1e-2, so a circuit's omitted mass 1 - (sum of its observed p) can
+        # be negative, where the zero-frequency term is steep (at maxL 1,
+        # 1000 shots, on the CPU, one such circuit's terms are 149 against
+        # 3.7 in the dense objective).  So, as the JAX package's test does,
+        # the fit is of the 'full TP' model: dense LM from the
+        # data-generating point to its optimum, then LM on the sparse
+        # objective from there.
+        f_full = [ObjectiveFunctionBuilder('logl', regularization=regs).build(
+            fitted, data, final, device=device, layout=lay).fn(th_fit)
+            for lay in (dense_lay, sparse_lay)]
+        log("%s at the 'full' fit's optimum (default radius) the dense objective is %.6f, "
+            "the sparse one %.6f" % ((tag,) + tuple(f_full)))
+        tp_dense, tp_sparse = (ObjectiveFunctionBuilder('logl', regularization=regs).build(
+            datagen, data, final, device=device, layout=lay) for lay in (dense_lay, sparse_lay))
+        t0 = time.time()
+        x_d, _, _, _, _, _, _, iters_d = tp_dense.run_device_lm(theta, maxiter=LM_MAXITER)
+        dense_s = time.time() - t0
+        x_d = np.asarray(x_d)
+        f0 = tp_sparse.fn(x_d)
+        t0 = time.time()
+        x, _, msg, _, _, _, _, iters = tp_sparse.run_device_lm(x_d, maxiter=10)
+        lm_s = time.time() - t0
+        f1 = tp_sparse.fn(np.asarray(x))
+        log("%s 'full TP' LM, dense (blocked) from the data-generating point: %d iterations "
+            "in %.3f s, objective %.6f; then sparse ('linearize') from there: %d iterations "
+            "in %.3f s (%s), sparse objective %.6f -> %.6f (rel change %.3e, tol 2e-2)"
+            % (tag, iters_d, dense_s, tp_dense.fn(x_d), iters, lm_s, msg, f0, f1,
+               (f0 - f1) / f0))
+        if not (np.isfinite(f1) and f1 <= f0 and (f0 - f1) <= 2e-2 * f0):
+            raise SystemExit("the sparse LM fit rose or left the dense optimum")
+    rows, depth = sparse_lay.op_indices.shape
+    P, K1, d = len(theta), len(datagen.op_keys) + 1, datagen.dim
+    log("sparse: forward mode at full width, per jtj_jtf: a plain vmap of jvp would gather "
+        "%.3f TB of op tangents (P x B x d x d x 8 B per layer, read once: %.1f ms at "
+        "%.2f TB/s); this one writes %.3f TB of dG s (K1 x B x d x P x 8 B per layer, %.1f ms)"
+        % (P * rows * d * d * 8 * depth / 1e12,
+           1e3 * P * rows * d * d * 8 * depth / PEAK_BYTES_PER_S, PEAK_BYTES_PER_S / 1e12,
+           K1 * rows * d * P * 8 * depth / 1e12,
+           1e3 * K1 * rows * d * P * 8 * depth / PEAK_BYTES_PER_S))
+    # the penalty rows on the card against the CPU
+    pens = {'cptp_penalty_factor': 1.0, 'spam_penalty_factor': 1.0}
+    objs = [ObjectiveFunctionBuilder('logl', penalties=pens).build(fitted, ds, first, device=dev)
+            for dev in (device, 'cpu')]
+    rel = card_vs_cpu(objs, th_fit)
+    log("sparse: jtj_jtf with CPTP and SPAM penalties (%d rows) on the card vs the CPU "
+        "(%d circuits): max rel diff %.3e (tol 1e-9)"
+        % (len(objs[0].lsvec(th_fit)) - objs[0].num_elements, len(first), rel))
+    if not rel < 1e-9:
+        raise SystemExit("the penalty rows on the card disagree with the CPU path")
 
 
 def main():
@@ -592,14 +851,22 @@ def main():
            1e3 * stats['adam_s'] / stats['adam_steps'],
            100 * (busy_ms / evals) / (1e3 * stats['adam_s'] / stats['adam_steps'])))
 
+    # -- the fit with a mid-circuit measurement, then sparse outcomes --------
+    t0 = time.time()
+    inst_launches = phase_instrument_fit(mp, lists, datagen, builders, device)
+    t1 = time.time()
+    phase_sparse(datagen, fitted, ds, lists, device)
+    t2 = time.time()
+    log("phases 8 and 9: %.1f s and %.1f s of the script's wall time" % (t1 - t0, t2 - t1))
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
         "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
-        "launches": launches['bwd_jacobian'] + cptp_launches,
+        "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches,
         "launches_by_path": {"full fit": launches['bwd_jacobian'],
-                             "cptp fit": cptp_launches},
+                             "cptp fit": cptp_launches, "instrument fit": inst_launches},
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -21,8 +21,7 @@ from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
 from pygsti_tpu_torch.modelmembers import operations as _opm
 from pygsti_tpu_torch.modelmembers import povms as _pvm
 from pygsti_tpu_torch.modelmembers import states as _stm
-from pygsti_tpu_torch.objectivefns.objectivefns import (
-    ObjectiveFunctionBuilder, TimeIndependentMDCObjectiveFunction)
+from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
 from pygsti_tpu_torch.optimize.simplerlm import SimplerLMOptimizer
 
 
@@ -34,7 +33,9 @@ def run_lgst(dataset, prep_fiducials, effect_fiducials, target_model,
     measured frequencies, truncates it to rank d^2 by SVD, expresses each
     gate in the SVD frame and rotates into the target model's gauge using
     the target's fiducial maps.  Returns a copy of `target_model` holding
-    the estimate, each member in its family of parameterization.
+    the estimate, each member in its family of parameterization; the
+    target's instruments are carried over unchanged, not estimated (as in
+    the JAX package).
     """
     printer = VerbosityPrinter.create_printer(verbosity)
     if op_labels is None:
@@ -190,18 +191,14 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
     lists = [list(cl) for cl in circuit_lists]
     n_iters = len(lists)
     nested = all(lists[i] == lists[-1][:len(lists[i])] for i in range(n_iters - 1))
-    shared_layout = SimpleForwardSimulator(mdl, device).create_layout(lists[-1]) \
+    shared_layout = SimpleForwardSimulator(mdl, device).create_layout(lists[-1], dataset) \
         if nested else None
 
     def make_objective(builder, i):
         if nested:
-            return TimeIndependentMDCObjectiveFunction(
-                builder.build_raw(), mdl, dataset, lists[-1], name=builder.name,
-                layout=shared_layout, num_active_circuits=len(lists[i]),
-                device=device)
-        return TimeIndependentMDCObjectiveFunction(
-            builder.build_raw(), mdl, dataset, lists[i], name=builder.name,
-            device=device)
+            return builder.build(mdl, dataset, lists[-1], device=device,
+                                 layout=shared_layout, num_active_circuits=len(lists[i]))
+        return builder.build(mdl, dataset, lists[i], device=device)
 
     for i in range(starting_index, n_iters):
         printer.log("--- Iterative GST: Iter %d of %d  (%d circuits) ---"

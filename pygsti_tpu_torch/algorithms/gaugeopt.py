@@ -339,8 +339,10 @@ class GaugeoptToTargetArgs(object):
 
 
 def gates_with_instruments(model):
-    """The model's operation labels plus expanded instrument-member labels
-    (the port's models hold no instruments yet)."""
+    """The model's operation labels plus expanded instrument-member labels.
+    (Gauge optimization of a model with an instrument fails where it
+    transforms the model: instruments have no gauge transform, in both
+    packages.)"""
     labels = list(model.operations.keys())
     for ilbl, inst in getattr(model, 'instruments', {}).items():
         for mlbl in inst.member_labels:

@@ -1,5 +1,5 @@
-"""Carry a JAX-package model's parameters, and its gauge-group elements,
-into the port.
+"""Carry a JAX-package model's parameters, its instruments and its
+gauge-group elements into the port.
 
 The functions take plain numpy data -- what ``pygsti_tpu``'s
 ``model.to_vector()``, its members' dense matrices or a gauge group's
@@ -14,6 +14,8 @@ import collections
 import numpy as np
 
 from pygsti_tpu_torch.circuits.circuitparser import parse_label_str
+from pygsti_tpu_torch.modelmembers.instruments import Instrument, TPInstrument
+from pygsti_tpu_torch.modelmembers.operations import FullArbitraryOp
 from pygsti_tpu_torch.models import gaugegroup as _gg
 from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
 from pygsti_tpu_torch.models.modelconstruction import _make_op, _make_povm, _make_prep
@@ -27,8 +29,10 @@ _GAUGE_GROUPS = {cls.name: cls for cls in (
 def model_from_vector(template, theta):
     """A copy of the port's `template` model holding the parameter vector
     `theta`.  The port orders parameters as the JAX package does (preps,
-    POVMs, operations; each member's entries row-major), so a vector from a
-    JAX model of the same structure means the same model here."""
+    POVMs, operations, instruments; each member's entries row-major; a
+    TPInstrument's total map without its first row, then its members but
+    the first), so a vector from a JAX model of the same structure means the
+    same model here."""
     theta = np.asarray(theta, dtype=float)
     if theta.shape != (template.num_params,):
         raise ValueError("theta has shape %s; the model has %d parameters"
@@ -38,12 +42,28 @@ def model_from_vector(template, theta):
     return m
 
 
+def instrument_from_dense(kind, members):
+    """An instrument from its members' dense superoperators {label: [d, d]}:
+    kind 'TP' gives a TPInstrument, 'full' an Instrument of fully
+    parameterized members, 'static' one of fixed members."""
+    members = collections.OrderedDict((str(k), np.asarray(v, dtype=float))
+                                      for k, v in members.items())
+    if kind == 'TP':
+        return TPInstrument(members)
+    if kind == 'full':
+        return Instrument({k: FullArbitraryOp(v) for k, v in members.items()})
+    if kind == 'static':
+        return Instrument(members)
+    raise ValueError("unknown instrument kind %r ('TP', 'full' or 'static')" % (kind,))
+
+
 def model_from_dense(ops, preps, povms, gate_type='full', basis='pp'):
     """An ExplicitOpModel from dense arrays keyed by label string.
 
     ops: {label: [d, d]}; preps: {label: [d]}; povms: {label: {outcome: [d]}}.
     `gate_type` ('full' or 'full TP') picks the members' parameterization;
-    insertion order of each dict becomes the model's order."""
+    insertion order of each dict becomes the model's order.  Add
+    instruments with instrument_from_dense."""
     dims = {np.asarray(a).shape[0] for a in list(ops.values()) + list(preps.values())}
     if len(dims) != 1:
         raise ValueError("members disagree on the dimension: %s" % sorted(dims))

@@ -48,8 +48,17 @@ class SimpleForwardSimulator(object):
         self.model = model
         self.device = torch.device(device)
 
-    def create_layout(self, circuits, dataset=None):
-        return CircuitOutcomeProbabilityLayout(circuits, self.model)
+    def create_layout(self, circuits, dataset=None, observed_outcomes_only=None):
+        """The layout of `circuits`.  observed_outcomes_only=None chooses as
+        the JAX package does: with a dataset, only the observed outcomes
+        when a POVM has more than 8 outcomes (more than 3 qubits), where
+        the dense element count grows out of reach; else all outcomes."""
+        if observed_outcomes_only is None:
+            povms = self.model.povms
+            observed_outcomes_only = dataset is not None and len(povms) > 0 and \
+                max(p.num_outcomes for p in povms.values()) > 8
+        return CircuitOutcomeProbabilityLayout(circuits, self.model, dataset,
+                                               observed_outcomes_only=observed_outcomes_only)
 
     def probs_fn(self, layout):
         """A pure function v -> probabilities [n_elements] for `layout`."""
@@ -71,6 +80,19 @@ class SimpleForwardSimulator(object):
         v = torch.as_tensor(self.model.to_vector(), dtype=DTYPE, device=self.device)
         with torch.no_grad():
             return self.probs_fn(layout)(v).cpu().numpy()
+
+    def probs(self, circuit, outcomes=None):
+        """OutcomeLabelDict(outcome -> probability) of one circuit;
+        `outcomes` restricts it to those outcomes."""
+        layout = self.create_layout([circuit])
+        p = self.bulk_fill_probs(layout)
+        keep = None if outcomes is None else \
+            {OutcomeLabelDict.to_outcome(o) for o in outcomes}
+        out = OutcomeLabelDict()
+        for outcome, val in zip(layout.outcomes[0], p):
+            if keep is None or outcome in keep:
+                out[outcome] = float(val)
+        return out
 
     def bulk_probs(self, circuits):
         """{circuit: OutcomeLabelDict(outcome -> probability)}."""

@@ -1,9 +1,11 @@
-"""ExplicitOpModel: dict-style model with explicit operations, preps and
-POVMs (counterpart of pygsti_tpu/models/explicitmodel.py).
+"""ExplicitOpModel: dict-style model with explicit operations, preps, POVMs
+and instruments (counterpart of pygsti_tpu/models/explicitmodel.py).
 
 ``tensors_fn()`` returns a pure torch function ``v -> ModelTensors``
 (stacked op matrices, prep vectors and effect rows) on ``v``'s device and
-dtype.  The parameter vector is laid out preps, POVMs, operations, each in
+dtype; each instrument member takes a slot of the op stack after the
+operations, keyed ``('INSTRUMENT', label, member)`` in ``op_keys``.  The
+parameter vector is laid out preps, POVMs, operations, instruments, each in
 insertion order, exactly as in the JAX package, so one vector means one
 model in both.  A model is gauge-transformed in place by a
 GaugeGroupElement (host numpy) and serializes to the JAX package's state
@@ -27,11 +29,12 @@ from pygsti_tpu_torch.modelmembers.modelmember import ModelMember
 from pygsti_tpu_torch.modelmembers import operations as _op
 from pygsti_tpu_torch.modelmembers import states as _st
 from pygsti_tpu_torch.modelmembers import povms as _pv
+from pygsti_tpu_torch.modelmembers.instruments import Instrument
 
 
 class ModelTensors(NamedTuple):
     """Stacked dense representations produced by tensors_fn."""
-    ops: Any        # [n_ops, dim, dim]
+    ops: Any        # [n_ops + n_instrument_members, dim, dim]
     preps: Any      # [n_preps, dim]
     effects: Any    # [n_effect_rows, dim]  (all POVMs' effects, concatenated)
 
@@ -57,6 +60,9 @@ class _MemberDict(collections.OrderedDict):
         self._kind = kind
 
     def __setitem__(self, key, val):
+        if isinstance(val, Instrument) != (self._kind == 'instrument'):
+            raise TypeError("%s cannot be a member of a model's %s dict"
+                            % (type(val).__name__, self._kind))
         if not isinstance(val, ModelMember):
             val = self._parent._cast_member(self._kind, val)
         super().__setitem__(Label(key), val)
@@ -70,7 +76,7 @@ class _MemberDict(collections.OrderedDict):
 
 
 class ExplicitOpModel(OpModel):
-    """Model with explicit .operations/.preps/.povms dicts."""
+    """Model with explicit .operations/.preps/.povms/.instruments dicts."""
 
     def __init__(self, dim, basis='pp', default_gate_type='full',
                  default_prep_type=None, default_povm_type=None):
@@ -81,6 +87,7 @@ class ExplicitOpModel(OpModel):
         self.preps = _MemberDict(self, 'prep')
         self.povms = _MemberDict(self, 'povm')
         self.operations = _MemberDict(self, 'op')
+        self.instruments = _MemberDict(self, 'instrument')
 
     def _cast_member(self, kind, val):
         table, t = {'op': (_OP_TYPES, self.default_gate_type),
@@ -97,13 +104,24 @@ class ExplicitOpModel(OpModel):
         return n if 4 ** n == self.dim else None
 
     def _iter_parameterized_objs(self):
-        for d in (self.preps, self.povms, self.operations):
+        for d in (self.preps, self.povms, self.operations, self.instruments):
             for lbl, obj in d.items():
                 yield lbl, obj
 
+    def __getitem__(self, label):
+        label = Label(label)
+        for d in (self.operations, self.preps, self.povms, self.instruments):
+            if label in d:
+                return d[label]
+        raise KeyError(label)
+
     @property
     def op_keys(self):
-        return list(self.operations.keys())
+        """Keys of the op stack: the operations, then every instrument
+        member as ('INSTRUMENT', instrument label, member label)."""
+        return list(self.operations.keys()) + [
+            ('INSTRUMENT', ilbl, mlbl) for ilbl, inst in self.instruments.items()
+            for mlbl in inst.member_labels]
 
     @property
     def prep_keys(self):
@@ -139,10 +157,16 @@ class ExplicitOpModel(OpModel):
         m = ExplicitOpModel(self.dim, self.basis, self.default_gate_type,
                             self.default_prep_type, self.default_povm_type)
         for src, dst in ((self.preps, m.preps), (self.povms, m.povms),
-                         (self.operations, m.operations)):
+                         (self.operations, m.operations),
+                         (self.instruments, m.instruments)):
             for lbl, obj in src.items():
                 dst[lbl] = obj.copy()
         return m
+
+    def probabilities(self, circuit, outcomes=None, device="cuda"):
+        """{outcome: probability} of one circuit, simulated on `device`."""
+        from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+        return SimpleForwardSimulator(self, device).probs(circuit, outcomes=outcomes)
 
     def tensors_fn(self):
         """A pure function v -> ModelTensors (safe under torch.func).
@@ -155,9 +179,10 @@ class ExplicitOpModel(OpModel):
         exponential instead of 8; under forward-mode differentiation, where
         the host pays for every op it issues, that is most of the time."""
         self._rebuild_paramvec_if_needed()
-        members = list(self.operations.values()) + list(self.preps.values()) \
-            + list(self.povms.values())
-        n_ops, n_preps = len(self.operations), len(self.preps)
+        members = list(self.operations.values()) + list(self.instruments.values()) \
+            + list(self.preps.values()) + list(self.povms.values())
+        n_ops = len(self.operations) + len(self.instruments)   # stack members
+        n_preps = len(self.preps)
         groups = []      # [error map, [(member position, pre, post)], [param slices]]
         for pos, m in enumerate(members):
             form = m.error_map_form()
@@ -198,7 +223,10 @@ class ExplicitOpModel(OpModel):
             for pos, m in enumerate(members):
                 if pos not in grouped:
                     dense[pos] = m.to_dense(v[m.gpindices])
-            return ModelTensors(torch.stack(dense[:n_ops]),
+            # an operation is one slot of the op stack, an instrument one
+            # slot per member
+            return ModelTensors(torch.cat([x if x.dim() == 3 else x[None]
+                                           for x in dense[:n_ops]]),
                                 torch.stack(dense[n_ops:n_ops + n_preps]),
                                 torch.cat(dense[n_ops + n_preps:], dim=0))
 
@@ -224,12 +252,15 @@ class ExplicitOpModel(OpModel):
         parameter of every member at once, each member's rows of the result
         hold its own derivative, and the blocks are put in place by one
         gather and one mask.  For a Lindblad model of 8 members that is 240
-        tangents through the matrix exponentials instead of 1,920."""
+        tangents through the matrix exponentials instead of 1,920.  An
+        instrument is one block over all its member slots: member 0 of a
+        TPInstrument depends on every parameter of the instrument."""
         self._rebuild_paramvec_if_needed()
         flat = self.flat_tensors_fn()
         P = len(self._paramvec)
         # members in the order of the flat vector, with their row counts
         members = [(o, o.dim * o.dim) for o in self.operations.values()] \
+            + [(i, i.num_members * i.dim * i.dim) for i in self.instruments.values()] \
             + [(p, p.dim) for p in self.preps.values()] \
             + [(p, p.num_outcomes * p.dim) for p in self.povms.values()]
         C = max((m.num_params for m, _ in members), default=0)
@@ -341,10 +372,12 @@ class ExplicitOpModel(OpModel):
         self._mark_for_rebuild()
 
     def frobeniusdist(self, other):
-        """RMS Frobenius distance over corresponding members."""
+        """RMS Frobenius distance over corresponding members, instruments
+        (their member stacks) included."""
         total, count = 0.0, 0
         for mine, theirs in ((self.operations, other.operations),
-                             (self.preps, other.preps), (self.povms, other.povms)):
+                             (self.preps, other.preps), (self.povms, other.povms),
+                             (self.instruments, other.instruments)):
             for lbl in mine:
                 diff = mine[lbl].dense() - theirs[lbl].dense()
                 total += np.sum(diff ** 2)
@@ -355,7 +388,9 @@ class ExplicitOpModel(OpModel):
     def to_nice_serialization(self):
         """The JAX package's state layout, with the port's module names.
         The port's models carry a dimension and no state-space labels, so
-        'dim' stands where the JAX package writes its state space."""
+        'dim' stands where the JAX package writes its state space.  The
+        instruments are written too, which the JAX package leaves out (its
+        checkpoints of an instrument model read back without them)."""
         def ser(obj):
             return obj.to_nice_serialization()
         return {
@@ -369,6 +404,8 @@ class ExplicitOpModel(OpModel):
             'povms': [[str(lbl), ser(o)] for lbl, o in self.povms.items()],
             'operations': [[list(lbl) if isinstance(lbl, tuple) else str(lbl), ser(o)]
                            for lbl, o in self.operations.items()],
+            'instruments': [[list(lbl) if isinstance(lbl, tuple) else str(lbl), ser(o)]
+                            for lbl, o in self.instruments.items()],
         }
 
     @classmethod
@@ -381,9 +418,9 @@ class ExplicitOpModel(OpModel):
             dim = int(np.prod(state['state_space_udims'])) ** 2
         m = cls(dim, state['basis'], state['default_gate_type'],
                 state['default_prep_type'], state['default_povm_type'])
-        for kind in ('preps', 'povms', 'operations'):
+        for kind in ('preps', 'povms', 'operations', 'instruments'):
             members = getattr(m, kind)
-            for lbl, s in state[kind]:
+            for lbl, s in state.get(kind, []):
                 key = Label(tuple(lbl)) if isinstance(lbl, list) else Label(lbl)
                 members[key] = NicelySerializable.from_nice_serialization(s)
         return m

@@ -1,16 +1,24 @@
-"""Objective functions and the blocked Jacobian, in torch (counterpart of
-pygsti_tpu/objectivefns/objectivefns.py: the chi2 and Poisson-picture logL
-raw functions, their switched forms, ObjectiveFunctionBuilder,
-TimeIndependentMDCObjectiveFunction and the 'blocked' Jacobian).
+"""Objective functions and their Jacobians, in torch (counterpart of
+pygsti_tpu/objectivefns/objectivefns.py: the chi2, Poisson-picture and
+plain logL raw functions, their switched forms, ObjectiveFunctionBuilder,
+TimeIndependentMDCObjectiveFunction with the omitted-probability
+correction, the penalty rows, and the 'blocked' and forward-mode
+Jacobians; the standalone logl, two_delta_logl and chi2).
 
 The objective evaluates, on one device:
   fn(v)      -> objective value
-  lsvec(v)   -> least-squares residual vector [n_elements]
+  lsvec(v)   -> least-squares residual vector [n_elements (+ penalty rows)]
   jtj_jtf(v) -> (lsvec, J^T J, J^T lsvec), what the LM optimizer consumes,
-with J = d lsvec / dv from the blocked Jacobian: circuits grouped into depth
-buckets, a forward scan per bucket, the backward accumulation of
-ops/bwd_jacobian.py, a per-bucket Gram, and one chain through
-Tv = d tensors / d v.
+with J = d lsvec / dv from one of two Jacobians, chosen by the JAX
+package's rule (``jac_mode=None``):
+  'blocked'   every row has the same number of elements and none is
+              omitted: rows grouped into depth buckets, a forward scan per
+              bucket, the backward accumulation of ops/bwd_jacobian.py, a
+              per-bucket Gram, and one chain through Tv = d tensors / d v;
+  'linearize' any other layout (sparse outcomes): P forward-mode tangents
+              of the probabilities, pushed through the scan in chunks,
+              then one Gram.  The JAX package's 'fwd' computes the same J
+              without a mesh, so here both names run this one function.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ import numpy as np
 import torch
 
 from pygsti_tpu_torch import DTYPE
-from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator, layout_tensors
 from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
 
 DEFAULT_MIN_PROB_CLIP = 1e-4
@@ -27,6 +35,11 @@ DEFAULT_RADIUS = 1e-4
 DEFAULT_MIN_PROB_CLIP_FOR_WEIGHTING = 1e-4
 # bytes of one Jacobian block (the JAX package's default budget)
 JAC_BLOCK_BYTES = 256 * 1024 * 1024
+# bytes of one layer's op-tangent products dG s in one chunk of forward-mode
+# tangents, by device type: few large launches on the card; on the CPU
+# chunks that stay near its caches (a 2-qubit LM fit of 16 iterations took
+# 51 s with 1 GiB chunks there, 1.8 s with 16 MiB ones)
+JVP_CHUNK_BYTES = {'cuda': 1024 * 1024 * 1024, 'cpu': 16 * 1024 * 1024}
 
 
 # -- raw objectives -----------------------------------------------------------
@@ -100,6 +113,24 @@ def _sw_logl_dlsvec(p, c, t, f, minp, radius):
     return torch.where(terms < noise_floor, quad, std)
 
 
+def _chi2_zero_freq_terms(n, p, mpc):
+    return n * p ** 2 / torch.clamp(p, min=mpc)
+
+
+def _chi2_zero_freq_dterms(n, p, mpc):
+    return torch.where(p >= mpc, n, 2 * n * p / torch.clamp(p, min=mpc))
+
+
+def _logl_zero_freq_terms(n, p, radius):
+    return n * torch.where(p >= radius, p, (-1.0 / (3 * radius ** 2)) * p ** 3
+                           + p ** 2 / radius + radius / 3.0)
+
+
+def _logl_zero_freq_dterms(n, p, radius):
+    return n * torch.where(p >= radius, torch.ones_like(p),
+                           (-1.0 / radius ** 2) * p ** 2 + 2 * p / radius)
+
+
 class RawChi2Function(object):
     """N(p-f)^2 / max(p, minp) with its signed square-root lsvec."""
 
@@ -123,6 +154,17 @@ class RawChi2Function(object):
 
     def terms(self, p, c, t, f):
         return self.lsvec(p, c, t, f) ** 2
+
+    def dterms(self, p, c, t, f):
+        return 2 * self.lsvec(p, c, t, f) * self.dlsvec(p, c, t, f)
+
+    def zero_freq_terms(self, n, p):
+        """The terms of an outcome with no counts (also the omitted-outcome
+        correction of a sparse layout); ``zero_freq_dterms`` their slope."""
+        return _chi2_zero_freq_terms(n, p, self.min_prob_clip_for_weighting)
+
+    def zero_freq_dterms(self, n, p):
+        return _chi2_zero_freq_dterms(n, p, self.min_prob_clip_for_weighting)
 
     def chi2k_distributed_qty(self, objective_function_value):
         return objective_function_value
@@ -154,6 +196,64 @@ class RawPoissonPicDeltaLogLFunction(object):
     def terms(self, p, c, t, f):
         return _sw_logl_terms(p, c, t, f, self.min_p, self.radius)
 
+    def dterms(self, p, c, t, f):
+        return _sw_logl_dterms(p, c, t, f, self.min_p, self.radius)
+
+    def zero_freq_terms(self, n, p):
+        return _logl_zero_freq_terms(n, p, self.radius)
+
+    def zero_freq_dterms(self, n, p):
+        return _logl_zero_freq_dterms(n, p, self.radius)
+
+    def chi2k_distributed_qty(self, objective_function_value):
+        return 2 * objective_function_value
+
+
+class RawDeltaLogLFunction(object):
+    """Delta logL outside the Poisson picture, N*f*log(f/p), with the 'minp'
+    Taylor patch.  Its terms are legitimately negative where p > f, so fn
+    and terms are not clamped; lsvec clamps inside the square root."""
+
+    name = 'dlogl-nonpoisson'
+
+    def __init__(self, regularization=None):
+        self.min_p = DEFAULT_MIN_PROB_CLIP
+        if regularization:
+            self.set_regularization(**regularization)
+
+    def set_regularization(self, min_prob_clip=DEFAULT_MIN_PROB_CLIP):
+        self.min_p = min_prob_clip
+
+    def terms(self, p, c, t, f):
+        minp = self.min_p
+        fnz = torch.where(c == 0, torch.ones_like(f), f)
+        pos = torch.where(p < minp, torch.full_like(p, minp), p)
+        terms = c * (torch.log(fnz) - torch.log(pos))
+        terms = torch.where(p < minp, terms - c / minp * (p - minp)
+                            + 0.5 * c / minp ** 2 * (p - minp) ** 2, terms)
+        return torch.where(c == 0, torch.zeros_like(p), terms)
+
+    def lsvec(self, p, c, t, f):
+        terms = self.terms(p, c, t, f)
+        return torch.sqrt(torch.where(terms < 0, torch.zeros_like(terms), terms))
+
+    def dterms(self, p, c, t, f):
+        minp = self.min_p
+        pos = torch.where(p < minp, torch.full_like(p, minp), p)
+        d = torch.where(p < minp, -c / minp + c / minp ** 2 * (p - minp), -c / pos)
+        return torch.where(c == 0, torch.zeros_like(p), d)
+
+    def dlsvec(self, p, c, t, f):
+        ls = self.lsvec(p, c, t, f)
+        return torch.where(ls < 1e-100, torch.zeros_like(ls),
+                           0.5 / torch.clamp(ls, min=1e-100)) * self.dterms(p, c, t, f)
+
+    def zero_freq_terms(self, n, p):
+        return torch.zeros_like(p)
+
+    def zero_freq_dterms(self, n, p):
+        return torch.zeros_like(p)
+
     def chi2k_distributed_qty(self, objective_function_value):
         return 2 * objective_function_value
 
@@ -180,22 +280,55 @@ class _SwitchedRaw(object):
             return _sw_chi2_lsvec(p, c, t, f, regs[0]) ** 2
         return _sw_logl_terms(p, c, t, f, regs[1], regs[2])
 
+    def dterms(self, p, c, t, f, flag, regs):
+        if flag == 0:
+            return 2 * _sw_chi2_lsvec(p, c, t, f, regs[0]) * _sw_chi2_dlsvec(p, c, t, f, regs[0])
+        return _sw_logl_dterms(p, c, t, f, regs[1], regs[2])
+
+    def zero_freq_terms(self, n, p, flag, regs):
+        if flag == 0:
+            return _chi2_zero_freq_terms(n, p, regs[0])
+        return _logl_zero_freq_terms(n, p, regs[2])
+
+    def zero_freq_dterms(self, n, p, flag, regs):
+        if flag == 0:
+            return _chi2_zero_freq_dterms(n, p, regs[0])
+        return _logl_zero_freq_dterms(n, p, regs[2])
+
+
+class _PassthroughRaw(object):
+    """Any other raw objective behind the switched signature."""
+
+    def __init__(self, raw):
+        self._raw = raw
+
+    def __getattr__(self, name):
+        method = getattr(self._raw, name)
+        return lambda *args: method(*args[:-2])
+
 
 def _switch_config(raw):
-    """(flag, regs) of a raw objective for _SwitchedRaw."""
+    """(adapter, flag, regs) of a raw objective: _SwitchedRaw for chi2 and
+    the Poisson-picture logL, whose stages then share one set of functions,
+    and a pass-through for any other."""
     if type(raw) is RawChi2Function:
-        return 0, (raw.min_prob_clip_for_weighting, 1e-4, 1e-4)
+        return _SwitchedRaw(), 0, (raw.min_prob_clip_for_weighting, 1e-4, 1e-4)
     if type(raw) is RawPoissonPicDeltaLogLFunction:
-        return 1, (1e-4, raw.min_p, raw.radius)
-    raise TypeError("unsupported raw objective %r" % type(raw).__name__)
+        return _SwitchedRaw(), 1, (1e-4, raw.min_p, raw.radius)
+    return _PassthroughRaw(raw), 0, (1e-4, 1e-4, 1e-4)
 
 
 _RAW_CLASSES = {'chi2': RawChi2Function, 'logl': RawPoissonPicDeltaLogLFunction,
                 'dlogl': RawPoissonPicDeltaLogLFunction}
+_PENALTY_KEYS = ('cptp_penalty_factor', 'spam_penalty_factor', 'regularize_factor')
+JAC_MODES = ('blocked', 'linearize', 'fwd')
 
 
 class ObjectiveFunctionBuilder(object):
-    """Recipe for building an MDC objective: 'chi2' or 'logl'."""
+    """Recipe for building an MDC objective: 'chi2' or 'logl', with optional
+    `penalties` (cptp_penalty_factor, spam_penalty_factor,
+    regularize_factor) and `jac_mode` (None for the JAX package's rule, or
+    one of JAC_MODES)."""
 
     @classmethod
     def cast(cls, obj):
@@ -209,28 +342,31 @@ class ObjectiveFunctionBuilder(object):
             return cls(**obj)
         raise ValueError("Cannot cast %r to ObjectiveFunctionBuilder" % (obj,))
 
-    def __init__(self, name='logl', regularization=None, penalties=None):
+    def __init__(self, name='logl', regularization=None, penalties=None, jac_mode=None):
         if name not in _RAW_CLASSES:
             raise ValueError("unsupported objective %r (the port has %s)"
                              % (name, sorted(_RAW_CLASSES)))
-        if penalties:
-            raise ValueError("objective penalties are not ported")
+        unknown = sorted(set(penalties or {}) - set(_PENALTY_KEYS))
+        if unknown:
+            raise ValueError("unknown penalties %s (the port has %s)" % (unknown, _PENALTY_KEYS))
         self.name = name
         self.regularization = regularization or {}
+        self.penalties = dict(penalties or {})
+        self.jac_mode = jac_mode
 
     def build_raw(self):
         return _RAW_CLASSES[self.name](self.regularization)
 
-    def build(self, model, dataset, circuits, device="cuda"):
+    def build(self, model, dataset, circuits, device="cuda", layout=None,
+              num_active_circuits=None):
         return TimeIndependentMDCObjectiveFunction(
-            self.build_raw(), model, dataset, circuits, name=self.name,
-            device=device)
+            self.build_raw(), model, dataset, circuits, name=self.name, layout=layout,
+            num_active_circuits=num_active_circuits, penalties=self.penalties,
+            jac_mode=self.jac_mode, device=device)
 
     def build_from_store(self, mdc_store):
-        return TimeIndependentMDCObjectiveFunction(
-            self.build_raw(), mdc_store.model, mdc_store.dataset,
-            mdc_store.circuits, name=self.name, layout=mdc_store.layout,
-            device=mdc_store.device)
+        return self.build(mdc_store.model, mdc_store.dataset, mdc_store.circuits,
+                          device=mdc_store.device, layout=mdc_store.layout)
 
 
 class ModelDatasetCircuitsStore(object):
@@ -252,15 +388,19 @@ class TimeIndependentMDCObjectiveFunction(object):
     With ``num_active_circuits`` the counts and totals of the layout's
     circuits beyond that prefix are zeroed: those elements then contribute
     nothing to any value or Jacobian row, so the stages of a nested GST fit
-    share the final list's layout."""
+    share the final list's layout.  `penalties` add rows to the residual
+    (module _make_penalty_fn); `jac_mode` picks the Jacobian (module note),
+    and ``self.jac_mode`` names the one chosen."""
 
     def __init__(self, raw_objfn, model, dataset, circuits, name=None,
-                 layout=None, num_active_circuits=None, device="cuda"):
+                 layout=None, num_active_circuits=None, penalties=None,
+                 jac_mode=None, device="cuda"):
         self.raw_objfn = raw_objfn
         self.model = model
         self.dataset = dataset
         self.circuits = list(circuits)
         self.name = name or raw_objfn.name
+        self.penalties = dict(penalties or {})
         self.device = torch.device(device)
         sim = SimpleForwardSimulator(model, self.device)
         self.layout = layout if layout is not None else \
@@ -279,8 +419,9 @@ class TimeIndependentMDCObjectiveFunction(object):
         self.counts, self.total_counts, self.freqs = counts, totals, freqs
         self._data = tuple(torch.as_tensor(a, dtype=DTYPE, device=self.device)
                            for a in (counts, totals, freqs))
-        self._flag, self._regs = _switch_config(raw_objfn)
-        self._fns = _objective_fns(model, self.layout, sim)
+        raw, self._flag, self._regs = _switch_config(raw_objfn)
+        self._fns = _objective_fns(model, self.layout, sim, raw, self.penalties, jac_mode)
+        self.jac_mode = self._fns['jac_mode']
 
     def _v(self, paramvec):
         v = paramvec if paramvec is not None else self.model.to_vector()
@@ -301,6 +442,35 @@ class TimeIndependentMDCObjectiveFunction(object):
     def jtj_jtf(self, paramvec=None):
         ls, jtj, jtf = self._fns['jtj_jtf'](self._v(paramvec), *self._args())
         return ls.cpu().numpy(), jtj.cpu().numpy(), jtf.cpu().numpy()
+
+    def probs(self, paramvec=None):
+        with torch.no_grad():
+            return self._fns['probs'](self._v(paramvec)).cpu().numpy()
+
+    def terms(self, paramvec=None):
+        """The raw objective's terms per element (no omitted-outcome
+        correction, no penalties)."""
+        with torch.no_grad():
+            p = self._fns['probs'](self._v(paramvec))
+            return self.raw_objfn.terms(p, *self._data).cpu().numpy()
+
+    def percircuit(self, paramvec=None):
+        """Objective contribution per circuit.  A circuit with omitted
+        outcomes carries its correction, so with no penalties
+        sum(percircuit()) == fn()."""
+        terms = self.terms(paramvec)
+        lay = self.layout
+        if lay.has_omitted:
+            p = self.probs(paramvec)
+            psum = np.zeros(len(lay.circuits))
+            np.add.at(psum, lay.elem_to_circuit, p)
+            firsts = lay.omitted_firsts
+            with torch.no_grad():
+                zf = self.raw_objfn.zero_freq_terms(
+                    torch.as_tensor(self.total_counts[firsts], dtype=DTYPE),
+                    torch.as_tensor(1.0 - psum[lay.omitted_circuits], dtype=DTYPE)).numpy()
+            terms[firsts] += zf
+        return np.array([np.sum(terms[sl]) for sl in lay.element_slices])
 
     def run_device_lm(self, x0, maxiter=100, tol=None, linesearch=None):
         """The Levenberg-Marquardt loop with every state tensor on the
@@ -332,10 +502,64 @@ class TimeIndependentMDCObjectiveFunction(object):
     def num_elements(self):
         return self.layout.num_elements
 
+    def num_data_params(self):
+        return self.dataset.degrees_of_freedom(self.circuits)
+
+
+# -- standalone functions --------------------------------------------------------
+# The tools-level default min_prob_clip is 1e-6, not the GST objective's 1e-4
+# (as in the JAX package and the reference).
+
+def _logl_raw(min_prob_clip, radius, poisson_picture):
+    if poisson_picture:
+        return RawPoissonPicDeltaLogLFunction({'min_prob_clip': min_prob_clip,
+                                               'radius': radius})
+    return RawDeltaLogLFunction({'min_prob_clip': min_prob_clip})
+
+
+def logl_max(model, dataset, circuits=None, poisson_picture=True):
+    """The largest log-likelihood any model could reach on the data."""
+    circuits = list(circuits) if circuits is not None else list(dataset.keys())
+    total = 0.0
+    for c in circuits:
+        row = dataset[c]
+        N = row.total
+        for cnt in row.counts.values():
+            if cnt > 0:
+                total += cnt * np.log(cnt / N)
+        if poisson_picture:
+            total -= N
+    return total
+
+
+def logl(model, dataset, circuits=None, min_prob_clip=1e-6, radius=DEFAULT_RADIUS,
+         poisson_picture=True, device="cuda"):
+    """The model's log-likelihood: logl_max less the objective's Delta logL."""
+    circuits = list(circuits) if circuits is not None else list(dataset.keys())
+    obj = TimeIndependentMDCObjectiveFunction(
+        _logl_raw(min_prob_clip, radius, poisson_picture), model, dataset, circuits,
+        device=device)
+    return logl_max(model, dataset, circuits, poisson_picture) - obj.fn()
+
+
+def two_delta_logl(model, dataset, circuits=None, min_prob_clip=1e-6,
+                   radius=DEFAULT_RADIUS, poisson_picture=True, device="cuda"):
+    circuits = list(circuits) if circuits is not None else list(dataset.keys())
+    obj = TimeIndependentMDCObjectiveFunction(
+        _logl_raw(min_prob_clip, radius, poisson_picture), model, dataset, circuits,
+        device=device)
+    return 2 * obj.fn()
+
+
+def chi2(model, dataset, circuits=None, min_prob_clip_for_weighting=1e-4, device="cuda"):
+    circuits = list(circuits) if circuits is not None else list(dataset.keys())
+    raw = RawChi2Function({'min_prob_clip_for_weighting': min_prob_clip_for_weighting})
+    return TimeIndependentMDCObjectiveFunction(raw, model, dataset, circuits,
+                                               device=device).fn()
+
 
 # -- CPTP / SPAM penalty pieces -------------------------------------------------
-# (used by the gauge objective; the penalty rows of the fit's own objective
-# are not ported)
+# (used by the gauge objective and by the penalty rows of the fit's objective)
 _NEG_EIG_SQRT_SHIFT = 1e-6
 
 
@@ -374,12 +598,55 @@ def _sum_neg_evals(A):
     return HermitianSpectralSum.apply(A, 'neg')
 
 
+def _make_penalty_fn(model, penalties):
+    """The extra residual rows of cptp_penalty_factor and
+    spam_penalty_factor as a function of the parameter vector, or None when
+    neither is on: per operation (the instruments' members are not
+    penalized), factor * sqrt(1e-6 + sum of the negative eigenvalues of its
+    Choi matrix), then the same of each prep's and effect's matrix."""
+    cptp_factor = penalties.get('cptp_penalty_factor', 0)
+    spam_factor = penalties.get('spam_penalty_factor', 0)
+    if not (cptp_factor or spam_factor):
+        return None
+    dim = model.dim
+    udim = int(round(np.sqrt(dim)))
+    M = np.asarray(model.basis.create_transform_matrix('std')).astype(complex)
+    host = (M, np.linalg.inv(M), np.asarray(model.basis.elements).astype(complex))
+    compute = model.tensors_fn()
+    n_ops = len(model.operations)
+    consts = {}
+
+    def pen_fn(v):
+        key = str(v.device)
+        if key not in consts:
+            consts[key] = tuple(torch.as_tensor(a, dtype=torch.complex128, device=v.device)
+                                for a in host)
+        M, Minv, els = consts[key]
+        t = compute(v)
+        rows = []
+        if cptp_factor:
+            s_std = (M @ t.ops[:n_ops].to(M.dtype)) @ Minv
+            choi = s_std.reshape(-1, udim, udim, udim, udim).permute(
+                0, 1, 3, 2, 4).reshape(-1, dim, dim) / udim
+            rows.append(cptp_factor * torch.sqrt(_NEG_EIG_SQRT_SHIFT + _sum_neg_evals(
+                (choi + choi.conj().transpose(-1, -2)) / 2)))
+        if spam_factor:
+            vecs = torch.cat([t.preps, t.effects], dim=0)
+            mx = torch.tensordot(vecs.to(els.dtype), els, dims=1)
+            rows.append(spam_factor * torch.sqrt(_NEG_EIG_SQRT_SHIFT + _sum_neg_evals(
+                (mx + mx.conj().transpose(-1, -2)) / 2)))
+        return torch.cat(rows)
+
+    return pen_fn
+
+
 # -- the blocked Jacobian ------------------------------------------------------
 
 def bucket_plan(layout, n_out, NT, device):
     """Depth-bucketed circuit blocks, cached on the layout per device.
 
-    Circuits are sorted by depth and cut at the 50/75/90th depth
+    Rows (one per circuit, or per combination of its instruments' members)
+    are sorted by depth and cut at the 50/75/90th depth
     percentiles; each bucket is scanned at its own padded depth, in blocks
     of at most JAC_BLOCK_BYTES of Jacobian (NT columns) padded to a multiple of 64 with identity ops
     and effect row 0 (padded rows get zero counts, so they add nothing).
@@ -435,20 +702,156 @@ def bucket_plan(layout, n_out, NT, device):
     return cache[key]
 
 
-def _objective_fns(model, layout, sim):
-    """The objective's functions of (v, counts, totals, freqs, flag, regs)
-    for a uniform-outcome layout, with the blocked Jacobian."""
-    B = layout.op_indices.shape[0]
-    if not (B > 0 and layout.num_elements % B == 0 and layout.rows_uniform_n_out):
-        raise NotImplementedError("the blocked Jacobian needs every circuit to "
-                                  "have the same number of outcomes")
-    raw = _SwitchedRaw()
-    probs_fn = sim.probs_fn(layout)
+def choose_jac_mode(layout, jac_mode=None):
+    """The Jacobian for `layout`: the JAX package's rule without a mesh
+    when `jac_mode` is None ('blocked' when every row has the same number
+    of elements and no outcome is omitted, else 'linearize', or 'fwd' for
+    a layout without rows), else `jac_mode` itself when it can serve."""
+    rows = layout.op_indices.shape[0]
+    uniform = (rows > 0 and layout.num_elements % rows == 0 and layout.rows_uniform_n_out
+               and not layout.has_omitted)
+    if jac_mode is None:
+        return 'blocked' if uniform else ('linearize' if rows > 0 else 'fwd')
+    if jac_mode == 'prodjac':
+        raise NotImplementedError("jac_mode 'prodjac' (the germ-power product cache) is not "
+                                  "ported yet: ROADMAP.md, queue 1")
+    if jac_mode not in JAC_MODES:
+        raise ValueError("unknown jac_mode %r (the port has %s)" % (jac_mode, JAC_MODES))
+    if jac_mode == 'blocked' and not uniform:
+        raise ValueError("the blocked Jacobian needs every row to have the same number of "
+                         "elements and no omitted outcomes")
+    return jac_mode
+
+
+def _omitted_correction(layout, raw, device):
+    """(terms_of_p, lsvec_of_p, weighted_jac_t) of the objective on
+    `layout`.  Each circuit with omitted outcomes gets
+    zero_freq_terms(N, 1 - sum of its elements' probabilities) added at its
+    first element, and that element's Jacobian row takes the slope of the
+    omitted mass through every element of the circuit."""
+    if not layout.has_omitted:
+        def terms_of_p(p, c, t, f, flag, regs):
+            return raw.terms(p, c, t, f, flag, regs)
+
+        def lsvec_of_p(p, c, t, f, flag, regs):
+            return raw.lsvec(p, c, t, f, flag, regs)
+
+        def weighted_jac_t(Jt, p, ls, c, t, f, flag, regs):
+            return Jt * raw.dlsvec(p, c, t, f, flag, regs)[None, :]
+
+        return terms_of_p, lsvec_of_p, weighted_jac_t
+
+    firsts, circs, seg = (torch.as_tensor(a, dtype=torch.int64, device=device)
+                          for a in (layout.omitted_firsts, layout.omitted_circuits,
+                                    layout.elem_to_circuit))
+    n_circuits = len(layout.circuits)
+
+    def omitted_probs(p):
+        psum = torch.zeros(n_circuits, dtype=p.dtype, device=p.device).index_add_(0, seg, p)
+        return 1.0 - psum[circs]
+
+    def terms_of_p(p, c, t, f, flag, regs):
+        zf = raw.zero_freq_terms(t[firsts], omitted_probs(p), flag, regs)
+        return raw.terms(p, c, t, f, flag, regs).index_add(0, firsts, zf)
+
+    def lsvec_of_p(p, c, t, f, flag, regs):
+        ls = torch.sqrt(torch.clamp(terms_of_p(p, c, t, f, flag, regs), min=0.0))
+        # the raw objective's signs (chi2's lsvec is a signed square root)
+        return torch.where(raw.lsvec(p, c, t, f, flag, regs) < 0, -ls, ls)
+
+    def weighted_jac_t(Jt, p, ls, c, t, f, flag, regs):
+        """Jw = d lsvec / dv [P, E] from Jt = dp / dv [P, E].  Elements
+        other than the firsts take the raw objective's own dlsvec, which
+        holds the right limit where terms -> 0 (d sqrt(terms) does not);
+        each first is rebuilt from sqrt(terms + zero_freq_terms)."""
+        Jw = Jt * raw.dlsvec(p, c, t, f, flag, regs)[None, :]
+        dterms_f = raw.dterms(p, c, t, f, flag, regs)[firsts]
+        zfd = raw.zero_freq_dterms(t[firsts], omitted_probs(p), flag, regs)
+        rowsum = torch.zeros((Jt.shape[0], n_circuits), dtype=Jt.dtype,
+                             device=Jt.device).index_add_(1, seg, Jt)      # [P, C]
+        ls_f = ls[firsts]
+        tiny = torch.abs(ls_f) < 1e-100
+        w = torch.where(tiny, 0.0, 0.5 / torch.where(tiny, 1.0, ls_f))
+        Jw[:, firsts] = (Jt[:, firsts] * dterms_f[None, :]
+                         - zfd[None, :] * rowsum[:, circs]) * w[None, :]
+        return Jw
+
+    return terms_of_p, lsvec_of_p, weighted_jac_t
+
+
+def _forward_jacobian_fns(model, layout, sim, correction):
+    """jtj_jtf and dlsvec from forward mode: the tangents of the model's
+    tensors along each parameter (Tv's columns, in chunks of c) are pushed
+    through the scan beside the states, ds <- G ds + dG s, then one Gram.
+    dG s is formed for every op, [K1, B, c*d], and each row's op picked
+    after: a layer then writes K1 * B * c * d numbers, not the
+    B * c * d * d of gathered op tangents.  Chunks keep that under the
+    device type's JVP_CHUNK_BYTES.  The tangent states are kept as [B, c, d], so that both
+    products are batched matrix products without a transpose."""
+    _, lsvec_of_p, weighted_jac_t = correction
+    device, dim = sim.device, model.dim
+    compute_flat = model.flat_tensors_fn()
+    tensors_jacobian = model.flat_tensors_jacobian_fn()
+    n_ops, n_preps = len(model.op_keys), len(model.prep_keys)
+    o_sz, p_sz = n_ops * dim * dim, n_preps * dim
+    idx = layout_tensors(layout, device)
+    op_idx, prep_idx = idx['op_indices'], idx['prep_index']
+    elem_row, elem_eff = idx['elem_circuit'], idx['elem_effect']
+    B, D = op_idx.shape
+    rows = torch.arange(B, device=device)
+    per_tangent = (n_ops + 1) * max(B, 1) * dim * torch.finfo(DTYPE).bits // 8
+
+    def probs_and_jac_t(v):
+        """(p [E], Jt = dp / dv [P, E])."""
+        tf, Tv = compute_flat(v), tensors_jacobian(v)
+        G = torch.cat([tf[:o_sz].reshape(n_ops, dim, dim),
+                       torch.eye(dim, dtype=v.dtype, device=device)[None]])
+        preps = tf[o_sz:o_sz + p_sz].reshape(n_preps, dim)
+        effects = tf[o_sz + p_sz:].reshape(-1, dim)
+        chunk = max(1, JVP_CHUNK_BYTES[device.type] // per_tangent)
+        Jt = []
+        for j in range(0, v.shape[0], chunk):
+            T = Tv[:, j:j + chunk]                                     # [NT, c]
+            c = T.shape[1]
+            # W[k, j', (c, i)] = dG[c, k, i, j'], the identity's slot zero
+            W = torch.cat([T[:o_sz].reshape(n_ops, dim, dim, c).permute(0, 2, 3, 1),
+                           torch.zeros((1, dim, c, dim), dtype=v.dtype, device=device)]
+                          ).reshape(n_ops + 1, dim, c * dim)
+            s = preps[prep_idx]                                        # [B, d]
+            ds = T[o_sz:o_sz + p_sz].reshape(n_preps, dim, c).transpose(1, 2)[prep_idx]
+            for t in range(D):                                         # ds: [B, c, d]
+                Gt = G[op_idx[:, t]]                                   # [B, d, d]
+                dGs = torch.matmul(s, W)[op_idx[:, t], rows]           # [B, c*d]
+                ds = torch.bmm(ds, Gt.transpose(1, 2)) + dGs.view(B, c, dim)
+                s = torch.bmm(Gt, s.unsqueeze(-1)).squeeze(-1)
+            dE = T[o_sz + p_sz:].reshape(-1, dim, c)                   # [n_eff, d, c]
+            Jt.append(torch.einsum('eic,ei->ce', dE[elem_eff], s[elem_row])
+                      + torch.einsum('eci,ei->ce', ds[elem_row], effects[elem_eff]))
+        return (effects[elem_eff] * s[elem_row]).sum(-1), torch.cat(Jt)
+
+    @torch.no_grad()
+    def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
+        p, Jt = probs_and_jac_t(v)
+        ls = lsvec_of_p(p, counts, totals, freqs, flag, regs)
+        Jw = weighted_jac_t(Jt, p, ls, counts, totals, freqs, flag, regs)
+        return ls, Jw @ Jw.T, Jw @ ls
+
+    @torch.no_grad()
+    def dlsvec_fn(v, counts, totals, freqs, flag, regs):
+        p, Jt = probs_and_jac_t(v)
+        ls = lsvec_of_p(p, counts, totals, freqs, flag, regs)
+        return weighted_jac_t(Jt, p, ls, counts, totals, freqs, flag, regs).T
+
+    return jtj_jtf_fn, dlsvec_fn
+
+
+def _blocked_jacobian_fns(model, layout, sim, raw):
+    """jtj_jtf and dlsvec from the blocked Jacobian (module note)."""
     device = sim.device
     compute_flat = model.flat_tensors_fn()
     tensors_jacobian = model.flat_tensors_jacobian_fn()
     dim = model.dim
-    n_out = layout.num_elements // B
+    n_out = layout.num_elements // layout.op_indices.shape[0]
     n_ops = len(model.op_keys)
     n_preps = len(model.prep_keys)
     n_eff = sum(model.povms[k].num_outcomes for k in model.povm_keys)
@@ -458,7 +861,7 @@ def _objective_fns(model, layout, sim):
     buckets, inv_perm = bucket_plan(layout, n_out, NT, device)
 
     def block_probs_jac(tf, bk):
-        """(probs [nb*n_out], Jt [nb*n_out, NT]) for one circuit block:
+        """(probs [nb*n_out], Jt [nb*n_out, NT]) for one row block:
         forward scan stashing the state before each layer, then the
         backward accumulation kernel bins per-op gradients."""
         ops = tf[:o_sz].reshape(n_ops, dim, dim).to(j_dtype)
@@ -489,12 +892,6 @@ def _objective_fns(model, layout, sim):
         idx = bk['elem_idx']
         return tuple(torch.nn.functional.pad(a[idx], (0, pad))
                      for a in (counts, totals, freqs))
-
-    def lsvec_fn(v, counts, totals, freqs, flag, regs):
-        return raw.lsvec(probs_fn(v), counts, totals, freqs, flag, regs)
-
-    def fn_fn(v, counts, totals, freqs, flag, regs):
-        return raw.terms(probs_fn(v), counts, totals, freqs, flag, regs).sum()
 
     @torch.no_grad()
     def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
@@ -531,5 +928,71 @@ def _objective_fns(model, layout, sim):
             J_parts.append(Jb[:bk['nk'] * n_out])
         return torch.cat(J_parts, dim=0)[inv_perm]
 
-    return {'lsvec': torch.no_grad()(lsvec_fn), 'fn': torch.no_grad()(fn_fn),
-            'jtj_jtf': jtj_jtf_fn, 'dlsvec': dlsvec_fn}
+    return jtj_jtf_fn, dlsvec_fn
+
+
+def _objective_fns(model, layout, sim, raw, penalties, jac_mode):
+    """The objective's functions of (v, counts, totals, freqs, flag, regs),
+    plus 'probs' of v and the name of the Jacobian chosen."""
+    jac_mode = choose_jac_mode(layout, jac_mode)
+    probs_fn = sim.probs_fn(layout)
+    correction = _omitted_correction(layout, raw, sim.device)
+    terms_of_p, lsvec_of_p, _ = correction
+    if jac_mode == 'blocked':
+        jtj_jtf_fn, dlsvec_fn = _blocked_jacobian_fns(model, layout, sim, raw)
+    else:
+        jtj_jtf_fn, dlsvec_fn = _forward_jacobian_fns(model, layout, sim, correction)
+
+    @torch.no_grad()
+    def lsvec_fn(v, counts, totals, freqs, flag, regs):
+        return lsvec_of_p(probs_fn(v), counts, totals, freqs, flag, regs)
+
+    @torch.no_grad()
+    def fn_fn(v, counts, totals, freqs, flag, regs):
+        return terms_of_p(probs_fn(v), counts, totals, freqs, flag, regs).sum()
+
+    fns = {'lsvec': lsvec_fn, 'fn': fn_fn, 'jtj_jtf': jtj_jtf_fn, 'dlsvec': dlsvec_fn}
+    rf = penalties.get('regularize_factor', 0)
+    if rf > 0:
+        # J^T J gains rf^2 I, also where v = 0 and the rows' slope sign(v)
+        # is 0: the JAX package's choice
+        fns = _with_rows(fns, lambda v: rf * torch.abs(v),
+                         lambda v: rf * torch.diag(torch.sign(v)),
+                         lambda v, Jr: rf ** 2 * torch.eye(v.shape[0], dtype=v.dtype,
+                                                           device=v.device))
+    pen_fn = _make_penalty_fn(model, penalties)
+    if pen_fn is not None:
+        def pen_jac(v):
+            with torch.enable_grad():
+                return torch.autograd.functional.jacobian(pen_fn, v)
+        fns = _with_rows(fns, pen_fn, pen_jac)
+    fns['probs'] = probs_fn
+    fns['jac_mode'] = jac_mode
+    return fns
+
+
+def _with_rows(fns, rows_fn, rows_jac, gram=lambda v, Jr: Jr.T @ Jr):
+    """`fns` with residual rows rows_fn(v), of Jacobian rows_jac(v),
+    appended (the regularization rows rf * |v| and the penalty rows), whose
+    share of J^T J is gram(v, rows_jac(v))."""
+    base = dict(fns)
+
+    @torch.no_grad()
+    def lsvec_fn(v, *args):
+        return torch.cat([base['lsvec'](v, *args), rows_fn(v)])
+
+    @torch.no_grad()
+    def fn_fn(v, *args):
+        return base['fn'](v, *args) + torch.sum(rows_fn(v) ** 2)
+
+    @torch.no_grad()
+    def jtj_jtf_fn(v, *args):
+        ls, jtj, jtf = base['jtj_jtf'](v, *args)
+        rows, Jr = rows_fn(v), rows_jac(v)
+        return torch.cat([ls, rows]), jtj + gram(v, Jr), jtf + Jr.T @ rows
+
+    @torch.no_grad()
+    def dlsvec_fn(v, *args):
+        return torch.cat([base['dlsvec'](v, *args), rows_jac(v)], dim=0)
+
+    return {'lsvec': lsvec_fn, 'fn': fn_fn, 'jtj_jtf': jtj_jtf_fn, 'dlsvec': dlsvec_fn}

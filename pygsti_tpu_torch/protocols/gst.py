@@ -108,12 +108,16 @@ class StandardGSTDesign(GateSetTomographyDesign):
 
 def _lgst_keeps_parameterization(model):
     """Whether run_lgst can return its estimate in `model`'s own
-    parameterization: every member is of a dense family (full, TP, static).
-    Any other member would come back fully parameterized."""
+    parameterization: every operation, prep and POVM is of a dense family
+    (full, TP, static).  Any other member would come back fully
+    parameterized.  Instruments are not estimated: run_lgst carries the
+    target's into its estimate unchanged, as the JAX package does."""
     dense = (_opm.FullArbitraryOp, _opm.FullTPOp, _opm.StaticArbitraryOp,
              _stm.FullState, _stm.TPState, _stm.StaticState,
              _pvm.UnconstrainedPOVM, _pvm.TPPOVM)
-    return all(isinstance(obj, dense) for _, obj in model._iter_parameterized_objs())
+    return all(isinstance(obj, dense) for members in (model.operations, model.preps,
+                                                      model.povms)
+               for obj in members.values())
 
 
 class GSTInitialModel(NicelySerializable):

@@ -20,7 +20,8 @@ TOLS = [(torch.float64, 1e-12), (torch.float32, 1e-5)]
 # deepest bucket at a larger B, a ragged B, depth 1, a depth long enough to
 # walk in chunks (orthogonal ops, so that 400 products neither vanish nor
 # blow up), the 1-qubit shapes, odd d and NOUT (the run-time shape path),
-# every layer on one op, and op indices out of range
+# every layer on one op, op indices out of range, and the shapes of the fit
+# with an instrument
 CASES = [
     (164, 18, 7, 16, 4, 'random'), (64, 18, 7, 16, 4, 'random'),
     (120, 36, 7, 16, 4, 'random'), (64, 67, 7, 16, 4, 'random'),
@@ -33,6 +34,9 @@ CASES = [
     (6, 400, 3, 5, 3, 'orthogonal'),
     (40, 30, 7, 16, 4, 'one_op'),
     (64, 70, 7, 16, 4, 'out_of_range'),
+    # the 2-qubit fit with a two-member instrument: K1 = 6 ops + 2 members +
+    # identity
+    (300, 70, 9, 16, 4, 'random'), (37, 18, 9, 16, 4, 'random'),
 ]
 
 

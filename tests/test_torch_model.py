@@ -131,7 +131,8 @@ def test_port_imports_no_jax(tmp_path):
             "                                                'pygsti_tpu_torch.')]\n"
             "for name in names: importlib.import_module(name)\n"
             "assert 'pygsti_tpu_torch.protocols.gst' in names and len(names) > 48, names\n"
-            "for new in ('tools.lindbladtools', 'tools.jamiolkowski', 'baseobjs.errorgenlabel'):\n"
+            "for new in ('tools.lindbladtools', 'tools.jamiolkowski', 'baseobjs.errorgenlabel',\n"
+            "            'modelmembers.instruments'):\n"
             "    assert 'pygsti_tpu_torch.' + new in names, new\n"
             "from pygsti_tpu_torch.protocols.gst import GateSetTomographyCheckpoint\n"
             "ck = GateSetTomographyCheckpoint.read(%r)\n"
