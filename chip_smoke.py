@@ -42,6 +42,19 @@ Phases, each fatal on failure:
                 linear regime), the forward-mode ('linearize') Jacobian on
                 the card against the CPU and beside the blocked one (time,
                 peak memory), a short LM fit on it, and the penalty rows
+ 10. parallel layers -- the 2-qubit fit of smq2Q_XXYYII at full width and
+                depth (19,590 circuits, depth 70, 'full', 1,360 parameters)
+                whose layers [Gxpi2:0Gxpi2:1], [Gxpi2:0Gypi2:1] and
+                [Gypi2:0Gypi2:1] are composite slots of the op stack (K1 = 9):
+                the kernel against its plain version at every bucket shape
+                of this layout, the fit through GateSetTomography.run with
+                its own launch count, probabilities against a numpy
+                reference that multiplies the components, and a gauge
+                transformation that must leave them unchanged
+ 11. fpr     -- the fiducial-pair-reduced design of smq2Q_XYICNOT
+                (create_gst_experiment_design(64, fpr=True), 2,900 circuits
+                in its last list, each one of phase 3's), fitted 'full' on
+                phase 3's data with its own launch count
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -239,9 +252,18 @@ def phase_kernels(layout, model, device):
 def reference_probs(model, circuits):
     """Plain numpy: p = E (G_L ... G_1 rho) circuit by circuit; a circuit
     with instruments once per combination of their members, in the
-    layout's order."""
+    layout's order; a parallel layer as the product of its components, the
+    first applied first."""
     import itertools
     ops = {k: o.dense() for k, o in model.operations.items()}
+    for c in circuits:
+        for layer in c.layertup:
+            if layer not in ops and len(layer.components) > 1 and \
+                    all(comp in ops for comp in layer.components):
+                mx = np.eye(model.dim)
+                for comp in layer.components:
+                    mx = ops[comp] @ mx
+                ops[layer] = mx
     insts = {k: dict(zip(i.member_labels, i.dense())) for k, i in model.instruments.items()}
     rho = next(iter(model.preps.values())).dense()
     effects = next(iter(model.povms.values())).dense()
@@ -516,7 +538,8 @@ def phase_instrument_fit(mp, lists, datagen, builders, device):
     log("instrument: blocked lsvec/JTJ/JTf (mode %s) on the card vs the CPU path (%d "
         "circuits): max rel diff %.3e (tol 1e-9)" % (objs[0].jac_mode, len(ilists[0]), rel))
     if objs[0].jac_mode != 'blocked' or not rel < 1e-9:
-        raise SystemExit("the instrument objective on the card disagrees with the CPU path")
+        raise SystemExit("the instrument objective on the card disagrees with the CPU path: "
+                         "max rel diff %.3e" % rel)
     return launches
 
 
@@ -589,7 +612,8 @@ def phase_sparse(datagen, fitted, ds, lists, device):
             "elements, %d with omitted outcomes): max rel diff %.3e (tol 1e-9)"
             % (tag, len(first), objs[0].num_elements, len(objs[0].layout.omitted_circuits), rel))
         if not rel < 1e-9:
-            raise SystemExit("the forward-mode Jacobian on the card disagrees with the CPU")
+            raise SystemExit("the forward-mode Jacobian on the card disagrees with the CPU: "
+                             "max rel diff %.3e" % rel)
         # a short LM fit on the sparse objective from a dense optimum.  The
         # 'full' fit's optimum is not one to start from: a 'full' model is
         # not TP, its probabilities of a circuit sum to 1 only within about
@@ -641,7 +665,185 @@ def phase_sparse(datagen, fitted, ds, lists, device):
         "(%d circuits): max rel diff %.3e (tol 1e-9)"
         % (len(objs[0].lsvec(th_fit)) - objs[0].num_elements, len(first), rel))
     if not rel < 1e-9:
-        raise SystemExit("the penalty rows on the card disagree with the CPU path")
+        raise SystemExit("the penalty rows on the card disagree with the CPU path: max rel "
+                         "diff %.3e" % rel)
+
+
+def hold_kernel_at_buckets(layout, model, device):
+    """The kernel against its plain version at every bucket shape of
+    `layout` on the model's own op stack and random E and F, f64 and f32;
+    returns ({dtype: max relative error}, f64 ms per Jacobian of the kernel,
+    of the plain version, the least time the card could take for the same
+    work, bucket shapes)."""
+    from pygsti_tpu_torch.objectivefns.objectivefns import bucket_plan
+    from pygsti_tpu_torch.ops.bwd_jacobian import (bwd_jacobian_accumulate,
+                                                   bwd_jacobian_accumulate_plain)
+    n_out, d = 4, model.dim
+    K1 = len(model.op_keys) + 1
+    NT = (K1 - 1) * d * d + d + n_out * d
+    buckets, _ = bucket_plan(layout, n_out, NT, device)
+    gen = torch.Generator(device='cpu').manual_seed(99)
+    G64 = torch.cat([model.tensors_fn()(torch.as_tensor(model.to_vector())).ops,
+                     torch.eye(d, dtype=torch.float64)[None]]).to(device)
+    errs, ms, plain_ms, bound_ms = {}, 0.0, 0.0, 0.0
+    for dtype in (torch.float64, torch.float32):
+        G = G64.to(dtype)
+        for bk in buckets:
+            cols = bk['cols']
+            B, D = cols.shape
+            E = torch.randn((B, n_out, d), generator=gen, dtype=torch.float64).to(device, dtype)
+            F = torch.randn((B, D, d), generator=gen, dtype=torch.float64).to(device, dtype)
+            A, Bf = bwd_jacobian_accumulate(cols, G, E, F)
+            A2, Bf2 = bwd_jacobian_accumulate_plain(cols, G, E, F)
+            err = max(float((A - A2).abs().max()), float((Bf - Bf2).abs().max()))
+            scale = max(float(A2.abs().max()), float(Bf2.abs().max()))
+            if not err <= TOL[dtype] * scale:
+                raise SystemExit("kernel bwd_jacobian disagrees with its plain version at a "
+                                 "composite-layer bucket: %s B=%d D=%d K1=%d rel %g"
+                                 % (dtype, B, D, K1, err / scale))
+            if not float(A[:, :, len(model.operations):K1 - 1].abs().max()) > 0:
+                raise SystemExit("no gradient block reached the composite layers' slots")
+            errs[dtype] = max(errs.get(dtype, 0.0), err / scale)
+            if dtype == torch.float64:
+                ms += cuda_time_ms(lambda: bwd_jacobian_accumulate(cols, G, E, F), 5)
+                plain_ms += cuda_time_ms(lambda: bwd_jacobian_accumulate_plain(cols, G, E, F), 1)
+                # as in phase 2: each input read once, each output written once
+                nbytes = cols.numel() * 4 + (G.numel() + E.numel() + F.numel()
+                                             + B * n_out * K1 * d * d + B * n_out * d) * 8
+                flops = B * n_out * D * 2 * (2 * d * d)
+                bound_ms += max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+            del A, Bf, A2, Bf2
+    return errs, ms, plain_ms, bound_ms, [tuple(b['cols'].shape) for b in buckets]
+
+
+def fit_launches(gst, data, prefix, lists):
+    """GateSetTomography.run with the kernel's count set to 0 just before it
+    and read just after; returns (estimate, launches, fit seconds, LM
+    iterations, peak device MB)."""
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    results = gst.run(data, disable_checkpointing=True)
+    torch.cuda.synchronize()
+    launches = bwd_jacobian_accumulate.launches
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    est = results.estimates['GateSetTomography']
+    iters = log_stages(prefix, est, lists)
+    return est, launches, est.parameters['fit_time'], iters, peak
+
+
+def phase_parallel_fit(builders, device):
+    """Phase 10: smq2Q_XXYYII, whose parallel layers are composite slots of
+    the op stack, at full width and depth; returns (launches, kernel rel
+    errors)."""
+    from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.modelpacks import smq2Q_XXYYII as xp
+    from pygsti_tpu_torch.models.gaugegroup import FullGaugeGroup
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+
+    t0 = time.time()
+    target = xp.target_model('full')
+    lists = create_lsgst_circuit_lists(target, xp.prep_fiducials(), xp.meas_fiducials(),
+                                       xp.germs(), [1, 2, 4, 8, 16, 32, 64])
+    final = list(lists[-1])
+    layout = SimpleForwardSimulator(target, device).create_layout(final)
+    K1 = len(target.op_keys) + 1
+    depth = max(c.depth for c in final)
+    log("parallel: smq2Q_XXYYII, %d lists, final list %d circuits, depth %d, %d parameters, "
+        "%d operations + composite layers %s, op stack K1 = %d (design and layout %.2f s)"
+        % (len(lists), len(final), depth, target.num_params, len(target.operations),
+           [str(k) for k in target.op_keys[len(target.operations):]], K1, time.time() - t0))
+    if (len(final), depth, target.num_params, len(target.operations), K1) != \
+            (19590, 70, 1360, 5, 9):
+        raise SystemExit("unexpected smq2Q_XXYYII design or op stack")
+    errs, kms, kplain, kbound, shapes = hold_kernel_at_buckets(layout, target, device)
+    log("parallel: kernel bwd_jacobian at this layout's %d bucket shapes %s: max rel err f64 "
+        "%.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per Jacobian f64 against a bound of "
+        "%.4f ms (%.1f%% of it; plain %.2f ms)"
+        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], kms, kbound,
+           100 * kbound / kms, kplain))
+    datagen = xp.target_model('full TP').depolarize(op_noise=0.01, spam_noise=0.01)
+    t0 = time.time()
+    ds = simulate_data(datagen, final, 1000, seed=1234, device=device)
+    log("parallel: data simulated on the card in %.2f s" % (time.time() - t0))
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()), gaugeopt_suite=None,
+                            objfn_builders=builders, optimizer={'maxiter': LM_MAXITER},
+                            verbosity=0, device=device)
+    est, launches, fit_s, iters, peak = fit_launches(
+        gst, ProtocolData(GateSetTomographyDesign(target, lists), ds), 'parallel', lists)
+    nsigma = est.misfit_sigma()
+    log("parallel: %d circuits, %d parameters, K1 %d: %d LM iterations in %.3f s, %.1f ms per "
+        "iteration; kernel launches {'bwd_jacobian': %d}; final 2*DeltaLogL %.6f, k %d, "
+        "N_sigma %.4f; peak device memory %.1f MB"
+        % (len(final), target.num_params, K1, iters, fit_s, 1e3 * fit_s / max(iters, 1),
+           launches, est.parameters['final_objfn_value'], est.parameters['final_dof'],
+           nsigma, peak))
+    fitted = est.models['final iteration estimate']
+    if launches == 0:
+        raise SystemExit("the parallel-layer fit never launched the bwd_jacobian kernel")
+    if not (np.all(np.isfinite(fitted.to_vector())) and nsigma < 10):
+        raise SystemExit("the parallel-layer fit is not finite or far from the statistical "
+                         "optimum: N_sigma %g" % nsigma)
+    check = [c for c in final if any(len(l.components) > 1 for l in c.layertup)]
+    check = check[:: max(1, len(check) // 200)][:200]
+    sim = SimpleForwardSimulator(fitted, device)
+    p_card = sim.bulk_fill_probs(sim.create_layout(check))
+    dp_ref = float(np.max(np.abs(p_card - reference_probs(fitted, check))))
+    group = FullGaugeGroup(fitted.dim)
+    el = group.compute_element(group.initial_params()
+                               + 1e-3 * np.random.RandomState(5).randn(group.num_params))
+    moved = fitted.copy()
+    moved.transform_inplace(el)
+    sim2 = SimpleForwardSimulator(moved, device)
+    dp_gauge = float(np.max(np.abs(sim2.bulk_fill_probs(sim2.create_layout(check)) - p_card)))
+    log("parallel: probabilities of %d circuits with parallel layers vs a numpy reference that "
+        "multiplies the components: max |dp| %.3e (tol 1e-10); after a random gauge "
+        "transformation near the identity (Frobenius distance %.3e): max |dp| %.3e (tol 1e-9)"
+        % (len(check), dp_ref, moved.frobeniusdist(fitted), dp_gauge))
+    if not (dp_ref < 1e-10 and dp_gauge < 1e-9 and moved.frobeniusdist(fitted) > 1e-5):
+        raise SystemExit("parallel-layer probabilities disagree with the reference or move "
+                         "under a gauge transformation")
+    return launches, errs
+
+
+def phase_fpr_fit(mp, target, ds, final, builders, device):
+    """Phase 11: the fiducial-pair-reduced design of the main path's pack
+    fitted on the main path's data; returns its launch count."""
+    from pygsti_tpu_torch.protocols.gst import GateSetTomography, GSTInitialModel
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+
+    t0 = time.time()
+    design = mp.create_gst_experiment_design(64, fpr=True)
+    sizes = [len(l) for l in design.circuit_lists]
+    known = set(final)
+    outside = sum(c not in known for c in design.circuit_lists[-1])
+    log("fpr: smq2Q_XYICNOT create_gst_experiment_design(64, fpr=True): lists %s (%.2f s); "
+        "%d of its circuits outside phase 3's design" % (sizes, time.time() - t0, outside))
+    if sizes != [907, 1082, 1376, 1757, 2138, 2519, 2900] or outside:
+        raise SystemExit("unexpected fiducial-pair-reduced design")
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()), gaugeopt_suite=None,
+                            objfn_builders=builders, optimizer={'maxiter': LM_MAXITER},
+                            verbosity=0, device=device)
+    est, launches, fit_s, iters, peak = fit_launches(gst, ProtocolData(design, ds), 'fpr',
+                                                     design.circuit_lists)
+    nsigma = est.misfit_sigma()
+    log("fpr: %d circuits, %d parameters: %d LM iterations in %.3f s, %.1f ms per iteration; "
+        "kernel launches {'bwd_jacobian': %d}; final 2*DeltaLogL %.6f, k %d, N_sigma %.4f; "
+        "peak device memory %.1f MB"
+        % (sizes[-1], target.num_params, iters, fit_s, 1e3 * fit_s / max(iters, 1), launches,
+           est.parameters['final_objfn_value'], est.parameters['final_dof'], nsigma, peak))
+    if launches == 0:
+        raise SystemExit("the FPR fit never launched the bwd_jacobian kernel")
+    if not (np.all(np.isfinite(est.models['final iteration estimate'].to_vector()))
+            and nsigma < 10):
+        raise SystemExit("the FPR fit is not finite or far from the statistical optimum: "
+                         "N_sigma %g" % nsigma)
+    return launches
 
 
 def main():
@@ -666,9 +868,10 @@ def main():
     from pygsti_tpu_torch.protocols.protocol import ProtocolData
 
     device = torch.device('cuda', 0)
-    log("torch %s, CUDA %s, %s x%d" % (torch.__version__, torch.version.cuda,
-                                       torch.cuda.get_device_name(0),
-                                       torch.cuda.device_count()))
+    log("torch %s, CUDA %s, %s x%d; the host's CPU kernels: %s, %d threads"
+        % (torch.__version__, torch.version.cuda, torch.cuda.get_device_name(0),
+           torch.cuda.device_count(), torch.backends.cpu.get_cpu_capability(),
+           torch.get_num_threads()))
     phase_build()
 
     # -- the design (host): lists, target, datagen --------------------------
@@ -790,13 +993,12 @@ def main():
     small = list(lists[0])
     objs = [ObjectiveFunctionBuilder('logl').build(fitted, ds, small, device=dev)
             for dev in (device, 'cpu')]
-    (ls_c, jtj_c, jtf_c), (ls_h, jtj_h, jtf_h) = (o.jtj_jtf(theta) for o in objs)
-    rel = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
-              for a, b in ((ls_c, ls_h), (jtj_c, jtj_h), (jtf_c, jtf_h)))
+    rel = card_vs_cpu(objs, theta)
     log("check: blocked lsvec/JTJ/JTf on the card vs the CPU path (%d circuits): "
         "max rel diff %.3e (tol 1e-9)" % (len(small), rel))
     if not rel < 1e-9:
-        raise SystemExit("the card's Jacobian disagrees with the CPU path")
+        raise SystemExit("the card's Jacobian disagrees with the CPU path: max rel diff %.3e"
+                         % rel)
 
     obj = ObjectiveFunctionBuilder('logl').build(fitted, ds, final, device=device)
     obj.jtj_jtf(theta)
@@ -859,14 +1061,23 @@ def main():
     t2 = time.time()
     log("phases 8 and 9: %.1f s and %.1f s of the script's wall time" % (t1 - t0, t2 - t1))
 
+    # -- parallel layers, then the fiducial-pair-reduced design --------------
+    par_launches, _ = phase_parallel_fit(builders, device)
+    t3 = time.time()
+    fpr_launches = phase_fpr_fit(mp, target, ds, final, builders, device)
+    t4 = time.time()
+    log("phases 10 and 11: %.1f s and %.1f s of the script's wall time" % (t3 - t2, t4 - t3))
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
         "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
-        "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches,
+        "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
+        + fpr_launches,
         "launches_by_path": {"full fit": launches['bwd_jacobian'],
-                             "cptp fit": cptp_launches, "instrument fit": inst_launches},
+                             "cptp fit": cptp_launches, "instrument fit": inst_launches,
+                             "parallel-layer fit": par_launches, "fpr fit": fpr_launches},
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

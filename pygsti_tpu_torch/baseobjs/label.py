@@ -72,6 +72,12 @@ class LabelTup(tuple):
     def is_simple(self):
         return True
 
+    def map_state_space_labels(self, mapper):
+        """This label with each state-space label s replaced by mapper[s]
+        (or mapper(s) when `mapper` is a function)."""
+        m = mapper.__getitem__ if hasattr(mapper, '__getitem__') else mapper
+        return LabelTup.init(self.name, tuple(m(s) for s in self.sslbls))
+
     def __str__(self):
         return self.name + ":" + ":".join(str(s) for s in self.sslbls)
 
@@ -102,6 +108,9 @@ class LabelStr(str):
     @property
     def is_simple(self):
         return True
+
+    def map_state_space_labels(self, mapper):
+        return self
 
     def __repr__(self):
         return "Label('%s')" % str(self)
@@ -144,6 +153,9 @@ class LabelTupTup(tuple):
     @property
     def is_simple(self):
         return False
+
+    def map_state_space_labels(self, mapper):
+        return LabelTupTup.init(tuple(c.map_state_space_labels(mapper) for c in self))
 
     def __str__(self):
         return "[" + "".join(str(c) for c in self) + "]"

@@ -148,6 +148,14 @@ class Circuit(object):
 
     __mul__ = repeat
 
+    def map_state_space_labels(self, mapper):
+        """This circuit with every state-space label s of its layers and
+        lines replaced by mapper[s] (or mapper(s) for a function)."""
+        m = mapper.__getitem__ if hasattr(mapper, '__getitem__') else mapper
+        lls = self._line_labels if self._line_labels == ('*',) \
+            else tuple(m(x) for x in self._line_labels)
+        return Circuit(tuple(l.map_state_space_labels(mapper) for l in self._layers), lls)
+
     def __str__(self):
         return self.str
 

@@ -1,5 +1,5 @@
-"""Carry a JAX-package model's parameters, its instruments and its
-gauge-group elements into the port.
+"""Carry a JAX-package model's parameters, its instruments, its composite
+layers and its gauge-group elements into the port.
 
 The functions take plain numpy data -- what ``pygsti_tpu``'s
 ``model.to_vector()``, its members' dense matrices or a gauge group's
@@ -57,13 +57,24 @@ def instrument_from_dense(kind, members):
     raise ValueError("unknown instrument kind %r ('TP', 'full' or 'static')" % (kind,))
 
 
+def register_composite_layers(model, layers):
+    """Register the composite layers `layers` (label strings such as
+    '[Gxpi2:0Gypi2:1]', in the order of the JAX model's
+    ``_derived_layers``) with the port's `model`, so that both models have
+    the same ``op_keys`` and one op stack means the same in both."""
+    for lbl in layers:
+        model._register_layer(parse_label_str(lbl))
+    return model
+
+
 def model_from_dense(ops, preps, povms, gate_type='full', basis='pp'):
     """An ExplicitOpModel from dense arrays keyed by label string.
 
     ops: {label: [d, d]}; preps: {label: [d]}; povms: {label: {outcome: [d]}}.
     `gate_type` ('full' or 'full TP') picks the members' parameterization;
     insertion order of each dict becomes the model's order.  Add
-    instruments with instrument_from_dense."""
+    instruments with instrument_from_dense, composite layers with
+    register_composite_layers."""
     dims = {np.asarray(a).shape[0] for a in list(ops.values()) + list(preps.values())}
     if len(dims) != 1:
         raise ValueError("members disagree on the dimension: %s" % sorted(dims))

@@ -62,6 +62,7 @@ class SimpleForwardSimulator(object):
 
     def probs_fn(self, layout):
         """A pure function v -> probabilities [n_elements] for `layout`."""
+        layout.check_op_stack(self.model)
         compute = self.model.tensors_fn()
         idx = layout_tensors(layout, self.device)
         dim = self.model.dim

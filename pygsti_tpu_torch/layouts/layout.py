@@ -22,13 +22,14 @@ import weakref
 
 import numpy as np
 
-from pygsti_tpu_torch.baseobjs.label import LabelStr
+from pygsti_tpu_torch.baseobjs.label import LabelStr, LabelTupTup
 from pygsti_tpu_torch.circuits.circuit import Circuit
 
 
 class CircuitOutcomeProbabilityLayout(object):
     """Compiled layout for a list of circuits against a model's structure.
 
+      op_keys         : the model's op stack the indices refer to
       op_indices      : int32 [n_rows, max_depth], padded with identity_index
       depths          : int32 [n_rows]
       prep_index      : int32 [n_rows]  (row into the stacked preps)
@@ -44,12 +45,15 @@ class CircuitOutcomeProbabilityLayout(object):
 
     def __init__(self, circuits, model, dataset=None, observed_outcomes_only=False):
         self.circuits = [c if isinstance(c, Circuit) else Circuit(c) for c in circuits]
-        op_index_map = {k: i for i, k in enumerate(model.op_keys)}
+        # a parallel layer becomes a composite layer of the model's op stack
+        model.register_circuit_layers(self.circuits)
+        self.op_keys = tuple(model.op_keys)
+        op_index_map = {k: i for i, k in enumerate(self.op_keys)}
         prep_index_map = {k: i for i, k in enumerate(model.prep_keys)}
         povm_rows = model.povm_effect_rows()
         instruments = model.instruments
-        self.identity_index = len(model.op_keys)   # appended by the simulators
-        self.num_ops = len(model.op_keys)
+        self.identity_index = len(self.op_keys)   # appended by the simulators
+        self.num_ops = len(self.op_keys)
 
         seqs, prep_rows, povm_lbls, prefixes, row_circuit = [], [], [], [], []
         for b, c in enumerate(self.circuits):
@@ -136,6 +140,20 @@ class CircuitOutcomeProbabilityLayout(object):
 
     def __len__(self):
         return self.num_elements
+
+    def check_op_stack(self, model):
+        """Make sure this layout's op indices mean `model`'s op stack.  The
+        layout's composite layers are registered with `model` first (a
+        model that never saw these circuits); a model whose op stack has
+        changed since, by composite layers registered later for other
+        circuits, is refused: its identity and instrument slots have moved."""
+        for k in self.op_keys:
+            if isinstance(k, LabelTupTup):
+                model._register_layer(k)
+        if tuple(model.op_keys) != self.op_keys:
+            raise ValueError("the layout was built for another op stack (%d slots; the model "
+                             "now has %d): create the layout again"
+                             % (len(self.op_keys), len(model.op_keys)))
 
     @property
     def num_circuits(self):

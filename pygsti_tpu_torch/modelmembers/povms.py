@@ -127,7 +127,8 @@ class ComputationalBasisPOVM(POVM):
 
     @classmethod
     def _from_nice_serialization(cls, state):
-        return cls(state['nqubits'], state['basis'])
+        # the JAX package writes no basis and reads its states back in 'pp'
+        return cls(state['nqubits'], state.get('basis', 'pp'))
 
 
 class ComposedPOVM(_WrapsOneMember, POVM):

@@ -111,7 +111,8 @@ class ComputationalBasisState(State):
 
     @classmethod
     def _from_nice_serialization(cls, state):
-        return cls(state['zvals'], state['basis'])
+        # the JAX package writes no basis and reads its states back in 'pp'
+        return cls(state['zvals'], state.get('basis', 'pp'))
 
 
 class ComposedState(_WrapsOneMember, State):

@@ -1,0 +1,25 @@
+"""Model pack: 1 qubit, X/Y/Z(pi/2) + idle gates
+(counterpart of pygsti_tpu/modelpacks/smq1Q_XYZI.py)."""
+
+from pygsti_tpu_torch.modelpacks._modelpack import GSTModelPack
+
+
+class _Pack(GSTModelPack):
+    _nqubits = 1
+    _gates = ['Gxpi2', 'Gypi2', 'Gzpi2']
+    _include_idle = True
+    _germs = ['[]@(0)', 'Gxpi2:0@(0)', 'Gypi2:0@(0)', 'Gzpi2:0@(0)',
+              'Gxpi2:0Gzpi2:0@(0)', 'Gxpi2:0Gypi2:0@(0)',
+              'Gxpi2:0Gxpi2:0Gypi2:0@(0)', 'Gxpi2:0Gxpi2:0Gzpi2:0@(0)',
+              'Gypi2:0Gypi2:0Gzpi2:0@(0)', 'Gxpi2:0Gypi2:0Gzpi2:0@(0)']
+    _germs_lite = _germs
+    _prep_fids = ['{}@(0)', 'Gxpi2:0@(0)', 'Gypi2:0@(0)', 'Gxpi2:0Gxpi2:0@(0)',
+                  'Gxpi2:0Gxpi2:0Gxpi2:0@(0)', 'Gypi2:0Gypi2:0Gypi2:0@(0)']
+    _meas_fids = _prep_fids
+
+
+target_model = _Pack.target_model
+germs = _Pack.germs
+prep_fiducials = _Pack.prep_fiducials
+meas_fiducials = _Pack.meas_fiducials
+create_gst_experiment_design = _Pack.create_gst_experiment_design

@@ -3,8 +3,11 @@ and instruments (counterpart of pygsti_tpu/models/explicitmodel.py).
 
 ``tensors_fn()`` returns a pure torch function ``v -> ModelTensors``
 (stacked op matrices, prep vectors and effect rows) on ``v``'s device and
-dtype; each instrument member takes a slot of the op stack after the
-operations, keyed ``('INSTRUMENT', label, member)`` in ``op_keys``.  The
+dtype.  The op stack holds the operations, then the composite layers that
+circuits use (a parallel layer such as ``[Gxpi2:0Gypi2:1]``, registered by
+the layout, is the product of its components' dense forms), then one slot
+per instrument member, keyed ``('INSTRUMENT', label, member)`` in
+``op_keys``.  The
 parameter vector is laid out preps, POVMs, operations, instruments, each in
 insertion order, exactly as in the JAX package, so one vector means one
 model in both.  A model is gauge-transformed in place by a
@@ -34,7 +37,7 @@ from pygsti_tpu_torch.modelmembers.instruments import Instrument
 
 class ModelTensors(NamedTuple):
     """Stacked dense representations produced by tensors_fn."""
-    ops: Any        # [n_ops + n_instrument_members, dim, dim]
+    ops: Any        # [n_ops + n_composite_layers + n_instrument_members, dim, dim]
     preps: Any      # [n_preps, dim]
     effects: Any    # [n_effect_rows, dim]  (all POVMs' effects, concatenated)
 
@@ -75,6 +78,18 @@ class _MemberDict(collections.OrderedDict):
         return super().__contains__(Label(key))
 
 
+def _rebuilt(member, D, what):
+    """The member of the same dense family at D @ its dense value: a static
+    one (a static unitary too) becomes static arbitrary, a full or full TP
+    one keeps its type; any other member raises TypeError."""
+    for static in (_op.StaticArbitraryOp, _st.StaticState):
+        if isinstance(member, static):
+            return static(D @ member.dense())
+    if isinstance(member, (_op.FullArbitraryOp, _op.FullTPOp, _st.FullState, _st.TPState)):
+        return type(member)(D @ member.dense())
+    raise TypeError("%s cannot rebuild a %s from a dense value" % (what, type(member).__name__))
+
+
 class ExplicitOpModel(OpModel):
     """Model with explicit .operations/.preps/.povms/.instruments dicts."""
 
@@ -88,6 +103,9 @@ class ExplicitOpModel(OpModel):
         self.povms = _MemberDict(self, 'povm')
         self.operations = _MemberDict(self, 'op')
         self.instruments = _MemberDict(self, 'instrument')
+        # composite layer -> its component operations' labels, in the order
+        # the circuits first showed them
+        self._derived_layers = collections.OrderedDict()
 
     def _cast_member(self, kind, val):
         table, t = {'op': (_OP_TYPES, self.default_gate_type),
@@ -115,11 +133,26 @@ class ExplicitOpModel(OpModel):
                 return d[label]
         raise KeyError(label)
 
+    def register_circuit_layers(self, circuits):
+        """Register each layer of `circuits` that is no operation but whose
+        components all are (a parallel layer such as [Gxpi2:0Gypi2:1]) as a
+        composite layer of the op stack: the product of its components."""
+        for layer in dict.fromkeys(l for c in circuits for l in c.layertup):
+            self._register_layer(layer)
+
+    def _register_layer(self, layer):
+        if layer in self.operations or layer in self._derived_layers:
+            return
+        comps = layer.components
+        if len(comps) > 1 and all(comp in self.operations for comp in comps):
+            self._derived_layers[layer] = [Label(comp) for comp in comps]
+
     @property
     def op_keys(self):
-        """Keys of the op stack: the operations, then every instrument
-        member as ('INSTRUMENT', instrument label, member label)."""
-        return list(self.operations.keys()) + [
+        """Keys of the op stack: the operations, the composite layers, then
+        every instrument member as ('INSTRUMENT', instrument label, member
+        label)."""
+        return list(self.operations.keys()) + list(self._derived_layers.keys()) + [
             ('INSTRUMENT', ilbl, mlbl) for ilbl, inst in self.instruments.items()
             for mlbl in inst.member_labels]
 
@@ -153,9 +186,11 @@ class ExplicitOpModel(OpModel):
         return self.povm_keys[0]
 
     def copy(self):
-        """Deep copy of the members."""
+        """Deep copy of the members; the composite layers are kept."""
         m = ExplicitOpModel(self.dim, self.basis, self.default_gate_type,
                             self.default_prep_type, self.default_povm_type)
+        m._derived_layers = collections.OrderedDict(
+            (k, list(v)) for k, v in self._derived_layers.items())
         for src, dst in ((self.preps, m.preps), (self.povms, m.povms),
                          (self.operations, m.operations),
                          (self.instruments, m.instruments)):
@@ -168,8 +203,18 @@ class ExplicitOpModel(OpModel):
         from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
         return SimpleForwardSimulator(self, device).probs(circuit, outcomes=outcomes)
 
-    def tensors_fn(self):
-        """A pure function v -> ModelTensors (safe under torch.func).
+    def bulk_probabilities(self, circuits, device="cuda"):
+        """{circuit: {outcome: probability}}, simulated on `device`."""
+        from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+        return SimpleForwardSimulator(self, device).bulk_probs(circuits)
+
+    def circuit_outcomes(self, circuit):
+        """The outcome labels of a circuit: those of the default POVM."""
+        return [(ol,) for ol in self.povms[self._default_povm_label()].outcome_labels]
+
+    def tensors_fn(self, composite_layers=True):
+        """A pure function v -> ModelTensors (safe under torch.func); with
+        composite_layers=False the op stack leaves the composite layers out.
 
         Members whose dense form is ``post @ E @ pre`` around an error map E
         (ModelMember.error_map_form) are grouped by their error map's
@@ -181,8 +226,12 @@ class ExplicitOpModel(OpModel):
         self._rebuild_paramvec_if_needed()
         members = list(self.operations.values()) + list(self.instruments.values()) \
             + list(self.preps.values()) + list(self.povms.values())
-        n_ops = len(self.operations) + len(self.instruments)   # stack members
+        n_gates = len(self.operations)
+        n_ops = n_gates + len(self.instruments)   # stack members
         n_preps = len(self.preps)
+        gate_pos = {k: i for i, k in enumerate(self.operations.keys())}
+        derived = [[gate_pos[k] for k in comps] for comps in self._derived_layers.values()] \
+            if composite_layers else []
         groups = []      # [error map, [(member position, pre, post)], [param slices]]
         for pos, m in enumerate(members):
             form = m.error_map_form()
@@ -223,19 +272,27 @@ class ExplicitOpModel(OpModel):
             for pos, m in enumerate(members):
                 if pos not in grouped:
                     dense[pos] = m.to_dense(v[m.gpindices])
-            # an operation is one slot of the op stack, an instrument one
-            # slot per member
+            # an operation is one slot of the op stack, a composite layer
+            # one (the product of its components, the first applied first),
+            # an instrument one slot per member
+            layers = []
+            for comps in derived:
+                m = dense[comps[0]]
+                for i in comps[1:]:
+                    m = dense[i] @ m
+                layers.append(m)
             return ModelTensors(torch.cat([x if x.dim() == 3 else x[None]
-                                           for x in dense[:n_ops]]),
+                                           for x in dense[:n_gates] + layers
+                                           + dense[n_gates:n_ops]]),
                                 torch.stack(dense[n_ops:n_ops + n_preps]),
                                 torch.cat(dense[n_ops + n_preps:], dim=0))
 
         return compute
 
-    def flat_tensors_fn(self):
+    def flat_tensors_fn(self, composite_layers=True):
         """A pure function v -> every tensor entry as one vector [NT]:
-        operations, then preps, then effects, each row-major."""
-        compute = self.tensors_fn()
+        the op stack, then preps, then effects, each row-major."""
+        compute = self.tensors_fn(composite_layers)
 
         def flat(v):
             t = compute(v)
@@ -254,10 +311,20 @@ class ExplicitOpModel(OpModel):
         gather and one mask.  For a Lindblad model of 8 members that is 240
         tangents through the matrix exponentials instead of 1,920.  An
         instrument is one block over all its member slots: member 0 of a
-        TPInstrument depends on every parameter of the instrument."""
+        TPInstrument depends on every parameter of the instrument.
+
+        A composite layer depends on the parameters of all its components,
+        so it is left out of that pass; its rows follow from its
+        components' rows by the product rule, d(G_b G_a) = dG_b G_a +
+        G_b dG_a, and are put in place between the operations' rows and the
+        instruments'."""
         self._rebuild_paramvec_if_needed()
-        flat = self.flat_tensors_fn()
+        flat = self.flat_tensors_fn(composite_layers=False)
         P = len(self._paramvec)
+        d = self.dim
+        n_gate_rows = len(self.operations) * d * d
+        gate_pos = {k: i for i, k in enumerate(self.operations.keys())}
+        derived = [[gate_pos[k] for k in comps] for comps in self._derived_layers.values()]
         # members in the order of the flat vector, with their row counts
         members = [(o, o.dim * o.dim) for o in self.operations.values()] \
             + [(i, i.num_members * i.dim * i.dim) for i in self.instruments.values()] \
@@ -277,7 +344,8 @@ class ExplicitOpModel(OpModel):
 
         def jacobian(v):
             if P == 0:
-                return torch.zeros((len(row_member), 0), dtype=v.dtype, device=v.device)
+                return torch.zeros((len(row_member) + len(derived) * d * d, 0),
+                                   dtype=v.dtype, device=v.device)
             key = (str(v.device), v.dtype)
             if key not in consts:
                 consts[key] = (torch.as_tensor(seeds, dtype=v.dtype, device=v.device),
@@ -288,7 +356,20 @@ class ExplicitOpModel(OpModel):
             # P unit vectors
             compressed = torch.vmap(
                 lambda t: torch.func.jvp(flat, (v,), (t,))[1], out_dims=1)(S)    # [NT, C]
-            return compressed[:, k_of_param] * own
+            T = compressed[:, k_of_param] * own
+            if not derived:
+                return T
+            G = flat(v)[:n_gate_rows].reshape(-1, d, d)
+            dG = T[:n_gate_rows].reshape(-1, d, d, P)
+            rows = []
+            for comps in derived:
+                m, dm = G[comps[0]], dG[comps[0]]
+                for i in comps[1:]:
+                    dm = torch.einsum('ij,jkp->ikp', G[i], dm) \
+                        + torch.einsum('ijp,jk->ikp', dG[i], m)
+                    m = G[i] @ m
+                rows.append(dm.reshape(d * d, P))
+            return torch.cat([T[:n_gate_rows]] + rows + [T[n_gate_rows:]])
 
         return jacobian
 
@@ -340,25 +421,43 @@ class ExplicitOpModel(OpModel):
         package fails there too, on the member's constructor)."""
         m = self.copy()
         d = self.dim
-
-        def rebuilt(member, dense_types, static_type, D):
-            if isinstance(member, static_type):
-                return static_type(D @ member.dense())
-            if isinstance(member, dense_types):
-                return type(member)(D @ member.dense())
-            raise TypeError("depolarize cannot rebuild a %s from a dense value"
-                            % type(member).__name__)
-
         if op_noise is not None:
             D = np.diag([1.0] + [1.0 - op_noise] * (d - 1))
             for lbl, op in list(m.operations.items()):
-                m.operations[lbl] = rebuilt(op, (_op.FullArbitraryOp, _op.FullTPOp),
-                                            _op.StaticArbitraryOp, D)
+                m.operations[lbl] = _rebuilt(op, D, 'depolarize')
         if spam_noise is not None:
             D = np.diag([1.0] + [1.0 - spam_noise] * (d - 1))
             for lbl, p in list(m.preps.items()):
-                m.preps[lbl] = rebuilt(p, (_st.FullState, _st.TPState), _st.StaticState, D)
+                m.preps[lbl] = _rebuilt(p, D, 'depolarize')
         return m
+
+    def rotate(self, rotate=None, max_rotate=None, seed=None):
+        """A copy of a 1-qubit model with every operation followed by the
+        rotation exp(-i (rx X + ry Y + rz Z) / 2): `rotate` = (rx, ry, rz),
+        or with `max_rotate` each op's angles drawn uniformly from
+        [0, max_rotate) by numpy's default_rng(seed), in the JAX package's
+        order.  Only the dense families can be rebuilt; any other member
+        raises TypeError, as depolarize does."""
+        import scipy.linalg
+        from pygsti_tpu_torch.tools.internalgates import sigmaX, sigmaY, sigmaZ
+        from pygsti_tpu_torch.tools.optools import unitary_to_superop
+        if self.num_qubits != 1:
+            raise ValueError("rotate() supports 1-qubit models only")
+        m = self.copy()
+        rng = np.random.default_rng(seed)
+        for lbl, op in list(m.operations.items()):
+            rx, ry, rz = rng.uniform(0, max_rotate, 3) if max_rotate is not None else rotate
+            u = scipy.linalg.expm(-0.5j * (rx * sigmaX + ry * sigmaY + rz * sigmaZ))
+            m.operations[lbl] = _rebuilt(op, np.real(unitary_to_superop(u, self.basis.name)),
+                                         'rotate')
+        return m
+
+    def strdiff(self, other):
+        """One line 'op <label>: <Frobenius distance>' per operation that
+        both models have."""
+        return "\n".join("op %s: %.6g" % (lbl, np.linalg.norm(
+            op.dense() - other.operations[lbl].dense()))
+            for lbl, op in self.operations.items() if lbl in other.operations)
 
     def transform_inplace(self, s):
         """Apply the gauge transformation of element `s` (has

@@ -44,7 +44,9 @@ JVP_CHUNK_BYTES = {'cuda': 1024 * 1024 * 1024, 'cpu': 16 * 1024 * 1024}
 
 # -- raw objectives -----------------------------------------------------------
 # The formulas are those of the JAX package, which reproduces the reference
-# pyGSTi's.  p: probabilities, c: counts, t: total counts, f: frequencies.
+# pyGSTi's; only the Poisson logL terms are summed in another, equal form
+# (_sw_logl_terms).  p: probabilities, c: counts, t: total counts, f:
+# frequencies.
 
 def _sw_chi2_lsvec(p, c, t, f, mpc):
     return (p - f) * torch.sqrt(t / torch.clamp(p, min=mpc))
@@ -58,14 +60,31 @@ def _sw_chi2_dlsvec(p, c, t, f, mpc):
     return w + (p - f) * dw
 
 
+# Coefficients of y - log1p(y) = y^2 (1/2 - y/3 + y^2/4 - ...), summed up to
+# y^18: below |y| = 0.1 the truncation is under 1e-16 of the sum.
+_LOGL_SERIES = [(-1.0) ** k / k for k in range(2, 19)]
+_LOGL_SERIES_MAX_Y = 0.1
+
+
 def _sw_logl_terms(p, c, t, f, minp, radius):
+    """The JAX package's c*log(f/p) - c + t*p, written as c*(y - log1p(y))
+    with y = (p - f) / f (t = c / f).  The JAX form is a difference of
+    numbers of size c that cancel to c*y^2/2 near p = f, so there its value,
+    and more so its square root lsvec, is only as good as the platform's
+    log, and the card and a host's CPU can differ there beyond 1e-9 of the
+    largest entry.  Near p = f the series is summed instead, with no log at
+    all, so the terms keep their relative precision (1e-13) at every y."""
     fnz = torch.where(c == 0, torch.ones_like(f), f)
-    freq_term = c * (torch.log(fnz) - 1.0)
     pos = torch.where(p < minp, torch.full_like(p, minp), p)
+    y = (pos - fnz) / fnz
+    small = torch.abs(y) < _LOGL_SERIES_MAX_Y
+    ys = torch.where(small, y, torch.zeros_like(y))
+    g = torch.full_like(y, _LOGL_SERIES[-1])
+    for a in reversed(_LOGL_SERIES[:-1]):
+        g = g * ys + a
+    terms = c * torch.where(small, ys * ys * g, y - torch.log1p(y))
     c0 = t - c / minp
     c1 = 0.5 * c / (minp ** 2)
-    terms = freq_term - c * torch.log(pos) + t * pos
-    terms = torch.where(terms < 0, torch.zeros_like(terms), terms)
     terms = torch.where(p < minp, terms + c0 * (p - minp) + c1 * (p - minp) ** 2,
                         terms)
     zf = t * torch.where(p >= radius, p,
@@ -603,7 +622,8 @@ def _make_penalty_fn(model, penalties):
     spam_penalty_factor as a function of the parameter vector, or None when
     neither is on: per operation (the instruments' members are not
     penalized), factor * sqrt(1e-6 + sum of the negative eigenvalues of its
-    Choi matrix), then the same of each prep's and effect's matrix."""
+    Choi matrix), then the same of each prep's and effect's matrix.  A
+    composite layer is not penalized, as in the JAX package."""
     cptp_factor = penalties.get('cptp_penalty_factor', 0)
     spam_factor = penalties.get('spam_penalty_factor', 0)
     if not (cptp_factor or spam_factor):
@@ -613,6 +633,8 @@ def _make_penalty_fn(model, penalties):
     M = np.asarray(model.basis.create_transform_matrix('std')).astype(complex)
     host = (M, np.linalg.inv(M), np.asarray(model.basis.elements).astype(complex))
     compute = model.tensors_fn()
+    # the primary operations only: the op stack holds them first, then the
+    # composite layers (products of them) and the instruments' members
     n_ops = len(model.operations)
     consts = {}
 

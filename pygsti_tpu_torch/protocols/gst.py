@@ -73,21 +73,44 @@ class GateSetTomographyDesign(CircuitListsDesign):
 
 
 class StandardGSTDesign(GateSetTomographyDesign):
-    """Standard germs/fiducials/max-lengths design: the nested lists of
-    whole germ powers with every fiducial pair (fiducial-pair reduction and
-    the other options of the JAX package's circuit construction are not
-    ported)."""
+    """Standard germs/fiducials/max-lengths design: the lists of
+    make_lsgst_structs (circuits/gstcircuits.py), with its options --
+    fiducial-pair reduction (``fiducial_pairs``, a list of (prep index,
+    meas index) pairs or a dict germ -> such a list), random pair subsets
+    (``keep_fraction``, ``keep_seed``), ``germ_length_limits``,
+    ``op_label_aliases`` and a dataset check (``dscheck``,
+    ``action_if_missing``).  ``verbosity`` and ``add_default_protocol`` are
+    taken and, as in the JAX package, change nothing.
+
+    Unlike the JAX package's, the serialization writes the fiducial pairs,
+    the keep options and the germ length limits (not the aliases, which
+    change no circuit), so that a reduced design
+    reads back with the lists it was written with (the JAX package's reads
+    back as the full design).  A dataset check is repeated on reading back
+    against the circuits written, which keeps the circuits it kept.  A
+    state the JAX package wrote holds no pairs, and reads back here as the
+    full design, as it does there."""
 
     def __init__(self, target_model, prep_fiducials, meas_fiducials, germs, max_lengths,
-                 qubit_labels=None):
+                 germ_length_limits=None, fiducial_pairs=None, keep_fraction=1,
+                 keep_seed=None, nest=True, op_label_aliases=None, dscheck=None,
+                 action_if_missing="raise", qubit_labels=None, verbosity=0,
+                 add_default_protocol=False):
         self.prep_fiducials = list(prep_fiducials)
         self.meas_fiducials = list(meas_fiducials)
         self.germs = list(germs)
         self.maxlengths = list(max_lengths)
+        self.germ_length_limits = germ_length_limits
+        self.fiducial_pairs = fiducial_pairs
+        self.keep_fraction = keep_fraction
+        self.keep_seed = keep_seed
         lists = create_lsgst_circuit_lists(
             target_model, self.prep_fiducials, self.meas_fiducials, self.germs,
-            self.maxlengths)
-        super().__init__(target_model, lists, qubit_labels=qubit_labels, nested=True)
+            self.maxlengths, fid_pairs=fiducial_pairs, nest=nest,
+            germ_length_limits=germ_length_limits, op_label_aliases=op_label_aliases,
+            dscheck=dscheck, action_if_missing=action_if_missing, verbosity=verbosity,
+            keep_fraction=keep_fraction, keep_seed=keep_seed)
+        super().__init__(target_model, lists, qubit_labels=qubit_labels, nested=nest)
 
     def _to_nice_serialization(self):
         state = GateSetTomographyDesign._to_nice_serialization(self)
@@ -95,15 +118,41 @@ class StandardGSTDesign(GateSetTomographyDesign):
         state['meas_fiducials'] = [c.str for c in self.meas_fiducials]
         state['germs'] = [c.str for c in self.germs]
         state['maxlengths'] = list(self.maxlengths)
+        pairs = self.fiducial_pairs
+        if isinstance(pairs, dict):
+            state['fiducial_pairs_per_germ'] = [[g.str, [list(p) for p in pl]]
+                                                for g, pl in pairs.items()]
+        elif pairs is not None:
+            state['fiducial_pairs'] = [list(p) for p in pairs]
+        if self.germ_length_limits:
+            state['germ_length_limits'] = [[g.str, int(L)]
+                                           for g, L in self.germ_length_limits.items()]
+        state['keep_fraction'] = self.keep_fraction
+        state['keep_seed'] = self.keep_seed
         return state
 
     @classmethod
     def _from_nice_serialization(cls, state):
+        if 'fiducial_pairs_per_germ' in state:
+            pairs = {Circuit(g): [tuple(p) for p in pl]
+                     for g, pl in state['fiducial_pairs_per_germ']}
+        elif 'fiducial_pairs' in state:
+            pairs = [tuple(p) for p in state['fiducial_pairs']]
+        else:
+            pairs = None
+        limits = {Circuit(g): L for g, L in state.get('germ_length_limits', [])} or None
+        # the port's states carry the keep options; a state without them was
+        # written by the JAX package and reads back as that package reads it
+        ported = 'keep_fraction' in state
         return cls(_target_from_state(state),
                    [Circuit(s) for s in state['prep_fiducials']],
                    [Circuit(s) for s in state['meas_fiducials']],
                    [Circuit(s) for s in state['germs']], state['maxlengths'],
-                   qubit_labels=state.get('qubit_labels'))
+                   germ_length_limits=limits, fiducial_pairs=pairs,
+                   keep_fraction=state.get('keep_fraction', 1),
+                   keep_seed=state.get('keep_seed'), nest=state.get('nested', True),
+                   dscheck={Circuit(s) for s in state['circuits']} if ported else None,
+                   action_if_missing="drop", qubit_labels=state.get('qubit_labels'))
 
 
 def _lgst_keeps_parameterization(model):

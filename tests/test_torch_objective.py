@@ -118,3 +118,56 @@ def test_dataset_from_jax_counts(design):
     jv = JBuilder('logl').build(jt, jds, list(jlists[0])).fn(theta)
     tv = TBuilder('logl').build(tt, ds, list(tlists[0]), device="cpu").fn(theta)
     assert np.isclose(tv, jv, rtol=1e-9, atol=0)
+
+
+def _logl_inputs(counts, rel_offsets):
+    """p = f (1 + y) for each count and offset y, 1000 shots, float64."""
+    c = np.repeat(np.asarray(counts, dtype=float), len(rel_offsets))
+    t = np.full_like(c, 1000.0)
+    f = c / t
+    p = f * (1.0 + np.tile(rel_offsets, len(counts)))
+    return p, c, t, f
+
+
+@pytest.mark.parametrize('counts', [[1, 37], [489, 500], [963, 999]])
+def test_logl_terms_exact_near_ties(counts):
+    """The Poisson logL terms and lsvec near p = f against 50-digit
+    arithmetic: within 1e-13 relative to the exact c*(y - log1p(y)) of the
+    same float inputs.  The JAX package's form, c*log(f/p) - c + t*p,
+    cancels there and is off by up to 1e-13 absolute, i.e. 1e-3 relative
+    at y = 1e-6 and all digits below."""
+    import mpmath
+    import torch
+    from pygsti_tpu_torch.objectivefns.objectivefns import _sw_logl_lsvec, _sw_logl_terms
+    ys = np.concatenate([-np.logspace(-12, 0, 25)[:-1] * 0.9, np.logspace(-12, 1, 27)])
+    p, c, t, f = _logl_inputs(counts, ys)
+    args = [torch.as_tensor(a) for a in (p, c, t, f)]
+    terms = _sw_logl_terms(*args, MINCLIP, MINCLIP).numpy()
+    ls = _sw_logl_lsvec(*args, MINCLIP, MINCLIP).numpy()
+    with mpmath.workdps(50):
+        for i in range(len(p)):
+            y = (mpmath.mpf(p[i]) - mpmath.mpf(f[i])) / mpmath.mpf(f[i])
+            exact = mpmath.mpf(c[i]) * (y - mpmath.log1p(y))
+            assert abs(terms[i] - exact) <= 1e-13 * exact, (p[i], c[i])
+            assert abs(ls[i] - mpmath.sqrt(exact)) <= 1e-13 * mpmath.sqrt(exact), (p[i], c[i])
+
+
+def test_logl_terms_match_jax_off_ties():
+    """Away from p = f (|p - f| >= 1e-3 f), across the minp patch and for
+    zero counts, the terms equal the JAX package's within that form's own
+    rounding: 1e-15 of the summands it cancels (c*|log f|, c*|log p|, t*p),
+    beside 1e-12 relative."""
+    import torch
+    from pygsti_tpu.objectivefns.objectivefns import _sw_logl_terms as j_terms
+    from pygsti_tpu_torch.objectivefns.objectivefns import _sw_logl_terms
+    rng = np.random.RandomState(5)
+    ys = np.sign(rng.randn(400)) * np.logspace(-3, 0.5, 400)
+    p, c, t, f = _logl_inputs([0, 1, 2, 37, 489, 999, 1000], ys)
+    p = np.concatenate([p, rng.uniform(-1e-3, 2e-4, 50)])     # below minp
+    c, t, f = (np.concatenate([a, np.full(50, v)]) for a, v in ((c, 3.0), (t, 1000.0),
+                                                                  (f, 3e-3)))
+    tt = _sw_logl_terms(*[torch.as_tensor(a) for a in (p, c, t, f)], MINCLIP, MINCLIP).numpy()
+    jt = np.asarray(j_terms(p, c, t, f, MINCLIP, MINCLIP))
+    pos = np.maximum(p, MINCLIP)
+    summands = c * (np.abs(np.log(np.where(c > 0, f, 1.0))) + 1 + np.abs(np.log(pos))) + t * pos
+    assert np.all(np.abs(tt - jt) <= 1e-12 * np.abs(jt) + 1e-15 * summands)
