@@ -55,6 +55,25 @@ Phases, each fatal on failure:
                 (create_gst_experiment_design(64, fpr=True), 2,900 circuits
                 in its last list, each one of phase 3's), fitted 'full' on
                 phase 3's data with its own launch count
+ 12. qutrit  -- the legacy qutrit pack stdQT_XYIMS at full width and depth
+                (all 69 germs, maxL 1..64, 19,971 circuits, 'full TP', 314
+                parameters, d 9, three outcomes, K1 5): the kernel against
+                its plain version at every bucket shape of this layout, the
+                fit through GateSetTomography.run with its own launch count,
+                probabilities against a numpy product of the superoperators
+                and after a TP gauge transformation, and a circuit of bare
+                gate names resolved by the layout
+ 13. rpe     -- robust phase estimation of an over-rotated Gxpi2 from the
+                smq1Q_Xpi2_rpe design (22 circuits, depth up to 1,025): the
+                estimate per generation, the card's probabilities at depth
+                1,025 against numpy, and the config-driven analysis of
+                extras/rpe on card-simulated data
+ 14. objectives -- on phase 3's data: the frequency-weighted chi2 stages
+                and the logL stage through CustomLMOptimizer's host loop on
+                the card's tensors; the final list's logL by the device loop
+                with the CG and the Cholesky solve; every other raw
+                objective on the card against the CPU; an out-of-bounds
+                interval without a predicate, bit for bit
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -256,6 +275,10 @@ def reference_probs(model, circuits):
     first applied first."""
     import itertools
     ops = {k: o.dense() for k, o in model.operations.items()}
+    # a bare gate name that names one operation ('Gx' for 'Gx:T0') stands for it
+    names = [k.name for k in model.operations]
+    ops.update({k.name: o for k, o in list(ops.items())
+                if k.name != k and names.count(k.name) == 1 and k.name not in ops})
     for c in circuits:
         for layer in c.layertup:
             if layer not in ops and len(layer.components) > 1 and \
@@ -669,23 +692,25 @@ def phase_sparse(datagen, fitted, ds, lists, device):
                          "diff %.3e" % rel)
 
 
-def hold_kernel_at_buckets(layout, model, device):
+def hold_kernel_at_buckets(layout, model, device, prefix):
     """The kernel against its plain version at every bucket shape of
-    `layout` on the model's own op stack and random E and F, f64 and f32;
-    returns ({dtype: max relative error}, f64 ms per Jacobian of the kernel,
-    of the plain version, the least time the card could take for the same
-    work, bucket shapes)."""
+    `layout` on the model's own op stack and random E and F, f64 and f32,
+    one line per shape; returns ({dtype: max relative error}, and f64 ms
+    per Jacobian of the kernel, of the plain version, of the einsum
+    yardstick, the least time the card could take for the same work, and
+    the bucket shapes)."""
     from pygsti_tpu_torch.objectivefns.objectivefns import bucket_plan
     from pygsti_tpu_torch.ops.bwd_jacobian import (bwd_jacobian_accumulate,
                                                    bwd_jacobian_accumulate_plain)
-    n_out, d = 4, model.dim
+    n_out, d = layout.num_elements // layout.num_rows, model.dim
     K1 = len(model.op_keys) + 1
+    n_composite = len(model.op_keys) - len(model.operations)
     NT = (K1 - 1) * d * d + d + n_out * d
     buckets, _ = bucket_plan(layout, n_out, NT, device)
     gen = torch.Generator(device='cpu').manual_seed(99)
     G64 = torch.cat([model.tensors_fn()(torch.as_tensor(model.to_vector())).ops,
                      torch.eye(d, dtype=torch.float64)[None]]).to(device)
-    errs, ms, plain_ms, bound_ms = {}, 0.0, 0.0, 0.0
+    errs, ms, plain_ms, einsum_ms, bound_ms = {}, 0.0, 0.0, 0.0, 0.0
     for dtype in (torch.float64, torch.float32):
         G = G64.to(dtype)
         for bk in buckets:
@@ -699,21 +724,30 @@ def hold_kernel_at_buckets(layout, model, device):
             scale = max(float(A2.abs().max()), float(Bf2.abs().max()))
             if not err <= TOL[dtype] * scale:
                 raise SystemExit("kernel bwd_jacobian disagrees with its plain version at a "
-                                 "composite-layer bucket: %s B=%d D=%d K1=%d rel %g"
-                                 % (dtype, B, D, K1, err / scale))
-            if not float(A[:, :, len(model.operations):K1 - 1].abs().max()) > 0:
+                                 "bucket of the %s layout: %s B=%d D=%d d=%d NOUT=%d K1=%d "
+                                 "rel %g" % (prefix, dtype, B, D, d, n_out, K1, err / scale))
+            if n_composite and not float(
+                    A[:, :, len(model.operations):K1 - 1].abs().max()) > 0:
                 raise SystemExit("no gradient block reached the composite layers' slots")
             errs[dtype] = max(errs.get(dtype, 0.0), err / scale)
             if dtype == torch.float64:
-                ms += cuda_time_ms(lambda: bwd_jacobian_accumulate(cols, G, E, F), 5)
-                plain_ms += cuda_time_ms(lambda: bwd_jacobian_accumulate_plain(cols, G, E, F), 1)
+                k_ms = cuda_time_ms(lambda: bwd_jacobian_accumulate(cols, G, E, F), 5)
+                p_ms = cuda_time_ms(lambda: bwd_jacobian_accumulate_plain(cols, G, E, F), 1)
+                e_ms = cuda_time_ms(lambda: einsum_yardstick(cols, G, E, F), 1)
                 # as in phase 2: each input read once, each output written once
                 nbytes = cols.numel() * 4 + (G.numel() + E.numel() + F.numel()
                                              + B * n_out * K1 * d * d + B * n_out * d) * 8
                 flops = B * n_out * D * 2 * (2 * d * d)
-                bound_ms += max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+                b_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
+                log("%s: kernel bwd_jacobian float64 bucket B=%d D=%d (d %d, NOUT %d, K1 %d): "
+                    "%.4f ms, bound %.4f ms (%.1f%% of it, %.1f MB), plain %.3f ms, einsum "
+                    "yardstick %.3f ms, rel err %.3e"
+                    % (prefix, B, D, d, n_out, K1, k_ms, b_ms, 100 * b_ms / k_ms, nbytes / 1e6,
+                       p_ms, e_ms, err / scale))
+                ms, plain_ms, einsum_ms, bound_ms = (ms + k_ms, plain_ms + p_ms,
+                                                     einsum_ms + e_ms, bound_ms + b_ms)
             del A, Bf, A2, Bf2
-    return errs, ms, plain_ms, bound_ms, [tuple(b['cols'].shape) for b in buckets]
+    return errs, ms, plain_ms, einsum_ms, bound_ms, [tuple(b['cols'].shape) for b in buckets]
 
 
 def fit_launches(gst, data, prefix, lists):
@@ -761,7 +795,8 @@ def phase_parallel_fit(builders, device):
     if (len(final), depth, target.num_params, len(target.operations), K1) != \
             (19590, 70, 1360, 5, 9):
         raise SystemExit("unexpected smq2Q_XXYYII design or op stack")
-    errs, kms, kplain, kbound, shapes = hold_kernel_at_buckets(layout, target, device)
+    errs, kms, kplain, _, kbound, shapes = hold_kernel_at_buckets(layout, target, device,
+                                                                  'parallel')
     log("parallel: kernel bwd_jacobian at this layout's %d bucket shapes %s: max rel err f64 "
         "%.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per Jacobian f64 against a bound of "
         "%.4f ms (%.1f%% of it; plain %.2f ms)"
@@ -843,6 +878,266 @@ def phase_fpr_fit(mp, target, ds, final, builders, device):
             and nsigma < 10):
         raise SystemExit("the FPR fit is not finite or far from the statistical optimum: "
                          "N_sigma %g" % nsigma)
+    return launches
+
+
+def phase_qutrit_fit(builders, device):
+    """Phase 12: the legacy qutrit pack stdQT_XYIMS at full width and depth;
+    returns (launches, kernel numbers at the layout's buckets)."""
+    from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.modelpacks.legacy import stdQT_XYIMS as qt
+    from pygsti_tpu_torch.models.gaugegroup import TPGaugeGroup
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+
+    t0 = time.time()
+    target = qt.target_model('full TP')
+    lists = create_lsgst_circuit_lists(target, qt.prepStrs, qt.effectStrs, qt.germs,
+                                       [1, 2, 4, 8, 16, 32, 64])
+    final = list(lists[-1])
+    sizes = [len(l) for l in lists]
+    depth = max(c.depth for c in final)
+    layout = SimpleForwardSimulator(target, device).create_layout(final)
+    n_out = layout.num_elements // layout.num_rows
+    K1 = len(target.op_keys) + 1
+    log("qutrit: stdQT_XYIMS 'full TP', %d germs, lists %s, depth %d, %d parameters, d %d, "
+        "%d outcomes, K1 %d (design and layout %.2f s)"
+        % (len(qt.germs), sizes, depth, target.num_params, target.dim, n_out, K1,
+           time.time() - t0))
+    if (sizes[-1], depth, target.num_params, target.dim, n_out, K1) != \
+            (19971, 69, 314, 9, 3, 5):
+        raise SystemExit("unexpected qutrit design or model")
+    p_bare = target.probabilities(qt.germs[9], device=device)
+    log("qutrit: bare-name circuit germs[9] = %s at the target: %s"
+        % (qt.germs[9].str, dict(p_bare)))
+    if not abs(p_bare[('1bright',)] - 0.5) < 1e-12:
+        raise SystemExit("the bare-name qutrit circuit GxGy does not give p('1bright') = 0.5")
+    kernel = hold_kernel_at_buckets(layout, target, device, 'qutrit')
+    errs, kms, kplain, keinsum, kbound, shapes = kernel
+    log("qutrit: kernel bwd_jacobian at this layout's %d bucket shapes %s: max rel err f64 "
+        "%.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per Jacobian f64 against a bound of "
+        "%.4f ms (%.1f%% of it); plain %.2f ms, einsum yardstick %.2f ms"
+        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], kms, kbound,
+           100 * kbound / kms, kplain, keinsum))
+    datagen = qt.target_model('full TP').depolarize(op_noise=0.01, spam_noise=0.001)
+    t0 = time.time()
+    ds = simulate_data(datagen, final, 1000, seed=1234, device=device)
+    log("qutrit: data simulated on the card in %.2f s" % (time.time() - t0))
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()), gaugeopt_suite=None,
+                            objfn_builders=builders, optimizer={'maxiter': LM_MAXITER},
+                            verbosity=0, device=device)
+    est, launches, fit_s, iters, peak = fit_launches(
+        gst, ProtocolData(GateSetTomographyDesign(target, lists), ds), 'qutrit', lists)
+    nsigma = est.misfit_sigma()
+    log("qutrit: %d circuits, %d parameters: %d LM iterations in %.3f s, %.1f ms per "
+        "iteration; kernel launches {'bwd_jacobian': %d}; final 2*DeltaLogL %.6f, k %d, "
+        "N_sigma %.4f; peak device memory %.1f MB"
+        % (len(final), target.num_params, iters, fit_s, 1e3 * fit_s / max(iters, 1), launches,
+           est.parameters['final_objfn_value'], est.parameters['final_dof'], nsigma, peak))
+    fitted = est.models['final iteration estimate']
+    if launches == 0:
+        raise SystemExit("the qutrit fit never launched the bwd_jacobian kernel")
+    if not (np.all(np.isfinite(fitted.to_vector())) and nsigma < 10):
+        raise SystemExit("the qutrit fit is not finite or far from the statistical optimum: "
+                         "N_sigma %g" % nsigma)
+    check = final[:: len(final) // 200][:200]
+    sim = SimpleForwardSimulator(fitted, device)
+    p_card = sim.bulk_fill_probs(sim.create_layout(check))
+    dp_ref = float(np.max(np.abs(p_card - reference_probs(fitted, check))))
+    group = TPGaugeGroup(fitted.dim)
+    el = group.compute_element(group.initial_params()
+                               + 1e-3 * np.random.RandomState(5).randn(group.num_params))
+    moved = fitted.copy()
+    moved.transform_inplace(el)
+    sim2 = SimpleForwardSimulator(moved, device)
+    dp_gauge = float(np.max(np.abs(sim2.bulk_fill_probs(sim2.create_layout(check)) - p_card)))
+    log("qutrit: probabilities of %d circuits vs a numpy product of the 9x9 "
+        "superoperators: max |dp| %.3e (tol 1e-10); after a random TP gauge transformation "
+        "(Frobenius distance %.3e): max |dp| %.3e (tol 1e-9)"
+        % (len(check), dp_ref, moved.frobeniusdist(fitted), dp_gauge))
+    if not (dp_ref < 1e-10 and dp_gauge < 1e-9 and moved.frobeniusdist(fitted) > 1e-5):
+        raise SystemExit("qutrit probabilities disagree with the reference or move under a "
+                         "gauge transformation")
+    return launches, kernel
+
+
+def phase_rpe(device):
+    """Phase 13: robust phase estimation of an over-rotated Gxpi2 at depths
+    up to 1,025, and the config-driven analysis of extras/rpe."""
+    import scipy.linalg
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.extras.rpe import rpeconfig_gxpi2_gypi2_00 as cfg
+    from pygsti_tpu_torch.extras.rpe import rpeconstruction as rc
+    from pygsti_tpu_torch.extras.rpe import rpetools as rt
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.modelmembers.operations import FullTPOp
+    from pygsti_tpu_torch.modelpacks import smq1Q_XYI, smq1Q_Xpi2_rpe
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.protocols.rpe import RobustPhaseEstimationProtocol
+    from pygsti_tpu_torch.tools.internalgates import sigmaX
+    from pygsti_tpu_torch.tools.optools import unitary_to_superop
+
+    t0 = time.time()
+    design = smq1Q_Xpi2_rpe.create_rpe_experiment_design(1024)
+    circuits = design.all_circuits_needing_data
+    depth = max(c.depth for c in circuits)
+    over = 0.01
+    true_angle = np.pi / 2 + over
+    model = smq1Q_XYI.target_model('full TP')
+    model.operations[('Gxpi2', 0)] = FullTPOp(np.real(unitary_to_superop(
+        scipy.linalg.expm(-0.5j * true_angle * sigmaX))))
+    ds = simulate_data(model, circuits, 1000, seed=1234, device=device)
+    res = RobustPhaseEstimationProtocol().run(ProtocolData(design, ds))
+    est = res.angle_estimates
+    log("rpe: smq1Q_Xpi2_rpe design at max length 1024: %d circuits, depth up to %d; Gxpi2 "
+        "over-rotated by %.3f rad (true angle %.12f); 1000 shots simulated on the card; "
+        "estimate per generation (depth 1, 2, 4, ...): %s; last %.12f, error %.3e rad "
+        "(tol 1e-3) (%.2f s)"
+        % (len(circuits), depth, over, true_angle, ["%.6f" % a for a in est], est[-1],
+           abs(est[-1] - true_angle), time.time() - t0))
+    if (len(circuits), depth) != (22, 1025) or not abs(est[-1] - true_angle) < 1e-3:
+        raise SystemExit("robust phase estimation missed the true angle")
+    deepest = [c for c in circuits if c.depth == depth]
+    sim = SimpleForwardSimulator(model, device)
+    p_card = sim.bulk_fill_probs(sim.create_layout(deepest))
+    G = model.operations[('Gxpi2', 0)].dense()
+    rho = model.preps['rho0'].dense()
+    p_ref = model.povms['Mdefault'].dense() @ np.linalg.matrix_power(G, depth) @ rho
+    dp = float(np.max(np.abs(p_card - p_ref)))
+    log("rpe: probabilities at depth %d on the card vs a numpy power of the 4x4 "
+        "superoperator: max |dp| %.3e (tol 1e-10)" % (depth, dp))
+    if not dp < 1e-10:
+        raise SystemExit("the card's probabilities at depth %d disagree with numpy" % depth)
+    t0 = time.time()
+    d = rc.create_rpe_angle_circuits_dict(10, cfg)
+    alpha_true, eps_true = np.pi / 2 + 0.01, np.pi / 2 - 0.005
+    rmodel = rc.create_parameterized_rpe_model(alpha_true, eps_true, 0.002, 1e-3, 1e-4,
+                                               rpeconfig_inst=cfg)
+    rds = rc.create_rpe_dataset(rmodel, d, 1000, seed=42, device=device)
+    out = rt.analyze_rpe_data(rds, rmodel, d, cfg)
+    log("rpe: extras/rpe on card-simulated data of %d circuits (k up to %d, depth up to %d): "
+        "alpha error %.3e, epsilon error %.3e (tol 1e-3), theta %.6f (true %.6f) (%.2f s)"
+        % (len(d['totalCircList']), d['k_list'][-1],
+           max(c.depth for c in d['totalCircList']), out['alphaErrorList'][-1],
+           out['epsilonErrorList'][-1], out['thetaHatList'][-1], rt.extract_theta(rmodel, cfg),
+           time.time() - t0))
+    if not (out['alphaErrorList'][-1] < 1e-3 and out['epsilonErrorList'][-1] < 1e-3):
+        raise SystemExit("extras/rpe did not recover alpha and epsilon")
+
+
+def phase_objectives(target, lists, ds, est3, fit_value, device):
+    """Phase 14: on phase 3's data and design, (a) the fit with the
+    frequency-weighted chi2 stages through the host LM loop, (b) the final
+    list's logL by the device loop with the CG and the Cholesky solve, (c)
+    every other raw objective on the card against the CPU, (d) the
+    out-of-bounds interval without a predicate; returns {path: launches}."""
+    from pygsti_tpu_torch.objectivefns import objectivefns as of
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.optimize.simplerlm import CustomLMOptimizer
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel, GSTObjFnBuilders)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+
+    launches = {}
+    final, small = list(lists[-1]), list(lists[0])
+    # (a) the host loop on the card's tensors
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()), gaugeopt_suite=None,
+                            objfn_builders=GSTObjFnBuilders.create_from(
+                                'logl', freq_weighted_chi2=True),
+                            optimizer=CustomLMOptimizer(damping_mode='JTJ'), verbosity=0,
+                            device=device)
+    est, launches['host-loop fit'], fit_s, iters, peak = fit_launches(
+        gst, ProtocolData(GateSetTomographyDesign(target, lists), ds), 'host', lists)
+    evals = sum(r.optimizer_specific_qtys['evaluations']
+                for rs in est.parameters['optimizer_results'] for r in rs)
+    value = est.parameters['final_objfn_value']
+    rel = abs(value - fit_value) / fit_value
+    log("host: 'fwchi2' stages then 'logl', CustomLMOptimizer(damping_mode='JTJ') on the "
+        "host: %d iterations in %.3f s (%.1f ms each), %d objective evaluations read from the "
+        "card (%.2f per iteration), kernel launches %d; final 2*DeltaLogL %.6f against phase "
+        "3's %.6f: rel %.3e (tol 1e-3)"
+        % (iters, fit_s, 1e3 * fit_s / max(iters, 1), evals, evals / max(iters, 1),
+           launches['host-loop fit'], value, fit_value, rel))
+    if launches['host-loop fit'] == 0 or not rel < 1e-3:
+        raise SystemExit("the host-loop fit missed phase 3's optimum: rel %.3e" % rel)
+    # (b) the device loop's two solvers on the final list's logL, from the
+    # estimate of the list before it
+    start = est3.models['iteration %d estimate' % (len(lists) - 2)]
+    values = {}
+    for solver in ('cholesky', 'cg'):
+        mdl = start.copy()
+        obj = of.ObjectiveFunctionBuilder('logl').build(mdl, ds, final, device=device)
+        torch.cuda.synchronize()
+        bwd_jacobian_accumulate.launches = 0
+        t0 = time.time()
+        x, conv, msg, mu, nu, norm_f, f, k = obj.run_device_lm(mdl.to_vector(),
+                                                              maxiter=LM_MAXITER,
+                                                              solver=solver)
+        torch.cuda.synchronize()
+        launches['%s fit' % solver] = bwd_jacobian_accumulate.launches
+        values[solver] = 2 * norm_f
+        log("solver %s: final list's logL from the estimate of list %d: %d iterations in "
+            "%.3f s, kernel launches %d, 2*DeltaLogL %.6f (%s)"
+            % (solver, len(lists) - 2, k, time.time() - t0, launches['%s fit' % solver],
+               values[solver], msg))
+        if not conv:
+            raise SystemExit("the device loop with solver %s did not converge: %s"
+                             % (solver, msg))
+    rel_cg = abs(values['cg'] - values['cholesky']) / values['cholesky']
+    rel_3 = max(abs(v - fit_value) / fit_value for v in values.values())
+    log("solver: CG against Cholesky rel %.3e, both against phase 3's value rel <= %.3e "
+        "(tol 1e-3)" % (rel_cg, rel_3))
+    if not (rel_cg < 1e-3 and rel_3 < 1e-3):
+        raise SystemExit("the CG and Cholesky fits disagree or miss phase 3's optimum")
+    # (c) each raw objective at phase 3's fitted point, card against CPU
+    fitted = est3.models['final iteration estimate']
+    theta = fitted.to_vector()
+    raws = [(name, lambda name=name: of._RAW_CLASSES[name]()) for name in
+            ('fwchi2', 'dlogl-nonpoisson', 'tvd', 'chialpha', 'cwchi2', 'maxlogl')]
+    raws.append(('Lp^p (p = 2)', lambda: of.RawAbsPower(2)))
+    for name, make in raws:
+        objs = [of.TimeIndependentMDCObjectiveFunction(make(), fitted, ds, small, device=dev)
+                for dev in (device, 'cpu')]
+        fn_c, fn_h = (o.fn(theta) for o in objs)
+        (ls_c, jtj_c, jtf_c), (ls_h, jtj_h, jtf_h) = (o.jtj_jtf(theta) for o in objs)
+        nan_ls = np.isnan(ls_h)
+        if name == 'maxlogl':
+            # its terms c (log f - 1) are negative wherever c > 0, so lsvec =
+            # sqrt(terms) is NaN there in both packages: only fn and the
+            # places of the NaNs can agree
+            same_nans = np.array_equal(np.isnan(ls_c), nan_ls)
+            rel_fn = abs(fn_c - fn_h) / abs(fn_h)
+            log("objective %s (%d circuits): fn card %.12g, CPU %.12g, rel %.3e (tol 1e-9); "
+                "lsvec NaN at %d of %d elements on both: %s"
+                % (name, len(small), fn_c, fn_h, rel_fn, int(nan_ls.sum()), len(ls_h),
+                   same_nans))
+            if not (rel_fn < 1e-9 and same_nans):
+                raise SystemExit("objective %s disagrees between the card and the CPU" % name)
+            continue
+        rels = [abs(fn_c - fn_h) / abs(fn_h)] + [
+            float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+            for a, b in ((ls_c, ls_h), (jtj_c, jtj_h), (jtf_c, jtf_h))]
+        log("objective %s (%d circuits): fn %.12g; card vs CPU rel diff fn %.3e, lsvec %.3e, "
+            "JTJ %.3e, JTf %.3e (tol 1e-9)" % ((name, len(small), fn_h) + tuple(rels)))
+        if not max(rels) < 1e-9:
+            raise SystemExit("objective %s disagrees between the card and the CPU: %s"
+                             % (name, rels))
+    # (d) an out-of-bounds interval with no predicate changes nothing
+    xs = []
+    for interval in (0, 1):
+        obj = of.ObjectiveFunctionBuilder('logl').build(target.copy(), ds, small,
+                                                        device=device)
+        xs.append(obj.run_device_lm(target.to_vector(), maxiter=LM_MAXITER,
+                                    oob_check_interval=interval))
+    same = np.array_equal(xs[0][0], xs[1][0])
+    log("oob: the device loop on the first list from the target with oob_check_interval 0 "
+        "and 1, no out-of-bounds predicate: %d and %d iterations, x equal bit for bit: %s"
+        % (xs[0][7], xs[1][7], same))
+    if not same:
+        raise SystemExit("oob_check_interval=1 without a predicate changed the fit")
     return launches
 
 
@@ -1068,16 +1363,27 @@ def main():
     t4 = time.time()
     log("phases 10 and 11: %.1f s and %.1f s of the script's wall time" % (t3 - t2, t4 - t3))
 
+    # -- the qutrit pack, robust phase estimation, the other objectives -------
+    qutrit_launches, _ = phase_qutrit_fit(builders, device)
+    t5 = time.time()
+    phase_rpe(device)
+    t6 = time.time()
+    obj_launches = phase_objectives(target, lists, ds, est, fit_value, device)
+    t7 = time.time()
+    log("phases 12, 13 and 14: %.1f s, %.1f s and %.1f s of the script's wall time"
+        % (t5 - t4, t6 - t5, t7 - t6))
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
         "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
-        + fpr_launches,
-        "launches_by_path": {"full fit": launches['bwd_jacobian'],
-                             "cptp fit": cptp_launches, "instrument fit": inst_launches,
-                             "parallel-layer fit": par_launches, "fpr fit": fpr_launches},
+        + fpr_launches + qutrit_launches + sum(obj_launches.values()),
+        "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
+                                  "cptp fit": cptp_launches, "instrument fit": inst_launches,
+                                  "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
+                                  "qutrit fit": qutrit_launches}, **obj_launches),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

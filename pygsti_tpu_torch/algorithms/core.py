@@ -1,5 +1,5 @@
-"""Core GST algorithms: LGST and iterative long-sequence GST (counterpart of
-pygsti_tpu/algorithms/core.py).
+"""Core GST algorithms: LGST, iterative long-sequence GST and the closest
+unitary of an operation (counterpart of pygsti_tpu/algorithms/core.py).
 
 LGST is linear algebra on a d^2 x d^2 matrix of measured frequencies.  In
 the JAX package it is numpy on the host, with no JAX in it, and it stays
@@ -23,6 +23,8 @@ from pygsti_tpu_torch.modelmembers import povms as _pvm
 from pygsti_tpu_torch.modelmembers import states as _stm
 from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
 from pygsti_tpu_torch.optimize.simplerlm import SimplerLMOptimizer
+from pygsti_tpu_torch.tools.jamiolkowski import jamiolkowski_iso
+from pygsti_tpu_torch.tools.optools import unitary_to_superop
 
 
 def run_lgst(dataset, prep_fiducials, effect_fiducials, target_model,
@@ -172,7 +174,9 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
                             device="cuda"):
     """Yields (opt_results_list, model copy) per circuit list, each stage
     seeded by the previous one's model; the last list also runs the final
-    builders.
+    builders.  `optimizer` is one optimizer (or settings dict, or None) for
+    every list, or a list of one per circuit list
+    (validate_and_extend_optimizer).
 
     When every list is a prefix of the last one (the standard GST
     structure), all stages share the last list's layout, with counts
@@ -182,7 +186,8 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
     optimization."""
     printer = VerbosityPrinter.create_printer(verbosity)
     profiler = profiler if profiler is not None else DummyProfiler()
-    optimizer = SimplerLMOptimizer.cast(optimizer)
+    optimizers = [SimplerLMOptimizer.cast(o) for o in
+                  validate_and_extend_optimizer(optimizer, len(circuit_lists))]
     iteration_objfn_builders = [ObjectiveFunctionBuilder.cast(b)
                                 for b in iteration_objfn_builders]
     final_objfn_builders = [ObjectiveFunctionBuilder.cast(b)
@@ -212,7 +217,7 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
             with profiler.timing('iteration %d: %s objective build' % (i, b.name)):
                 objective = make_objective(b, i)
             with profiler.timing('iteration %d: %s optimize' % (i, b.name)):
-                result = optimizer.run(objective)
+                result = optimizers[i].run(objective)
             opt_results.append(result)
             profiler.add_count('LM stages')
             printer.log("    %s stage: %.1fs (f=%.1f)" % (b.name, time.time() - t0, result.f))
@@ -252,3 +257,33 @@ def gram_rank_and_eigenvalues(dataset, prep_fiducials, effect_fiducials,
     tsvals = np.linalg.svd(Gt, compute_uv=False)
     tol = max(svals) * 1e-6 if len(svals) else 0
     return int(np.sum(svals > tol)), svals, tsvals
+
+
+def find_closest_unitary_opmx(operation_mx, op_basis='pp'):
+    """The unitary superoperator closest to `operation_mx` in process
+    fidelity: the dominant eigenvector of its Choi matrix read as an
+    operator, projected onto the unitaries by its polar decomposition."""
+    J = np.asarray(jamiolkowski_iso(np.asarray(operation_mx), op_basis, 'std'))
+    evals, evecs = np.linalg.eigh((J + J.conj().T) / 2)
+    kraus = evecs[:, -1]
+    d = int(round(np.sqrt(len(kraus))))
+    u_svd, _, vh = np.linalg.svd(kraus.reshape(d, d) * np.sqrt(d))
+    return np.real_if_close(unitary_to_superop(u_svd @ vh, op_basis))
+
+
+def validate_and_extend_optimizer(optimizer, size):
+    """The `optimizer` argument of iterative GST as a list of `size`: one
+    optimizer (or settings dict, or None for the default) repeated, or a
+    list of length 1 (repeated) or `size`."""
+    if optimizer is None:
+        optimizer = SimplerLMOptimizer.cast(None)
+    if isinstance(optimizer, list) and len(optimizer) == 1:
+        optimizer = optimizer * size
+    if isinstance(optimizer, (SimplerLMOptimizer, dict)):
+        return [optimizer] * size
+    if not isinstance(optimizer, list):
+        raise ValueError("Invalid argument for optimizers of type %s; supported types are "
+                         "list, Optimizer, or dict." % type(optimizer))
+    if len(optimizer) not in (1, size):
+        raise ValueError("Optimizers must be length 1 or length %d" % size)
+    return optimizer

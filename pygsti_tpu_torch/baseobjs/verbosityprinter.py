@@ -31,3 +31,6 @@ class VerbosityPrinter(object):
     def log(self, message, message_level=1, indent_offset=0):
         if message_level <= self.verbosity:
             self._emit('  ' * indent_offset + str(message))
+
+    def warning(self, message):
+        self._emit("WARNING: %s" % message)

@@ -22,7 +22,7 @@ import weakref
 
 import numpy as np
 
-from pygsti_tpu_torch.baseobjs.label import LabelStr, LabelTupTup
+from pygsti_tpu_torch.baseobjs.label import Label, LabelStr, LabelTupTup
 from pygsti_tpu_torch.circuits.circuit import Circuit
 
 
@@ -49,6 +49,17 @@ class CircuitOutcomeProbabilityLayout(object):
         model.register_circuit_layers(self.circuits)
         self.op_keys = tuple(model.op_keys)
         op_index_map = {k: i for i, k in enumerate(self.op_keys)}
+        # a bare gate name (the legacy packs' 'Gx' on line '*') that names
+        # exactly one operation keyed with state-space labels ('Gx:T0')
+        # stands for that operation; op_keys are left as they are
+        by_name = {}
+        for k, i in op_index_map.items():
+            name = getattr(k, 'name', None)
+            if name is not None and name != k:
+                by_name.setdefault(name, []).append(i)
+        for name, idxs in by_name.items():
+            if len(idxs) == 1 and name not in op_index_map:
+                op_index_map[Label(name)] = idxs[0]
         prep_index_map = {k: i for i, k in enumerate(model.prep_keys)}
         povm_rows = model.povm_effect_rows()
         instruments = model.instruments

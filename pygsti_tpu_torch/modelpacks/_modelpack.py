@@ -4,12 +4,11 @@ A pack bundles a target gate set with its GST circuits (germs, lite germs,
 prep and measurement fiducials) and its fiducial-pair-reduction data.  The
 target model is built directly from the gate unitaries, embedded on the
 pack's qubits in the 'pp' basis, with its operations in the JAX package's
-order, so parameter vectors line up.  That order is the one the JAX
-package's processor spec gives: the global idle first (when the pack has
-one), then each gate in turn, a gate on all of the pack's qubits once, a
-gate with an availability list once per listed target, any other one-qubit
-gate once per qubit; then a pack's ``_op_order`` moves the labels it names
-to the front, in its order.
+order, so parameter vectors line up.  That order is the primitive
+operation labels of the pack's processor spec (the global idle first, when
+the pack has one, then each gate in turn, a gate on all of the pack's
+qubits once, any other once per available target); then a pack's
+``_op_order`` moves the labels it names to the front, in its order.
 """
 
 from __future__ import annotations
@@ -23,7 +22,9 @@ from pygsti_tpu_torch.baseobjs.label import Label
 from pygsti_tpu_torch.circuits.circuit import Circuit
 from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
 from pygsti_tpu_torch.models.modelconstruction import (LINDBLAD_SPAM_TYPES, _make_op,
-                                                        _make_povm, _make_prep)
+                                                        _make_povm, _make_prep,
+                                                        embed_unitary_superop)
+from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
 from pygsti_tpu_torch.tools import optools as _ot
 from pygsti_tpu_torch.tools.basistools import stdmx_to_vec
 from pygsti_tpu_torch.tools.internalgates import standard_gatename_unitaries
@@ -41,25 +42,6 @@ def _spam_type(gate_type):
     if gate_type in LINDBLAD_SPAM_TYPES:
         return gate_type
     return 'computational'
-
-
-def _embed_unitary_superop(u, target_qubits, all_qubits):
-    """'pp'-basis superop of a unitary on `target_qubits`, identity on the
-    other qubits of `all_qubits`."""
-    nq_gate = int(round(np.log2(u.shape[0])))
-    small = np.real(_ot.unitary_to_superop(u, Basis('pp', 4 ** nq_gate)))
-    n = len(all_qubits)
-    if tuple(target_qubits) == tuple(all_qubits):
-        return small
-    tgt_pos = [list(all_qubits).index(t) for t in target_qubits]
-    other_pos = [i for i in range(n) if i not in tgt_pos]
-    full = np.kron(small, np.eye(4 ** len(other_pos)))
-    inv = [0] * n
-    for newpos, srcpos in enumerate(tgt_pos + other_pos):
-        inv[srcpos] = newpos
-    full = full.reshape([4] * (2 * n))
-    full = np.transpose(full, inv + [p + n for p in inv])
-    return full.reshape(4 ** n, 4 ** n)
 
 
 class GSTModelPack(object):
@@ -98,21 +80,24 @@ class GSTModelPack(object):
         return [c.map_state_space_labels(mapper) for c in circuits]
 
     @classmethod
+    def processor_spec(cls, qubit_labels=None):
+        """The pack's QubitProcessorSpec: the global idle '{idle}' (when the
+        pack has one) and its gates on a line of qubits.  An availability
+        list is mapped onto `qubit_labels`; the JAX package passes it on as
+        written, on qubits 0..n-1 (ROADMAP.md section 3)."""
+        qubit_labels = cls._check_qubit_labels(qubit_labels)
+        qubits = qubit_labels or tuple(range(cls._nqubits))
+        names = (['{idle}'] if cls._include_idle else []) + list(cls._gates)
+        avail = None if cls._availability is None else {
+            g: [tuple(qubits[i] for i in t) for t in targets]
+            for g, targets in cls._availability.items()}
+        return QubitProcessorSpec(cls._nqubits, names, geometry='line', availability=avail,
+                                  qubit_labels=qubit_labels)
+
+    @classmethod
     def _op_labels(cls, qubit_labels=None):
         qubits = cls._check_qubit_labels(qubit_labels) or tuple(range(cls._nqubits))
-        std = standard_gatename_unitaries()
-        avail = cls._availability or {}
-        out = [Label(())] if cls._include_idle else []
-        for name in cls._gates:
-            nq_gate = int(round(np.log2(std[name].shape[0])))
-            if nq_gate == cls._nqubits and cls._nqubits > 1:
-                out.append(Label(name, qubits))
-            elif name in avail:
-                out.extend(Label(name, tuple(qubits[i] for i in t)) for t in avail[name])
-            elif nq_gate == 1:
-                out.extend(Label(name, (q,)) for q in qubits)
-            else:
-                raise ValueError("no availability rule for %s" % name)
+        out = cls.processor_spec(qubit_labels).primitive_op_labels
         if cls._op_order is not None:
             order = [Label(()) if name == '' else Label((name,) + tuple(qubits[i] for i in idx))
                      for name, idx in cls._op_order]
@@ -135,7 +120,7 @@ class GSTModelPack(object):
                 u, targets = np.eye(2 ** nq, dtype=complex), qubits
             else:
                 u, targets = std[lbl.name], lbl.sslbls
-            mdl.operations[lbl] = _make_op(_embed_unitary_superop(u, targets, qubits),
+            mdl.operations[lbl] = _make_op(embed_unitary_superop(u, targets, qubits),
                                            gate_type, mdl.basis)
         udim = 2 ** nq
         rho = np.zeros((udim, udim), dtype=complex)

@@ -392,6 +392,26 @@ class ExplicitOpModel(OpModel):
                                          self.basis, nq)
         self.default_gate_type = gate_type
 
+    def create_processor_spec(self, qudit_labels=None):
+        """A QubitProcessorSpec whose gates are this model's operations, each
+        as the unitary of its (unitary) superoperator, on `qudit_labels`
+        (default 0..n-1: the port's models carry no state-space labels)."""
+        from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+        from pygsti_tpu_torch.tools.basistools import change_basis
+        from pygsti_tpu_torch.tools.optools import std_process_mx_to_unitary
+        nq = self.num_qubits
+        names, nonstd, avail = [], {}, {}
+        for lbl, op in self.operations.items():
+            name = lbl.name
+            if name in ('[]', '', 'COMPOUND'):
+                continue
+            nonstd[name] = std_process_mx_to_unitary(change_basis(op.dense(), self.basis, 'std'))
+            names.append(name)
+            if lbl.sslbls:
+                avail[name] = [tuple(lbl.sslbls)]
+        return QubitProcessorSpec(nq, names, nonstd_gate_unitaries=nonstd, availability=avail,
+                                  qubit_labels=qudit_labels)
+
     def errorgen_coefficients(self, normalized_elem_gens=True):
         """{member label: {GlobalElementaryErrorgenLabel: coefficient}} over
         the operations, preps and POVMs that carry an error generator, the

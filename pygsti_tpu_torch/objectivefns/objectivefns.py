@@ -1,9 +1,11 @@
 """Objective functions and their Jacobians, in torch (counterpart of
-pygsti_tpu/objectivefns/objectivefns.py: the chi2, Poisson-picture and
-plain logL raw functions, their switched forms, ObjectiveFunctionBuilder,
+pygsti_tpu/objectivefns/objectivefns.py: every raw objective of
+_RAW_CLASSES and RawAbsPower, the switched forms of chi2 and the
+Poisson-picture logL, ObjectiveFunctionBuilder,
 TimeIndependentMDCObjectiveFunction with the omitted-probability
 correction, the penalty rows, and the 'blocked' and forward-mode
-Jacobians; the standalone logl, two_delta_logl and chi2).
+Jacobians; the classes bound to one raw objective, TermWeighted and
+CachedObjectiveFunction; the standalone logl, two_delta_logl and chi2).
 
 The objective evaluates, on one device:
   fn(v)      -> objective value
@@ -35,6 +37,9 @@ DEFAULT_RADIUS = 1e-4
 DEFAULT_MIN_PROB_CLIP_FOR_WEIGHTING = 1e-4
 # bytes of one Jacobian block (the JAX package's default budget)
 JAC_BLOCK_BYTES = 256 * 1024 * 1024
+# parameter count from which the device LM loop solves by conjugate gradients
+# when no solver is named (the JAX package's default threshold)
+CG_MIN_PARAMS = 8192
 # bytes of one layer's op-tangent products dG s in one chunk of forward-mode
 # tangents, by device type: few large launches on the card; on the CPU
 # chunks that stay near its caches (a 2-qubit LM fit of 16 iterations took
@@ -150,12 +155,48 @@ def _logl_zero_freq_dterms(n, p, radius):
                            (-1.0 / radius ** 2) * p ** 2 + 2 * p / radius)
 
 
-class RawChi2Function(object):
+class RawObjectiveFunction(object):
+    """Base of the raw objectives: per-element terms of (p, c, t, f), with
+    lsvec = sqrt(terms) and its slope 0.5 dterms / lsvec (0 where lsvec
+    vanishes)."""
+
+    def lsvec(self, p, c, t, f):
+        return torch.sqrt(self.terms(p, c, t, f))
+
+    def dlsvec(self, p, c, t, f):
+        ls = self.lsvec(p, c, t, f)
+        return torch.where(ls < 1e-100, torch.zeros_like(ls),
+                           0.5 / torch.clamp(ls, min=1e-100)) * self.dterms(p, c, t, f)
+
+    def terms(self, p, c, t, f):
+        raise NotImplementedError()
+
+    def dterms(self, p, c, t, f):
+        raise NotImplementedError()
+
+    def fn(self, p, c, t, f):
+        return torch.sum(self.terms(p, c, t, f))
+
+    def zero_freq_terms(self, n, p):
+        """The terms of an outcome with no counts (also the omitted-outcome
+        correction of a sparse layout); ``zero_freq_dterms`` their slope."""
+        raise NotImplementedError("Derived classes must implement this!")
+
+    def zero_freq_dterms(self, n, p):
+        raise NotImplementedError("Derived classes must implement this!")
+
+    def chi2k_distributed_qty(self, objective_function_value):
+        return objective_function_value
+
+    def set_regularization(self, **kwargs):
+        pass
+
+
+class RawChi2Function(RawObjectiveFunction):
     """N(p-f)^2 / max(p, minp) with its signed square-root lsvec."""
 
-    name = 'chi2'
-
-    def __init__(self, regularization=None):
+    def __init__(self, regularization=None, name='chi2'):
+        self.name = name
         self.min_prob_clip_for_weighting = DEFAULT_MIN_PROB_CLIP_FOR_WEIGHTING
         if regularization:
             self.set_regularization(**regularization)
@@ -178,31 +219,55 @@ class RawChi2Function(object):
         return 2 * self.lsvec(p, c, t, f) * self.dlsvec(p, c, t, f)
 
     def zero_freq_terms(self, n, p):
-        """The terms of an outcome with no counts (also the omitted-outcome
-        correction of a sparse layout); ``zero_freq_dterms`` their slope."""
         return _chi2_zero_freq_terms(n, p, self.min_prob_clip_for_weighting)
 
     def zero_freq_dterms(self, n, p):
         return _chi2_zero_freq_dterms(n, p, self.min_prob_clip_for_weighting)
 
-    def chi2k_distributed_qty(self, objective_function_value):
-        return objective_function_value
+
+class RawFreqWeightedChi2Function(RawChi2Function):
+    """N(p-f)^2 / max(f, minf): the chi2 weighted by the frequencies, whose
+    weights do not depend on p."""
+
+    def __init__(self, regularization=None, name='fwchi2'):
+        self.name = name
+        self.min_freq_clip_for_weighting = 1e-4
+        if regularization:
+            self.set_regularization(**regularization)
+
+    def set_regularization(self, min_freq_clip_for_weighting=None):
+        if min_freq_clip_for_weighting is not None:
+            self.min_freq_clip_for_weighting = min_freq_clip_for_weighting
+
+    def lsvec(self, p, c, t, f):
+        return (p - f) * torch.sqrt(t / torch.clamp(f, min=self.min_freq_clip_for_weighting))
+
+    def dlsvec(self, p, c, t, f):
+        return torch.sqrt(t / torch.clamp(f, min=self.min_freq_clip_for_weighting))
+
+    def zero_freq_terms(self, n, p):
+        return n * p ** 2 / self.min_freq_clip_for_weighting
+
+    def zero_freq_dterms(self, n, p):
+        return 2 * n * p / self.min_freq_clip_for_weighting
 
 
-class RawPoissonPicDeltaLogLFunction(object):
+class RawPoissonPicDeltaLogLFunction(RawObjectiveFunction):
     """2*Delta(logL) in the Poisson picture, N*f*log(f/p) - N*(f-p), with the
     'minp' Taylor patch and the cubic zero-frequency terms."""
 
-    name = 'logl'
-
-    def __init__(self, regularization=None):
+    def __init__(self, regularization=None, name='dlogl'):
+        self.name = name
         self.min_p = DEFAULT_MIN_PROB_CLIP
         self.radius = DEFAULT_RADIUS
         if regularization:
             self.set_regularization(**regularization)
 
     def set_regularization(self, min_prob_clip=DEFAULT_MIN_PROB_CLIP,
-                           radius=DEFAULT_RADIUS):
+                           radius=DEFAULT_RADIUS, pfratio_stitchpt=None,
+                           pfratio_derivpt=None, fmin=None):
+        if pfratio_stitchpt is not None:
+            raise ValueError("only the 'minp' regularization is implemented")
         self.min_p = min_prob_clip
         self.radius = radius
 
@@ -228,14 +293,13 @@ class RawPoissonPicDeltaLogLFunction(object):
         return 2 * objective_function_value
 
 
-class RawDeltaLogLFunction(object):
+class RawDeltaLogLFunction(RawObjectiveFunction):
     """Delta logL outside the Poisson picture, N*f*log(f/p), with the 'minp'
     Taylor patch.  Its terms are legitimately negative where p > f, so fn
     and terms are not clamped; lsvec clamps inside the square root."""
 
-    name = 'dlogl-nonpoisson'
-
-    def __init__(self, regularization=None):
+    def __init__(self, regularization=None, name='dlogl-nonpoisson'):
+        self.name = name
         self.min_p = DEFAULT_MIN_PROB_CLIP
         if regularization:
             self.set_regularization(**regularization)
@@ -262,11 +326,6 @@ class RawDeltaLogLFunction(object):
         d = torch.where(p < minp, -c / minp + c / minp ** 2 * (p - minp), -c / pos)
         return torch.where(c == 0, torch.zeros_like(p), d)
 
-    def dlsvec(self, p, c, t, f):
-        ls = self.lsvec(p, c, t, f)
-        return torch.where(ls < 1e-100, torch.zeros_like(ls),
-                           0.5 / torch.clamp(ls, min=1e-100)) * self.dterms(p, c, t, f)
-
     def zero_freq_terms(self, n, p):
         return torch.zeros_like(p)
 
@@ -275,6 +334,147 @@ class RawDeltaLogLFunction(object):
 
     def chi2k_distributed_qty(self, objective_function_value):
         return 2 * objective_function_value
+
+
+class RawTVDFunction(RawObjectiveFunction):
+    """Total variation distance terms 0.5 N |p - f|."""
+
+    def __init__(self, regularization=None, name='tvd'):
+        self.name = name
+
+    def terms(self, p, c, t, f):
+        return 0.5 * t * torch.abs(p - f)
+
+    def dterms(self, p, c, t, f):
+        return 0.5 * t * torch.sign(p - f)
+
+    def zero_freq_terms(self, n, p):
+        return 0.5 * torch.abs(p)
+
+    def zero_freq_dterms(self, n, p):
+        return 0.5 * torch.sign(p)
+
+
+class RawChiAlphaFunction(RawObjectiveFunction):
+    """N [x + 1/(alpha x^alpha) - (1 + 1/alpha)] with x = p/f, between logL
+    (alpha -> 0) and chi2 (alpha = 1).  Below the stitch point x0 the terms
+    follow their Taylor expansion about x1; zero-count terms use the cubic
+    patch of `radius` or, with `fmin`, a quadratic one."""
+
+    def __init__(self, regularization=None, name='chialpha', alpha=1):
+        self.name = name
+        self.alpha = alpha
+        self.x0 = 0.01
+        self.x1 = 0.01
+        self.radius = 1e-4
+        self.fmin = None
+        if regularization:
+            self.set_regularization(**regularization)
+
+    def set_regularization(self, pfratio_stitchpt=0.01, pfratio_derivpt=0.01, radius=None,
+                           fmin=None):
+        self.x0 = pfratio_stitchpt
+        self.x1 = pfratio_derivpt
+        self.radius = 1e-4 if radius is None and fmin is None else radius
+        self.fmin = fmin
+
+    def _fmin_c1(self):
+        return (0.5 / self.fmin) * (1. + self.alpha) / (self.x1 ** (2 + self.alpha))
+
+    def zero_freq_terms(self, n, p):
+        if self.radius is not None:
+            return _logl_zero_freq_terms(n, p, self.radius)
+        c1 = self._fmin_c1()
+        return n * torch.where(p > 1.0 / c1, p, c1 * p ** 2)
+
+    def zero_freq_dterms(self, n, p):
+        if self.radius is not None:
+            return _logl_zero_freq_dterms(n, p, self.radius)
+        c1 = self._fmin_c1()
+        return n * torch.where(p > 1.0 / c1, torch.ones_like(p), 2 * c1 * p)
+
+    def terms(self, p, c, t, f):
+        alpha, x0 = self.alpha, self.x0
+        x = p / torch.where(c == 0, torch.ones_like(f), f)
+        itaylor = x < x0
+        c0 = 1. - 1. / (self.x1 ** (1 + alpha))
+        c1 = 0.5 * (1. + alpha) / self.x1 ** (2 + alpha)
+        xt = torch.where(itaylor, torch.full_like(x, x0), x)
+        terms = c * (xt + 1.0 / (alpha * xt ** alpha) - (1.0 + 1.0 / alpha))
+        terms = torch.where(itaylor, terms + c0 * c * (x - x0) + c1 * c * (x - x0) ** 2, terms)
+        return torch.where(c == 0, self.zero_freq_terms(t, p), terms)
+
+    def dterms(self, p, c, t, f):
+        alpha, x0 = self.alpha, self.x0
+        x = p / torch.where(c == 0, torch.ones_like(f), f)
+        c0 = 1. - 1. / (self.x1 ** (1 + alpha))
+        c1 = 0.5 * (1. + alpha) / self.x1 ** (2 + alpha)
+        x_safe = torch.where(x <= 0, torch.full_like(x, x0), x)
+        d = torch.where(x < x0, t * (c0 + 2 * c1 * (x - x0)),
+                        t * (1 - 1. / x_safe ** (1. + alpha)))
+        return torch.where(c == 0, self.zero_freq_dterms(t, p), d)
+
+
+class RawCustomWeightedChi2Function(RawObjectiveFunction):
+    """w^2 (p - f)^2 with per-element weights w (default 1)."""
+
+    def __init__(self, regularization=None, name='cwchi2', custom_weights=None):
+        self.name = name
+        self.custom_weights = custom_weights
+
+    def _w(self, p):
+        if self.custom_weights is None:
+            return torch.ones_like(p)
+        return torch.as_tensor(self.custom_weights, dtype=p.dtype, device=p.device)
+
+    def lsvec(self, p, c, t, f):
+        return self._w(p) * (p - f)
+
+    def dlsvec(self, p, c, t, f):
+        return self._w(p)
+
+    def terms(self, p, c, t, f):
+        return self.lsvec(p, c, t, f) ** 2
+
+    def dterms(self, p, c, t, f):
+        w = self._w(p)
+        return 2 * w * w * (p - f)
+
+
+class RawMaxLogLFunction(RawObjectiveFunction):
+    """N f log(f) (less N f in the Poisson picture): the terms of the
+    largest log-likelihood any model could reach, independent of p."""
+
+    def __init__(self, regularization=None, name='maxlogl', poisson_picture=True):
+        self.name = name
+        self.poisson_picture = poisson_picture
+
+    def terms(self, p, c, t, f):
+        logf = torch.log(torch.where(c == 0, torch.ones_like(f), f))
+        return c * (logf - 1.0) if self.poisson_picture else c * logf
+
+    def dterms(self, p, c, t, f):
+        return torch.zeros_like(p)
+
+
+class RawAbsPower(RawObjectiveFunction):
+    """|p - f|^power elementwise (power >= 1)."""
+
+    def __init__(self, power, regularization=None, name='Lp^p'):
+        if not power >= 1:
+            raise ValueError("power must be at least 1")
+        self.name = name
+        self.power = power
+
+    def chi2k_distributed_qty(self, objective_function_value):
+        return -1
+
+    def terms(self, p, c, t, f):
+        return torch.abs(p - f) ** self.power
+
+    def dterms(self, p, c, t, f):
+        d = p - f
+        return self.power * torch.sign(d) * torch.abs(d) ** (self.power - 1)
 
 
 class _SwitchedRaw(object):
@@ -337,31 +537,50 @@ def _switch_config(raw):
     return _PassthroughRaw(raw), 0, (1e-4, 1e-4, 1e-4)
 
 
-_RAW_CLASSES = {'chi2': RawChi2Function, 'logl': RawPoissonPicDeltaLogLFunction,
-                'dlogl': RawPoissonPicDeltaLogLFunction}
+_RAW_CLASSES = {
+    'chi2': RawChi2Function,
+    'fwchi2': RawFreqWeightedChi2Function,
+    'freq-weighted-chi2': RawFreqWeightedChi2Function,
+    'logl': RawPoissonPicDeltaLogLFunction,
+    'dlogl': RawPoissonPicDeltaLogLFunction,
+    'dlogl-nonpoisson': RawDeltaLogLFunction,
+    'tvd': RawTVDFunction,
+    'chialpha': RawChiAlphaFunction,
+    'cwchi2': RawCustomWeightedChi2Function,
+    'maxlogl': RawMaxLogLFunction,
+}
 _PENALTY_KEYS = ('cptp_penalty_factor', 'spam_penalty_factor', 'regularize_factor')
 JAC_MODES = ('blocked', 'linearize', 'fwd')
 
 
 class ObjectiveFunctionBuilder(object):
-    """Recipe for building an MDC objective: 'chi2' or 'logl', with optional
-    `penalties` (cptp_penalty_factor, spam_penalty_factor,
-    regularize_factor) and `jac_mode` (None for the JAX package's rule, or
-    one of JAC_MODES)."""
+    """Recipe for building an MDC objective: a raw objective named in
+    _RAW_CLASSES with its `regularization`, optional `penalties`
+    (cptp_penalty_factor, spam_penalty_factor, regularize_factor) and
+    `jac_mode` (None for the JAX package's rule, or one of JAC_MODES)."""
 
     @classmethod
     def cast(cls, obj):
         if isinstance(obj, cls):
             return obj
         if obj is None:
-            return cls('logl')
+            return cls.create_from('logl')
         if isinstance(obj, str):
-            return cls(obj)
+            return cls.create_from(obj)
         if isinstance(obj, dict):
-            return cls(**obj)
+            return cls.create_from(**obj)
         raise ValueError("Cannot cast %r to ObjectiveFunctionBuilder" % (obj,))
 
-    def __init__(self, name='logl', regularization=None, penalties=None, jac_mode=None):
+    @classmethod
+    def create_from(cls, objective='logl', freq_weighted_chi2=False, **kwargs):
+        """The builder of `objective`; 'chi2' with freq_weighted_chi2 is
+        the frequency-weighted chi2, 'fwchi2'."""
+        if objective == 'chi2' and freq_weighted_chi2:
+            objective = 'fwchi2'
+        return cls(objective, **kwargs)
+
+    def __init__(self, name='logl', description=None, regularization=None, penalties=None,
+                 jac_mode=None):
         if name not in _RAW_CLASSES:
             raise ValueError("unsupported objective %r (the port has %s)"
                              % (name, sorted(_RAW_CLASSES)))
@@ -369,6 +588,7 @@ class ObjectiveFunctionBuilder(object):
         if unknown:
             raise ValueError("unknown penalties %s (the port has %s)" % (unknown, _PENALTY_KEYS))
         self.name = name
+        self.description = description
         self.regularization = regularization or {}
         self.penalties = dict(penalties or {})
         self.jac_mode = jac_mode
@@ -452,7 +672,9 @@ class TimeIndependentMDCObjectiveFunction(object):
     def fn(self, paramvec=None):
         return float(self._fns['fn'](self._v(paramvec), *self._args()))
 
-    def lsvec(self, paramvec=None):
+    def lsvec(self, paramvec=None, oob_check=False):
+        """The residual vector.  No point of a dense objective is out of
+        bounds, so `oob_check` never raises here, as in the JAX package."""
         return self._fns['lsvec'](self._v(paramvec), *self._args()).cpu().numpy()
 
     def dlsvec(self, paramvec=None):
@@ -491,25 +713,35 @@ class TimeIndependentMDCObjectiveFunction(object):
             terms[firsts] += zf
         return np.array([np.sum(terms[sl]) for sl in lay.element_slices])
 
-    def run_device_lm(self, x0, maxiter=100, tol=None, linesearch=None):
+    # The out-of-bounds predicate (v -> bool tensor) of the device loop, or
+    # None: no point of the dense objective is out of bounds.
+    device_oob_fn = None
+
+    def run_device_lm(self, x0, maxiter=100, tol=None, linesearch=None, oob_check_interval=0,
+                      solver=None):
         """The Levenberg-Marquardt loop with every state tensor on the
-        objective's device.  Returns (x, converged, msg, mu, nu, norm_f, f,
-        iterations)."""
+        objective's device.  `solver` is 'cholesky' or 'cg'; None takes
+        'cg' from 8,192 parameters up, the JAX package's rule.  Returns (x,
+        converged, msg, mu, nu, norm_f, f, iterations)."""
         from pygsti_tpu_torch.optimize.device_lm import make_device_lm, EXIT_MESSAGES
         tol = tol or {}
         linesearch = linesearch or {}
+        if solver is None:
+            solver = 'cg' if len(x0) >= CG_MIN_PARAMS else 'cholesky'
         args = self._args()
+        oob = self.device_oob_fn
         lm_init, lm_run, lm_finalize = make_device_lm(
             lambda x: self._fns['jtj_jtf'](x, *args),
             lambda x: self._fns['lsvec'](x, *args),
             ls_beta=linesearch.get('beta', 0.25),
             ls_max_evals=linesearch.get('max_evals', 6),
-            ls_kappa=linesearch.get('kappa', 1.0))
+            ls_kappa=linesearch.get('kappa', 1.0),
+            oob_fn=None if oob is None else (lambda x: oob(x, *args)), solver=solver)
         maxdx = tol.get('maxdx', 1.0)
         tols = (tol.get('f', 1.0), tol.get('jac', 1e-6), tol.get('relf', 1e-6),
                 tol.get('relx', 1e-8),
                 (maxdx ** 2) * len(x0) if maxdx else float('inf'))
-        state = lm_run(lm_init(self._v(x0)), maxiter, tols)
+        state = lm_run(lm_init(self._v(x0), oob_interval=oob_check_interval), maxiter, tols)
         x, f, norm_f, mu, nu, code, k = lm_finalize(state, maxiter)
         return (x, code in (1, 2, 3, 4, 5), EXIT_MESSAGES.get(code, "exit code %d" % code),
                 mu, nu, norm_f, f, k)
@@ -575,6 +807,140 @@ def chi2(model, dataset, circuits=None, min_prob_clip_for_weighting=1e-4, device
     raw = RawChi2Function({'min_prob_clip_for_weighting': min_prob_clip_for_weighting})
     return TimeIndependentMDCObjectiveFunction(raw, model, dataset, circuits,
                                                device=device).fn()
+
+
+class CachedObjectiveFunction(object):
+    """A serializable record of an objective's values at the model's point:
+    fn, its chi2-distributed form, |lsvec|^2, the per-circuit sums of the
+    squared residuals, the circuits and the parameter vector."""
+
+    collection_name = "pygsti_cached_objective_fns"
+
+    def __init__(self, objective_function):
+        objfn = objective_function
+        self.name = getattr(objfn, 'name', 'objfn')
+        self.description = getattr(objfn, 'description', None)
+        self.circuits = list(objfn.circuits)
+        self.model_paramvec = np.array(objfn.model.to_vector())
+        self.fn = float(objfn.fn())
+        ls = objfn.lsvec()
+        self.chi2k_distributed_fn = float(objfn.chi2k_distributed_qty(self.fn))
+        self.num_elements = len(ls)
+        self.lsvec_norm2 = float(np.dot(ls, ls))
+        terms = np.asarray(ls) ** 2
+        self.percircuit = np.array([float(np.sum(terms[objfn.layout.element_slices[i]]))
+                                    for i in range(len(self.circuits))])
+        self.chi2k_distributed_percircuit = np.array(
+            [objfn.chi2k_distributed_qty(x) for x in self.percircuit])
+
+    def write(self, dirname):
+        """Write ``cached_objfn.json`` into `dirname` (made if missing)."""
+        import json
+        import pathlib
+        path = pathlib.Path(dirname)
+        path.mkdir(parents=True, exist_ok=True)
+        with open(path / 'cached_objfn.json', 'w') as f:
+            json.dump({'name': self.name, 'fn': self.fn,
+                       'chi2k_distributed_fn': self.chi2k_distributed_fn,
+                       'num_elements': self.num_elements, 'lsvec_norm2': self.lsvec_norm2,
+                       'circuits': [c.str for c in self.circuits],
+                       'model_paramvec': self.model_paramvec.tolist(),
+                       'percircuit': self.percircuit.tolist()}, f)
+
+    @classmethod
+    def from_dir(cls, dirname, quick_load=False):
+        """Read what `write` wrote (either package's)."""
+        import json
+        import pathlib
+        from pygsti_tpu_torch.circuits.circuit import Circuit
+        with open(pathlib.Path(dirname) / 'cached_objfn.json') as f:
+            state = json.load(f)
+        obj = cls.__new__(cls)
+        obj.name, obj.description = state['name'], None
+        obj.fn = state['fn']
+        obj.chi2k_distributed_fn = state['chi2k_distributed_fn']
+        obj.num_elements = state['num_elements']
+        obj.lsvec_norm2 = state['lsvec_norm2']
+        obj.circuits = [Circuit(s) for s in state['circuits']]
+        obj.model_paramvec = np.array(state['model_paramvec'])
+        obj.percircuit = np.array(state['percircuit'])
+        obj.chi2k_distributed_percircuit = obj.percircuit.copy()
+        return obj
+
+
+# -- the objective classes under their reference names: each binds a raw
+#    objective to TimeIndependentMDCObjectiveFunction ---------------------------
+ObjectiveFunction = RawObjectiveFunction
+MDCObjectiveFunction = TimeIndependentMDCObjectiveFunction
+LpNormToPowerP = RawAbsPower
+
+
+def _bound_objective(raw_cls, default_name):
+    class _Bound(TimeIndependentMDCObjectiveFunction):
+        def __init__(self, model, dataset, circuits, regularization=None, penalties=None,
+                     name=None, **kwargs):
+            super().__init__(raw_cls(regularization), model, dataset, circuits,
+                             penalties=penalties, name=name or default_name, **kwargs)
+
+        @classmethod
+        def create_from(cls, model, dataset, circuits, regularization=None, penalties=None,
+                        **kwargs):
+            return cls(model, dataset, circuits, regularization, penalties, **kwargs)
+
+    return _Bound
+
+
+class Chi2Function(_bound_objective(RawChi2Function, 'chi2')):
+    """The chi2 objective."""
+
+
+class FreqWeightedChi2Function(_bound_objective(RawFreqWeightedChi2Function, 'fwchi2')):
+    """The frequency-weighted chi2 objective."""
+
+
+class ChiAlphaFunction(_bound_objective(RawChiAlphaFunction, 'chialpha')):
+    """The chi-alpha objective."""
+
+
+class CustomWeightedChi2Function(_bound_objective(RawCustomWeightedChi2Function, 'cwchi2')):
+    """The custom-weighted chi2 objective."""
+
+
+class PoissonPicDeltaLogLFunction(_bound_objective(RawPoissonPicDeltaLogLFunction, 'dlogl')):
+    """The Poisson-picture Delta logL objective."""
+
+
+class DeltaLogLFunction(_bound_objective(RawDeltaLogLFunction, 'dlogl-nonpoisson')):
+    """The Delta logL objective outside the Poisson picture."""
+
+
+class MaxLogLFunction(_bound_objective(RawMaxLogLFunction, 'maxlogl')):
+    """The terms of the largest log-likelihood any model could reach."""
+
+
+class TVDFunction(_bound_objective(RawTVDFunction, 'tvd')):
+    """The total-variation-distance objective."""
+
+
+class TermWeighted(TimeIndependentMDCObjectiveFunction):
+    """An objective whose per-element terms are scaled by the constant
+    weights ``terms_weights`` (ones at first): fn = sum_i w_i terms_i and
+    lsvec = sqrt(w terms); jtj_jtf is the unweighted objective's."""
+
+    def __init__(self, raw_objfn, model, dataset, circuits, penalties=None, name=None,
+                 **kwargs):
+        super().__init__(raw_objfn, model, dataset, circuits, penalties=penalties, name=name,
+                         **kwargs)
+        self.terms_weights = np.ones(self.layout.num_elements)
+
+    def terms(self, paramvec=None):
+        return self.terms_weights * super().terms(paramvec)
+
+    def fn(self, paramvec=None):
+        return float(np.sum(self.terms(paramvec)))
+
+    def lsvec(self, paramvec=None):
+        return np.sqrt(np.clip(self.terms(paramvec), 0.0, None))
 
 
 # -- CPTP / SPAM penalty pieces -------------------------------------------------

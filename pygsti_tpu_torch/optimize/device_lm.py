@@ -7,8 +7,19 @@ schedule with gain-ratio factor 1-(2 dF/dL-1)^3, a guarded backtracking line
 search folded into one residual evaluation per inner iteration, and the same
 convergence tests.  Every state tensor stays on the device; the host reads a
 scalar only where a loop decides whether (and how) to go on: the outer exit
-code, and the inner loop's (phase, done) pair.  The out-of-bounds protocol
-and the conjugate-gradient solver are not ported.
+code, the inner loop's (phase, done) pair, and every 16 steps of the
+conjugate-gradient solver.
+
+The damped system is solved by Cholesky or ('cg') by Jacobi-preconditioned
+conjugate gradients.  Out-of-bounds protocol (oob_action "reject",
+oob_check_mode 0 of the host loop): with ``oob_interval`` > 0, every
+``oob_interval``-th iteration checks its candidate against
+``oob_fn(x) -> bool`` (True = out of bounds) and rejects it with the
+damping update; the best point is recorded only where known in bounds; and
+a convergence exit reached while ``oob_interval`` > 1 goes back to the best
+point with the interval set to 1 instead of ending.  With ``oob_fn=None``
+no point is out of bounds, so intervals 0 and 1 give the same iterates bit
+for bit.
 
 Exit codes: 0 = running, 1 = f_norm2_tol, 2 = jac_norm_tol, 3 = rel_xtol,
 4 = rel_ftol, 5 = max_iter, 6 = nu overflow, 7 = singular, 8 = non-finite.
@@ -31,7 +42,10 @@ class _LMState(NamedTuple):
     best_x: Any
     best_norm_f: Any
     best_f: Any
+    best_mu: Any
+    best_nu: Any
     exit_code: Any
+    oob_interval: int
 
 
 def _solve_damped(JTJ, jtj_diag, mu, minus_JTf):
@@ -44,22 +58,66 @@ def _solve_damped(JTJ, jtj_diag, mu, minus_JTf):
     return torch.where(info == 0, dx, torch.full_like(dx, float('nan')))
 
 
+def _solve_damped_cg(JTJ, jtj_diag, mu, minus_JTf, maxiter=250, tol=1e-12, check_every=16):
+    """Solve (JTJ + mu*I) dx = -JTf by conjugate gradients preconditioned
+    with the inverse diagonal, from dx = 0, until |r|^2 <= tol^2 |b|^2 or
+    `maxiter` steps: the JAX package's jax.scipy.sparse.linalg.cg.  A step
+    past convergence leaves the iterate unchanged, so reading the test only
+    every `check_every` steps gives the same dx."""
+    diag = jtj_diag + mu
+    shift = diag - jtj_diag
+    inv_diag = 1.0 / torch.clamp(diag, min=1e-300)
+
+    def matvec(v):
+        return JTJ @ v + shift * v
+
+    b = minus_JTf
+    atol2 = tol ** 2 * torch.dot(b, b)
+    x = torch.zeros_like(b)
+    r = b.clone()
+    z = inv_diag * r
+    p = z
+    gamma = torch.dot(r, z)
+    for k in range(maxiter):
+        active = torch.dot(r, r) > atol2
+        if k % check_every == 0 and not bool(active):
+            break
+        Ap = matvec(p)
+        alpha = gamma / torch.dot(p, Ap)
+        x = torch.where(active, x + alpha * p, x)
+        r_new = r - alpha * Ap
+        z = inv_diag * r_new
+        gamma_new = torch.dot(r_new, z)
+        p = torch.where(active, z + (gamma_new / gamma) * p, p)
+        r = torch.where(active, r_new, r)
+        gamma = torch.where(active, gamma_new, gamma)
+    return x
+
+
+SOLVERS = {'cholesky': _solve_damped, 'cg': _solve_damped_cg}
+
+
 def make_device_lm(jtj_jtf_fn, lsvec_fn, ls_beta=0.25, ls_max_evals=6,
-                   ls_kappa=1.0, max_inner=16):
-    """Build the LM driver from jtj_jtf_fn(x) -> (f, JTJ, JTf) and
-    lsvec_fn(x) -> f.  Returns (lm_init, lm_run, lm_finalize); lm_run takes
-    the iteration cap and tols = (f_norm2_tol, jac_norm_tol, rel_ftol,
-    rel_xtol, max_norm_dx)."""
+                   ls_kappa=1.0, max_inner=16, oob_fn=None, solver='cholesky'):
+    """Build the LM loop from jtj_jtf_fn(x) -> (f, JTJ, JTf),
+    lsvec_fn(x) -> f and, optionally, oob_fn(x) -> bool tensor (True = out
+    of bounds).  Returns (lm_init, lm_run, lm_finalize); lm_init takes the
+    out-of-bounds check interval, lm_run the iteration cap and tols =
+    (f_norm2_tol, jac_norm_tol, rel_ftol, rel_xtol, max_norm_dx)."""
     tau = 1e-3
     half_max_nu = 2.0 ** 62
     max_evals = 3 * max_inner
+    if solver not in SOLVERS:
+        raise ValueError("unknown solver %r (the port has %s)" % (solver, sorted(SOLVERS)))
+    solve_damped = SOLVERS[solver]
 
-    def lm_init(x0):
+    def lm_init(x0, oob_interval=0):
         f0 = lsvec_fn(x0)
         norm_f0 = torch.dot(f0, f0)
         one = torch.ones((), dtype=x0.dtype, device=x0.device)
-        return _LMState(0, x0, f0, norm_f0, one, 2 * one, x0, norm_f0, f0,
-                        torch.zeros((), dtype=torch.int64, device=x0.device))
+        return _LMState(0, x0, f0, norm_f0, one, 2 * one, x0, norm_f0, f0, one, 2 * one,
+                        torch.zeros((), dtype=torch.int64, device=x0.device),
+                        int(oob_interval))
 
     def iteration(st, tols):
         f_norm2_tol, jac_norm_tol, rel_ftol, rel_xtol, max_norm_dx = tols
@@ -76,6 +134,8 @@ def make_device_lm(jtj_jtf_fn, lsvec_fn, ls_beta=0.25, ls_max_evals=6,
 
         mu = tau * jtj_diag.max() if st.k == 0 else st.mu
         nu = 2 * one_t if st.k == 0 else st.nu
+        interval = st.oob_interval
+        do_oob_k = oob_fn is not None and interval > 0 and st.k % interval == 0
         accepted = ~true_t
         bx, bf, bnf = x, f, norm_f
         code = torch.zeros((), dtype=torch.int64, device=x.device)
@@ -88,7 +148,7 @@ def make_device_lm(jtj_jtf_fn, lsvec_fn, ls_beta=0.25, ls_max_evals=6,
 
         for _ in range(max_evals):
             if phase == 0:   # a new damped solve, full step
-                dx = _solve_damped(JTJ, jtj_diag, mu, minus_JTf)
+                dx = solve_damped(JTJ, jtj_diag, mu, minus_JTf)
                 solve_ok = torch.isfinite(dx).all()
                 norm_dx = torch.dot(dx, dx)
                 clip = norm_dx > max_norm_dx
@@ -130,6 +190,9 @@ def make_device_lm(jtj_jtf_fn, lsvec_fn, ls_beta=0.25, ls_max_evals=6,
                 & (dF / norm_f < rel_ftol) & (dF / torch.clamp(dL, min=1e-300) < 2.0)
             accept = solve_ok & torch.isfinite(att_norm) & (dL > 0) & (dF > 0) \
                 & ~xtol_conv & ~ftol_conv
+            if do_oob_k:
+                # the candidate out of bounds is rejected (oob_action "reject")
+                accept = accept & ~oob_fn(new_x)
 
             t_gain = 1.0 - (2 * dF / torch.clamp(dL, min=1e-300) - 1.0) ** 3
             mu_factor = torch.where(norm_dx2 > 1e-8,
@@ -176,12 +239,24 @@ def make_device_lm(jtj_jtf_fn, lsvec_fn, ls_beta=0.25, ls_max_evals=6,
         f1 = torch.where(accepted, bf, f)
         norm_f1 = torch.where(accepted, bnf, norm_f)
         improved = accepted & (norm_f1 < st.best_norm_f)
+        if oob_fn is not None and interval > 0 and not do_oob_k:
+            # the best point is one known in bounds
+            improved = improved & ~oob_fn(x1)
+        best_x = torch.where(improved, x1, st.best_x)
+        best_norm_f = torch.where(improved, norm_f1, st.best_norm_f)
+        best_f = torch.where(improved, f1, st.best_f)
+        best_mu = torch.where(improved, mu, st.best_mu)
+        best_nu = torch.where(improved, nu, st.best_nu)
         exit_code = torch.where(norm_f < f_norm2_tol, 1, torch.where(
             norm_JTf < jac_norm_tol, 2, torch.where(~finite_jtj, 8, code)))
-        return _LMState(st.k + 1, x1, f1, norm_f1, mu, nu,
-                        torch.where(improved, x1, st.best_x),
-                        torch.where(improved, norm_f1, st.best_norm_f),
-                        torch.where(improved, f1, st.best_f), exit_code)
+        if interval > 1 and 1 <= int(exit_code) <= 4:
+            # a convergence exit with unchecked iterates: back to the best
+            # point known in bounds, checking every iteration from now on
+            return _LMState(st.k + 1, best_x, best_f, best_norm_f, best_mu, best_nu,
+                            best_x, best_norm_f, best_f, best_mu, best_nu,
+                            torch.zeros_like(exit_code), 1)
+        return _LMState(st.k + 1, x1, f1, norm_f1, mu, nu, best_x, best_norm_f, best_f,
+                        best_mu, best_nu, exit_code, interval)
 
     def lm_run(state, max_iter, tols):
         """Iterate until an exit code is set or `max_iter` iterations."""

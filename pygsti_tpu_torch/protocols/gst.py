@@ -276,10 +276,8 @@ class GSTObjFnBuilders(NicelySerializable):
     @classmethod
     def create_from(cls, objective='logl', freq_weighted_chi2=False,
                     always_perform_mle=False, only_perform_mle=False):
-        if freq_weighted_chi2:
-            raise NotImplementedError("the frequency-weighted chi2 is not ported yet")
-        chi2_builder = ObjectiveFunctionBuilder('chi2')
-        mle_builder = ObjectiveFunctionBuilder('logl')
+        chi2_builder = ObjectiveFunctionBuilder.create_from('chi2', freq_weighted_chi2)
+        mle_builder = ObjectiveFunctionBuilder.create_from('logl')
         if objective == "chi2":
             return cls([chi2_builder], [])
         elif objective == "logl":

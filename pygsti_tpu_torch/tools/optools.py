@@ -53,3 +53,25 @@ def kraus_decomposition(superop, mx_basis='pp', tol=1e-9):
     evals, evecs = np.linalg.eigh((choi + choi.conj().T) / 2)
     return [evecs[:, i].reshape(d, d) * np.sqrt(d * evals[i])
             for i in range(d2 - 1, -1, -1) if evals[i] > tol]
+
+
+def decompose_gate_matrix(op_mx):
+    """A gate matrix's eigenvalues, whether it is unitary, its rotation
+    angle in units of pi (the largest eigenvalue phase), the mean decay of
+    its eigenvalues and, for one qubit, the axis of rotation [0, nx, ny, nz]
+    (the +1 eigenvector of its unital block)."""
+    m = np.asarray(op_mx)
+    evals = np.linalg.eigvals(m)
+    mags = np.abs(evals)
+    out = {'isValid': True, 'eigenvalues': evals,
+           'isUnitary': bool(np.allclose(mags, 1.0, atol=1e-6)),
+           'pi rotations': float(np.max(np.abs(np.angle(evals))) / np.pi),
+           'decay of diagonal rotation terms': float(1.0 - np.mean(mags))}
+    if m.shape[0] == 4:
+        evals_r, evecs_r = np.linalg.eig(np.real(m[1:, 1:]))
+        axis = np.real(evecs_r[:, int(np.argmin(np.abs(evals_r - 1.0)))])
+        nrm = np.linalg.norm(axis)
+        if nrm > 1e-12:
+            axis = axis / nrm
+        out['axis of rotation'] = np.concatenate([[0.0], axis])
+    return out

@@ -37,6 +37,12 @@ CASES = [
     # the 2-qubit fit with a two-member instrument: K1 = 6 ops + 2 members +
     # identity
     (300, 70, 9, 16, 4, 'random'), (37, 18, 9, 16, 4, 'random'),
+    # the qutrit fit's four depth buckets ((10752, 19), (4544, 35), (3328, 66),
+    # (1472, 69); d 9, NOUT 3, K1 = 4 ops + identity) cut in B, and its
+    # deepest at a ragged B
+    (168, 19, 5, 9, 3, 'random'), (71, 35, 5, 9, 3, 'random'),
+    (52, 66, 5, 9, 3, 'random'), (23, 69, 5, 9, 3, 'random'),
+    (101, 69, 5, 9, 3, 'out_of_range'),
 ]
 
 

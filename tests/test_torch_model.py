@@ -130,9 +130,17 @@ def test_port_imports_no_jax(tmp_path):
             "names = [m.name for m in pkgutil.walk_packages(pygsti_tpu_torch.__path__,\n"
             "                                                'pygsti_tpu_torch.')]\n"
             "for name in names: importlib.import_module(name)\n"
-            "assert 'pygsti_tpu_torch.protocols.gst' in names and len(names) > 48, names\n"
+            "assert 'pygsti_tpu_torch.protocols.gst' in names and len(names) > 80, names\n"
             "for new in ('tools.lindbladtools', 'tools.jamiolkowski', 'baseobjs.errorgenlabel',\n"
-            "            'modelmembers.instruments'):\n"
+            "            'modelmembers.instruments', 'modelpacks.legacy.std1Q_XYI',\n"
+            "            'modelpacks.legacy.std2Q_XYZICNOT', 'modelpacks.legacy.std1Q_Cliffords',\n"
+            "            'modelpacks.legacy.stdQT_XYIMS', 'models.qutrit', 'baseobjs.qubitgraph',\n"
+            "            'processors.processorspec', 'processors.compilationrules',\n"
+            "            'algorithms.robust_phase_estimation', 'protocols.rpe',\n"
+            "            'modelpacks.smq1Q_Xpi2_rpe', 'modelpacks.smq1Q_Ypi2_rpe',\n"
+            "            'extras.rpe.rpeconfig', 'extras.rpe.rpeconfig_gxpi2_gypi2_00',\n"
+            "            'extras.rpe.rpeconstruction', 'extras.rpe.rpetools',\n"
+            "            'optimize.customlm', 'optimize.simplerlm'):\n"
             "    assert 'pygsti_tpu_torch.' + new in names, new\n"
             "from pygsti_tpu_torch.protocols.gst import GateSetTomographyCheckpoint\n"
             "ck = GateSetTomographyCheckpoint.read(%r)\n"

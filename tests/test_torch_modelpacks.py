@@ -33,8 +33,8 @@ def same_lists(jlists, tlists):
 
 
 def test_every_gst_pack_of_the_jax_package_is_ported():
-    """Every smq pack of the JAX package but the two RPE packs (which need
-    protocols/rpe.py) is in the list above."""
+    """Every smq pack of the JAX package but the two RPE packs (held in
+    tests/test_torch_rpe.py) is in the list above."""
     import os
     import pygsti_tpu.modelpacks as jpk
     names = sorted(f[:-3] for f in os.listdir(os.path.dirname(jpk.__file__))

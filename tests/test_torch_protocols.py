@@ -453,8 +453,9 @@ def test_objfn_builders_and_options():
             == shape == ([x.name for x in jb.iteration_builders],
                          [x.name for x in jb.final_builders])
     assert tgst.GSTObjFnBuilders.cast((['chi2'], ['logl'])).final_builders == ['logl']
-    with pytest.raises(NotImplementedError):
-        tgst.GSTObjFnBuilders.create_from(freq_weighted_chi2=True)
+    fw, jfw = (m.GSTObjFnBuilders.create_from(freq_weighted_chi2=True) for m in (tgst, jgst))
+    assert [x.name for x in fw.iteration_builders] == [x.name for x in jfw.iteration_builders] \
+        == ['fwchi2']
     with pytest.raises(ValueError, match="Invalid objective"):
         tgst.GSTObjFnBuilders.create_from('tvd')
     opts = tgst.GSTBadFitOptions.cast({'threshold': 3.0, 'actions': ['wildcard']})
