@@ -74,6 +74,19 @@ Phases, each fatal on failure:
                 with the CG and the Cholesky solve; every other raw
                 objective on the card against the CPU; an out-of-bounds
                 interval without a predicate, bit for bit
+ 15. cloud5  -- the JAX package's 5-qubit cloud-noise cell (bench.py
+                bench[q5]: maxhops 1, 594 parameters, d 1,024) at 40 circuits
+                of its recipe and at 1,000 four times deeper: bulk
+                probabilities cold and warm, against the CPU path and a
+                numpy product of Kronecker-embedded leaves, data without
+                zero counts, the sparse layout, ModelTest
+ 16. cloudfit -- create_cloudnoise_circuits for 2 qubits on the card, a
+                cloud-noise fit from zero (chi2, then logL) on 1000 shots of
+                a truth with an idle H_X of 0.03: the kernel at this
+                layout's bucket shapes (K1 11, three parallel layers), Tv
+                against jacfwd, the planted rate, its own launch count
+ 17. statevec -- phase 15's circuits on a 5-qubit model of static unitaries:
+                state vectors against superoperators on the card
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -704,7 +717,10 @@ def hold_kernel_at_buckets(layout, model, device, prefix):
                                                    bwd_jacobian_accumulate_plain)
     n_out, d = layout.num_elements // layout.num_rows, model.dim
     K1 = len(model.op_keys) + 1
-    n_composite = len(model.op_keys) - len(model.operations)
+    # an explicit model's composite slots follow its operations; an implicit
+    # model's layers are all slots alike
+    n_composite = len(model.op_keys) - len(model.operations) \
+        if hasattr(model, 'operations') else 0
     NT = (K1 - 1) * d * d + d + n_out * d
     buckets, _ = bucket_plan(layout, n_out, NT, device)
     gen = torch.Generator(device='cpu').manual_seed(99)
@@ -1141,6 +1157,272 @@ def phase_objectives(target, lists, ds, est3, fit_value, device):
     return launches
 
 
+CLOUD_GATES = ['Gxpi2', 'Gypi2', 'Gcnot']
+CLOUD_FIDS = [(), ('Gxpi2',), ('Gypi2',), ('Gxpi2', 'Gxpi2')]
+CLOUD_MAXL = 64
+# phase 15's two sizes: (circuits, one-qubit layers per circuit)
+CLOUD5_SIZES = ((40, 6), (1000, 24))
+
+
+def bench_q5_circuits(n, n1q, seed=2026):
+    """bench.py's 5-qubit recipe: n circuits of n1q one-qubit layers on
+    random qubits, a CNOT on a random neighbouring pair after every second
+    one, on lines (0,1,2,3,4); drawn from RandomState(seed) alone (bench.py
+    draws them after its 3-qubit cell has consumed the generator, so its
+    circuits differ)."""
+    from pygsti_tpu_torch.circuits.circuit import Circuit
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        layers = []
+        for t in range(n1q):
+            q = rng.randint(5)
+            layers.append("%s:%d" % (['Gxpi2', 'Gypi2'][rng.randint(2)], q))
+            if t % 2 == 1:
+                c0 = rng.randint(4)
+                layers.append("Gcnot:%d:%d" % (c0, c0 + 1))
+        out.append(Circuit(''.join(layers) + '@(0,1,2,3,4)'))
+    return out
+
+
+def numpy_cloud_probs(model, circuit):
+    """Outcome probabilities of one circuit of a 5-qubit implicit model by
+    numpy alone: every factor of a layer (a leaf's dense superoperator on
+    contiguous ascending qubits) Kronecker-embedded as I (x) M (x) I, the
+    factors multiplied in the layer's order, the layers in the circuit's."""
+    n = model.num_qubits
+    leaves = model._leaves()
+    rho = model.preps['rho0'].dense()
+    for layer in circuit.layertup:
+        for key, targets in model._layer_recipes[model.op_keys.index(layer)]:
+            q = [model.state_space.qubit_labels.index(t) for t in targets]
+            if q != list(range(q[0], q[0] + len(q))):
+                raise SystemExit("the numpy reference takes contiguous ascending targets")
+            mx = np.kron(np.kron(np.eye(4 ** q[0]), leaves[key].dense()),
+                         np.eye(4 ** (n - q[-1] - 1)))
+            rho = mx @ rho
+    return model.povms['Mdefault'].dense() @ rho
+
+
+def phase_cloud5(device):
+    """Phase 15: the JAX package's 5-qubit cloud-noise cell (bench.py
+    bench[q5]) on the card at two sizes; returns ({size: circuits},
+    model)."""
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.models.cloudnoisemodel import \
+        create_cloud_crosstalk_model_from_hops_and_weights
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+    from pygsti_tpu_torch.protocols.modeltest import ModelTest
+    from pygsti_tpu_torch.protocols.protocol import ExperimentDesign, ProtocolData
+
+    t0 = time.time()
+    pspec5 = QubitProcessorSpec(5, CLOUD_GATES, geometry='line')
+    mdl = create_cloud_crosstalk_model_from_hops_and_weights(
+        pspec5, maxhops=1, max_idle_weight=1, extra_gate_weight=0, gate_type='H+s')
+    v = np.zeros(mdl.num_params)
+    v[:8] = 0.005
+    mdl.from_vector(v)
+    log("cloud5: cloud-noise model of QubitProcessorSpec(5, %s, 'line'), maxhops 1, idle "
+        "weight 1, 'H+s', v[:8] = 0.005: %d parameters, d %d (built on the host in %.2f s)"
+        % (CLOUD_GATES, mdl.num_params, mdl.dim, time.time() - t0))
+    if (mdl.num_params, mdl.dim) != (594, 1024):
+        raise SystemExit("unexpected 5-qubit cloud model")
+    designs = {}
+    for n, n1q in CLOUD5_SIZES:
+        tag = "cloud5[%d]" % n
+        circuits = bench_q5_circuits(n, n1q)
+        designs[n] = circuits
+        sim = SimpleForwardSimulator(mdl, device)
+        layout = sim.create_layout(circuits)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        p = sim.bulk_fill_probs(layout)
+        cold = time.time() - t0
+        t0 = time.time()
+        p = sim.bulk_fill_probs(layout)
+        warm = time.time() - t0
+        n_ops = len(mdl.op_keys)
+        log("%s: %d circuits of %d one-qubit layers and %d CNOTs (depth %d), %d distinct "
+            "layers; bulk probabilities on the card cold %.3f s, warm %.3f s (%.1f circuits/s); "
+            "the gathered scan would move %.1f MB per layer, the grouped one reads at most "
+            "%.1f MB of ops per layer"
+            % (tag, n, n1q, n1q // 2, circuits[0].depth, n_ops, cold, warm, n / warm,
+               n * mdl.dim ** 2 * 8 / 1e6, min(n_ops + 1, n) * mdl.dim ** 2 * 8 / 1e6))
+        check = circuits[:40]
+        cpu = SimpleForwardSimulator(mdl, 'cpu')
+        p_cpu = cpu.bulk_fill_probs(cpu.create_layout(check))
+        dp_cpu = float(np.max(np.abs(p[:len(check) * 32] - p_cpu)))
+        p_np = np.concatenate([numpy_cloud_probs(mdl, c) for c in circuits[:5]])
+        dp_np = float(np.max(np.abs(p[:5 * 32] - p_np)))
+        dsum = float(np.max(np.abs(p.reshape(n, 32).sum(axis=1) - 1)))
+        log("%s: card vs the CPU path on %d circuits max |dp| %.3e (tol 1e-10); 5 circuits vs "
+            "a numpy product of the Kronecker-embedded leaves %.3e (tol 1e-10); per-circuit "
+            "sums within %.3e of 1 (tol 1e-10)" % (tag, len(check), dp_cpu, dp_np, dsum))
+        if not (dp_cpu < 1e-10 and dp_np < 1e-10 and dsum < 1e-10 and np.all(np.isfinite(p))):
+            raise SystemExit("5-qubit probabilities disagree with the CPU path or numpy")
+        t0 = time.time()
+        ds = simulate_data(mdl, circuits, 500, seed=77, record_zero_counts=False, device=device)
+        sim_s = time.time() - t0
+        sparse = sim.create_layout(circuits, ds)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        res = ModelTest(mdl, verbosity=0, device=device).run(
+            ProtocolData(ExperimentDesign(circuits), ds), disable_checkpointing=True)
+        torch.cuda.synchronize()
+        mt_wall = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        est = res.estimates['ModelTest']
+        nsig = est.misfit_sigma()
+        log("%s: simulate_data(500 shots, seed 77, record_zero_counts=False) %.3f s; sparse "
+            "layout %d elements of %d dense (32 x circuits); ModelTest %.3f s, 2*DeltaLogL "
+            "%.6f, k %d, N_sigma %.4f, peak device memory %.1f MB"
+            % (tag, sim_s, sparse.num_elements, 32 * n, mt_wall,
+               est.parameters['final_objfn_value'], est.parameters['final_dof'], nsig, peak))
+        if not (np.isfinite(nsig) and abs(nsig) < 10 and sparse.num_elements < 32 * n):
+            raise SystemExit("the 5-qubit ModelTest is not finite or far from its optimum: "
+                             "N_sigma %g" % nsig)
+    return designs, mdl
+
+
+def phase_cloudfit(device):
+    """Phase 16: a 2-qubit cloud-noise fit through the kernel; returns
+    (launches, kernel numbers at the layout's buckets)."""
+    from pygsti_tpu_torch.algorithms.core import run_gst_fit_simple
+    from pygsti_tpu_torch.circuits.cloudcircuitconstruction import create_cloudnoise_circuits
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.models.cloudnoisemodel import \
+        create_cloud_crosstalk_model_from_hops_and_weights
+    from pygsti_tpu_torch.objectivefns.objectivefns import two_delta_logl
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+
+    spec = QubitProcessorSpec(2, CLOUD_GATES, geometry='line')
+    maxls = [L for L in (1, 2, 4, 8, 16, 32, 64) if L <= CLOUD_MAXL]
+    t0 = time.time()
+    struct = create_cloudnoise_circuits(spec, maxls, CLOUD_FIDS, max_idle_weight=1, maxhops=1,
+                                        extra_gate_weight=1, seed=3, device=device)
+    circuits = list(struct)
+    design_s = time.time() - t0
+
+    def cloud_model():
+        return create_cloud_crosstalk_model_from_hops_and_weights(
+            spec, maxhops=1, max_idle_weight=1, extra_gate_weight=1, gate_type='H+s')
+    truth = cloud_model()
+    # small positive rates (an 'H+s' stochastic rate below 0 is not a channel)
+    vt = 0.002 * np.abs(np.random.RandomState(16).randn(truth.num_params))
+    lbls = truth.idle_member.errorgen.blocks[0].basis_element_labels
+    planted = truth.idle_member.gpindices.start + lbls.index('XI')
+    vt[planted] = 0.03
+    truth.from_vector(vt)
+    ds = simulate_data(truth, circuits, 1000, seed=1616, device=device)
+    start = cloud_model()
+    layout = SimpleForwardSimulator(start, device).create_layout(circuits, ds)
+    K1 = len(start.op_keys) + 1
+    n_par = sum(len(k.components) > 1 for k in start.op_keys)
+    log("cloudfit: create_cloudnoise_circuits(maxL %s, maxhops 1, extra gate weight 1, seed 3) "
+        "on the card: %d circuits, depth up to %d, %d germs, in %.2f s; model %d parameters, "
+        "K1 %d (%d parallel layers), d %d"
+        % (maxls[-1], len(circuits), max(c.depth for c in circuits), len(struct.ys), design_s,
+           start.num_params, K1, n_par, start.dim))
+    kernel = hold_kernel_at_buckets(layout, start, device, 'cloudfit')
+    errs, kms, kplain, keinsum, kbound, shapes = kernel
+    log("cloudfit: kernel bwd_jacobian at this layout's %d bucket shapes %s: max rel err f64 "
+        "%.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per Jacobian f64 against a bound of "
+        "%.4f ms (%.1f%% of it); plain %.2f ms, einsum yardstick %.2f ms"
+        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], kms, kbound,
+           100 * kbound / kms, kplain, keinsum))
+    x = torch.as_tensor(vt, device=device)
+    t0 = time.time()
+    Tv = start.flat_tensors_jacobian_fn()(x)
+    torch.cuda.synchronize()
+    tv_s = time.time() - t0
+    dTv = float((Tv - torch.func.jacfwd(start.flat_tensors_fn())(x)).abs().max())
+    log("cloudfit: Tv [%d x %d] by the leaves' jvp and the product rule on the card in %.3f s; "
+        "against torch.func.jacfwd max |d| %.3e (tol 1e-12)" % (*Tv.shape, tv_s, dTv))
+    if not dTv < 1e-12:
+        raise SystemExit("the implicit model's Tv disagrees with jacfwd")
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    t0 = time.time()
+    iters = []
+    for name in ('chi2', 'logl'):
+        result, objective = run_gst_fit_simple(ds, start, circuits, {'maxiter': LM_MAXITER},
+                                               name, device=device)
+        q = result.optimizer_specific_qtys
+        iters.append(q['iterations'])
+        log("cloudfit: %s from %s: %d LM iterations, %.3f s, objective %.6f, jac_mode %s, %s"
+            % (name, 'zero' if name == 'chi2' else 'the chi2 fit', q['iterations'],
+               q['wall_s'], result.f, objective.jac_mode, q['msg']))
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launches = bwd_jacobian_accumulate.launches
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    tdl_fit = two_delta_logl(start, ds, circuits, device=device)
+    tdl_truth = two_delta_logl(truth, ds, circuits, device=device)
+    k = ds.degrees_of_freedom(circuits) - start.num_params
+    nsig = (tdl_fit - k) / np.sqrt(2 * k)
+    rate = float(start.to_vector()[planted])
+    log("cloudfit: %d + %d LM iterations in %.3f s; kernel launches {'bwd_jacobian': %d}; "
+        "2*DeltaLogL %.6f (the truth's %.6f), k %d, N_sigma %.4f; planted idle H_X 0.03, "
+        "fitted %.6f; peak device memory %.1f MB"
+        % (iters[0], iters[1], fit_s, launches, tdl_fit, tdl_truth, k, nsig, rate, peak))
+    if launches == 0:
+        raise SystemExit("the cloud-noise fit never launched the bwd_jacobian kernel")
+    if not (abs(rate - 0.03) < 0.01 and tdl_fit < tdl_truth + 10 and abs(nsig) < 10):
+        raise SystemExit("the cloud-noise fit missed the planted rate or the optimum")
+    return launches, kernel
+
+
+def phase_statevec(designs, device):
+    """Phase 17: the state-vector simulator against the superoperator one
+    on phase 15's circuits, a 5-qubit model of static unitaries."""
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.forwardsims.statevecsim import StateVectorForwardSimulator
+    from pygsti_tpu_torch.models.modelconstruction import create_explicit_model
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+
+    t0 = time.time()
+    mdl = create_explicit_model(QubitProcessorSpec(5, CLOUD_GATES, geometry='line'),
+                                ideal_gate_type='static unitary')
+    log("statevec: create_explicit_model(5 qubits, 'static unitary'): %d operations, d %d, "
+        "built on the host in %.2f s" % (len(mdl.operations), mdl.dim, time.time() - t0))
+    for n, circuits in designs.items():
+        times, probs = {}, {}
+        for name, cls in (('statevec', StateVectorForwardSimulator),
+                          ('superop', SimpleForwardSimulator)):
+            sim = cls(mdl, device)
+            layout = sim.create_layout(circuits)
+            sim.bulk_fill_probs(layout)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            probs[name] = sim.bulk_fill_probs(layout)
+            times[name] = time.time() - t0
+        dp = float(np.max(np.abs(probs['statevec'] - probs['superop'])))
+        log("statevec[%d]: warm bulk probabilities on the card: state vectors (u 32) %.4f s, "
+            "superoperators (d 1,024) %.4f s; max |dp| %.3e (tol 1e-12)"
+            % (n, times['statevec'], times['superop'], dp))
+        if not dp < 1e-12:
+            raise SystemExit("the state-vector probabilities disagree with the superoperator ones")
+
+
+def implicit_phases(device):
+    """Phases 15-17; returns the cloud-noise fit's kernel launches."""
+    t0 = time.time()
+    designs, _ = phase_cloud5(device)
+    t1 = time.time()
+    cloud_launches, _ = phase_cloudfit(device)
+    t2 = time.time()
+    phase_statevec(designs, device)
+    t3 = time.time()
+    log("phases 15, 16 and 17: %.1f s, %.1f s and %.1f s of the script's wall time"
+        % (t1 - t0, t2 - t1, t3 - t2))
+    return cloud_launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -1373,17 +1655,22 @@ def main():
     log("phases 12, 13 and 14: %.1f s, %.1f s and %.1f s of the script's wall time"
         % (t5 - t4, t6 - t5, t7 - t6))
 
+    # -- implicit models: the 5-qubit cloud-noise cell, a 2-qubit cloud fit,
+    # -- the state-vector simulator
+    cloud_launches = implicit_phases(device)
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
         "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
-        + fpr_launches + qutrit_launches + sum(obj_launches.values()),
+        + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
-                                  "qutrit fit": qutrit_launches}, **obj_launches),
+                                  "qutrit fit": qutrit_launches}, **obj_launches,
+                                 **{"cloud-noise fit": cloud_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -5,6 +5,9 @@
 * ``LabelStr``    -- a bare name, e.g. ``Label('rho0')``.
 * ``LabelTupTup`` -- a layer of parallel simple labels; ``Label(())`` is the
                      empty layer (global idle), printed ``"[]"``.
+* ``LabelTupWithArgs`` -- a simple label with arguments, e.g.
+                     ``Label('Gzr', (0,), args=('0.5',))`` <-> ``"Gzr;0.5:0"``:
+                     the operation an op factory makes for those arguments.
 
 Labels are immutable, hashable, compare equal to the equivalent plain tuple
 or string, and serve as dict keys in models.
@@ -16,9 +19,13 @@ from __future__ import annotations
 class Label(object):
     """Factory: dispatches to LabelTup / LabelStr / LabelTupTup."""
 
-    def __new__(cls, name, state_space_labels=None):
+    def __new__(cls, name, state_space_labels=None, args=None):
         if isinstance(name, (LabelTup, LabelStr, LabelTupTup)):
             return name
+        if args:
+            if isinstance(state_space_labels, (int, str)):
+                state_space_labels = (state_space_labels,)
+            return LabelTupWithArgs.init(name, tuple(state_space_labels or ()), args)
         if state_space_labels is not None:
             if isinstance(state_space_labels, (int, str)):
                 state_space_labels = (state_space_labels,)
@@ -86,6 +93,43 @@ class LabelTup(tuple):
 
     def __reduce__(self):
         return (LabelTup, (tuple(self),))
+
+
+class LabelTupWithArgs(LabelTup):
+    """A simple label with extra (non-state-space) arguments, stored as
+    ('@ARGS', name, args, sslbls)."""
+
+    __slots__ = ()
+
+    @classmethod
+    def init(cls, name, sslbls, args):
+        return tuple.__new__(cls, ('@ARGS', name, tuple(args), tuple(sslbls)))
+
+    @property
+    def name(self):
+        return self[1]
+
+    @property
+    def args(self):
+        return self[2]
+
+    @property
+    def sslbls(self):
+        return self[3]
+
+    def map_state_space_labels(self, mapper):
+        m = mapper.__getitem__ if hasattr(mapper, '__getitem__') else mapper
+        return LabelTupWithArgs.init(self.name, tuple(m(s) for s in self.sslbls), self.args)
+
+    def __str__(self):
+        s = self.name + ";" + ";".join(str(a) for a in self.args)
+        return s + "".join(":" + str(x) for x in self.sslbls)
+
+    def __repr__(self):
+        return "Label(%s, args=%s)" % (str((self.name,) + self.sslbls), self.args)
+
+    def __reduce__(self):
+        return (LabelTupWithArgs.init, (self.name, self.sslbls, self.args))
 
 
 class LabelStr(str):

@@ -49,6 +49,7 @@ class QubitGraph(object):
 
     def add_edge(self, q1, q2):
         i, j = self._node_index[q1], self._node_index[q2]
+        self._dists = None
         self._edges.add((i, j))
         if not self.directed:
             self._edges.add((j, i))
@@ -65,3 +66,28 @@ class QubitGraph(object):
                 seen.add(key)
             out.append((self._nodes[i], self._nodes[j]))
         return out
+
+    def neighbors(self, q):
+        """The nodes an edge leads to from `q`, in node order."""
+        i = self._node_index[q]
+        return [self._nodes[j] for (a, j) in sorted(self._edges) if a == i]
+
+    def _all_pairs_dists(self):
+        if getattr(self, '_dists', None) is None:
+            n = self.nqubits
+            d = np.full((n, n), np.inf)
+            np.fill_diagonal(d, 0)
+            for (i, j) in self._edges:
+                d[i, j] = 1
+            for k in range(n):
+                d = np.minimum(d, d[:, k:k + 1] + d[k:k + 1, :])
+            self._dists = d
+        return self._dists
+
+    def radius(self, base_nodes, max_hops):
+        """The nodes within `max_hops` of any node of `base_nodes`, in node
+        order."""
+        dists = self._all_pairs_dists()
+        idxs = [self._node_index[q] for q in base_nodes]
+        return [self._nodes[j] for j in range(self.nqubits)
+                if any(dists[i, j] <= max_hops for i in idxs)]

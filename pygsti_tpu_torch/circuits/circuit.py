@@ -148,6 +148,20 @@ class Circuit(object):
 
     __mul__ = repeat
 
+    def replace_layers_with_aliases(self, alias_dict):
+        """This circuit with each layer found in `alias_dict` (keyed by
+        label or by bare gate name) replaced by the layers of the Circuit
+        it maps to."""
+        if not alias_dict:
+            return self
+        layers = []
+        for layer in self._layers:
+            repl = alias_dict.get(layer)
+            if repl is None and getattr(layer, 'name', None) is not None:
+                repl = alias_dict.get(layer.name)
+            layers.extend(repl.layertup if repl is not None else (layer,))
+        return Circuit(tuple(layers), self._line_labels)
+
     def map_state_space_labels(self, mapper):
         """This circuit with every state-space label s of its layers and
         lines replaced by mapper[s] (or mapper(s) for a function)."""

@@ -7,11 +7,12 @@ pygsti_tpu/circuits/circuitparser.py, pure-Python parser only).
   item      := '(' seq ')' ['^' int] | '[' layer ']' ['^' int]
              | simple ['^' int] | '{}'
   layer     := simple*                (possibly empty => global idle '[]')
-  simple    := name (':' sslbl)* ['!' time]
+  simple    := name (';' arg)* (':' sslbl)* ['!' time]
   name      := G[a-z0-9_]+ | rho[a-z0-9_]* | M[a-z0-9_]* | I[a-z0-9_]*
   sslbl     := int | ident
 
-Labels with arguments (``name;arg``) are not on the port's path and raise.
+Labels with arguments (``name;arg:q``) parse to LabelTupWithArgs; the
+arguments stay strings, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ _GATE_NAME_RE = re.compile(r'G[a-z0-9_]+|rho[a-z0-9_]*|M[a-z0-9_]*|I[a-z0-9_]*')
 _INT_RE = re.compile(r'[0-9]+')
 _SSLBL_RE = re.compile(r'[a-zA-Z_][a-z0-9_]*')
 _TIME_RE = re.compile(r'[-+0-9.eE]+')
+_ARG_RE = re.compile(r'[-+0-9.eE]+|[a-zA-Z_][a-zA-Z0-9_]*')
 
 
 class _Parser:
@@ -69,8 +71,14 @@ class _Parser:
 
     def parse_simple(self):
         name = self.parse_name()
-        if self.peek() == ';':
-            self.error("labels with arguments are not supported")
+        args = []
+        while self.peek() == ';':
+            self.i += 1
+            m = _ARG_RE.match(self.s, self.i)
+            if not m:
+                self.error("expected label argument")
+            args.append(m.group())
+            self.i = m.end()
         sslbls = []
         while self.peek() == ':':
             self.i += 1
@@ -81,6 +89,8 @@ class _Parser:
             if not m:
                 self.error("expected time")
             self.i = m.end()
+        if args:
+            return Label(name, tuple(sslbls), args=tuple(args))
         return Label(name, tuple(sslbls)) if sslbls else Label(name)
 
     def parse_item(self):

@@ -1,6 +1,6 @@
 """Plaquette-structured circuit lists (counterpart of
 pygsti_tpu/circuits/circuitstructure.py, trimmed to what
-``make_lsgst_structs`` builds)."""
+``make_lsgst_structs`` and ``create_cloudnoise_circuits`` build)."""
 
 from __future__ import annotations
 
@@ -63,3 +63,12 @@ class PlaquetteGridCircuitStructure(CircuitList):
     @property
     def plaquettes(self):
         return self._plaquettes
+
+    def plaquette(self, x, y, empty_if_missing=False):
+        """The plaquette at (x, y); None when absent and
+        `empty_if_missing`, else KeyError."""
+        if (x, y) in self._plaquettes:
+            return self._plaquettes[(x, y)]
+        if empty_if_missing:
+            return None
+        raise KeyError("No plaquette at (%s, %s)" % (x, y))

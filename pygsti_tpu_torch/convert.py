@@ -1,5 +1,6 @@
 """Carry a JAX-package model's parameters, its instruments, its composite
-layers and its gauge-group elements into the port.
+layers, an implicit model's registered layers and its gauge-group elements
+into the port.
 
 The functions take plain numpy data -- what ``pygsti_tpu``'s
 ``model.to_vector()``, its members' dense matrices or a gauge group's
@@ -65,6 +66,23 @@ def register_composite_layers(model, layers):
     for lbl in layers:
         model._register_layer(parse_label_str(lbl))
     return model
+
+
+def implicit_model_from_vector(template, theta, layers=()):
+    """A copy of the port's implicit `template` (a LocalNoiseModel or
+    CloudNoiseModel built by the same construction call as the JAX model)
+    holding the JAX model's parameter vector `theta`, with the JAX model's
+    registered layers `layers` (label strings of its ``op_keys``, in order)
+    registered first, so that both op stacks are the same.  The packages
+    order an implicit model's parameters alike: preps, POVMs, gates, the
+    idle, then the cloud members."""
+    m = model_from_vector(template, theta)
+    for lbl in layers:
+        m.register_layer(parse_label_str(lbl))
+    if layers and [str(k) for k in m.op_keys[:len(layers)]] != [str(l) for l in layers]:
+        raise ValueError("the template had registered other layers first: %s"
+                         % [str(k) for k in m.op_keys])
+    return m
 
 
 def model_from_dense(ops, preps, povms, gate_type='full', basis='pp'):

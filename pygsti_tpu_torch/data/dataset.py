@@ -38,12 +38,16 @@ class DataSet(object):
     def _cast_circuit(c):
         return c if isinstance(c, Circuit) else Circuit(c)
 
-    def add_count_dict(self, circuit, count_dict):
-        """Add counts to a circuit's row; zero counts are recorded too."""
+    def add_count_dict(self, circuit, count_dict, record_zero_counts=True):
+        """Add counts to a circuit's row.  A zero count is recorded unless
+        `record_zero_counts` is False and the row lacks that outcome: the
+        recorded outcomes set the circuit's degrees of freedom."""
         circuit = self._cast_circuit(circuit)
         row = self._rows.setdefault(circuit, OutcomeLabelDict())
         for outcome, cnt in count_dict.items():
             ol = OutcomeLabelDict.to_outcome(outcome)
+            if cnt == 0 and not record_zero_counts and ol not in row:
+                continue
             row[ol] = row.get(ol, 0) + cnt
 
     def __getitem__(self, circuit):

@@ -5,6 +5,11 @@ The dense families (static ops, FullArbitraryOp, FullTPOp) carry a gauge
 transform.  The unitary and Lindblad families (FullUnitaryOp, ComposedOp,
 LindbladErrorgen and its coefficient blocks, ExpErrorgenOp, FullCPTPOp) do
 not: as in the JAX package, transforming one raises NotImplementedError.
+The members implicit models are built from -- RepeatedOp, EmbeddedOp,
+DepolarizeOp, StochasticNoiseOp, IdentityPlusErrorgenOp, CPTRop -- have no
+gauge transform in the JAX package either.  The unitary members (static and
+full unitary, and an EmbeddedOp of one) also give ``to_unitary(v)``, the
+state-vector simulator's input.
 Every member serializes; a Lindblad member writes its structure (basis,
 block types, modes, labels) and parameter values, and its generators are
 rebuilt on reading.
@@ -69,6 +74,47 @@ class _TensorConstants(object):
         return state
 
 
+class Embedding(object):
+    """Embeds matrices acting on some factors of a state space into the
+    whole space, as the identity on the other factors: kron(mat, I_rest)
+    with its factor axes put back in the state space's order.  Superoperator
+    factors have dimension udim^2, unitary ones udim.  Works on torch
+    tensors [..., a, a] (the leading dimensions batched) and on numpy."""
+
+    def __init__(self, state_space, target_labels, unitary=False):
+        labels = list(state_space.tensor_product_block_labels)
+        fdims = [d if unitary else d * d for d in state_space.tensor_product_block_dims]
+        tgt_pos = [labels.index(t) for t in target_labels]
+        other_pos = [i for i in range(len(labels)) if i not in tgt_pos]
+        src_order = tgt_pos + other_pos
+        nf = len(labels)
+        inv = [0] * nf
+        for newpos, srcpos in enumerate(src_order):
+            inv[srcpos] = newpos
+        self.trivial = src_order == list(range(nf))
+        self.rest_dim = int(np.prod([fdims[i] for i in other_pos], dtype=np.int64))
+        self.src_dims = [fdims[i] for i in src_order]
+        self.axes = inv + [p + nf for p in inv]
+        self.dim = int(np.prod(fdims, dtype=np.int64))
+
+    def __call__(self, mat):
+        if self.trivial and self.rest_dim == 1:
+            return mat
+        if isinstance(mat, np.ndarray):
+            full = np.kron(mat, np.eye(self.rest_dim))
+            return np.transpose(full.reshape(self.src_dims * 2), self.axes).reshape(
+                self.dim, self.dim)
+        lead = mat.shape[:-2]
+        a = mat.shape[-1]
+        eye = torch.eye(self.rest_dim, dtype=mat.dtype, device=mat.device)
+        # kron(mat, I)[i r + k, j r + l] = mat[i, j] I[k, l]
+        full = mat[..., :, None, :, None] * eye.reshape(self.rest_dim, 1, self.rest_dim)
+        full = full.reshape(*lead, *(self.src_dims * 2))
+        nl = len(lead)
+        full = full.permute(*range(nl), *(nl + p for p in self.axes))
+        return full.reshape(*lead, self.dim, self.dim)
+
+
 class LinearOperator(ModelMember):
     """Base class for operations; dense rep is a (dim, dim) superop matrix."""
 
@@ -106,9 +152,14 @@ class StaticArbitraryOp(LinearOperator):
 class StaticUnitaryOp(StaticArbitraryOp):
     """A fixed superoperator built from a unitary."""
 
-    def __init__(self, unitary, basis='pp'):
+    def __init__(self, unitary, basis='pp', superop=None):
         self.unitary = np.asarray(unitary, dtype=complex)
-        super().__init__(np.real(_ot.unitary_to_superop(self.unitary, basis)))
+        super().__init__(np.real(_ot.unitary_to_superop(self.unitary, basis))
+                         if superop is None else superop)
+
+    def to_unitary(self, v):
+        """The complex unitary, on v's device."""
+        return torch.as_tensor(self.unitary, dtype=_complex_dtype(v.dtype), device=v.device)
 
 
 class StaticStandardOp(StaticUnitaryOp):
@@ -440,10 +491,50 @@ class LindbladCoefficientBlock(_TensorConstants):
                 for i, li in enumerate(lbls) for j, lj in enumerate(lbls)}
 
 
+# products of single-qubit Paulis: _PAULI_PRODUCT[a, b] = (c, phase) with
+# sigma_a sigma_b = phase sigma_c, indices 0..3 for I, X, Y, Z
+_PAULI_PRODUCT = [[(0, 1), (1, 1), (2, 1), (3, 1)],
+                  [(1, 1), (0, 1), (3, 1j), (2, -1j)],
+                  [(2, 1), (3, -1j), (0, 1), (1, 1j)],
+                  [(3, 1), (2, 1j), (1, -1j), (0, 1)]]
+
+
+def _pauli_generators(dim, block_type, labels):
+    """The 'ham' or 'other_diag' generators of Pauli-product elements in the
+    'pp' basis, from the Pauli algebra instead of a change of basis (which
+    costs three dense d^2 x d^2 products per generator: seconds at five
+    qubits).  With B = P / sqrt(u) the normalized elements, u = 2^n, and
+    P_j P_l = w P_m: H_j maps B_l to -2i w / sqrt(u) B_m where P_j and P_l
+    anticommute (w = +-i), to 0 where they commute; S_j maps B_l to
+    -2/u B_l where they anticommute, else to 0."""
+    n = int(round(np.log(dim) / np.log(4)))
+    u = 2 ** n
+    letters = {'I': 0, 'X': 1, 'Y': 2, 'Z': 3}
+    digits = np.array([[(l // 4 ** (n - 1 - q)) % 4 for q in range(n)] for l in range(dim)])
+    prod_idx = np.array([[c for c, _ in row] for row in _PAULI_PRODUCT])
+    prod_phase = np.array([[w for _, w in row] for row in _PAULI_PRODUCT])
+    gens = np.zeros((len(labels), dim, dim))
+    cols = np.arange(dim)
+    for g, lbl in enumerate(labels):
+        j = np.array([letters[ch] for ch in lbl])
+        phase = np.prod(prod_phase[j[None, :], digits], axis=1)        # [dim]
+        m = (prod_idx[j[None, :], digits] * 4 ** np.arange(n - 1, -1, -1)).sum(axis=1)
+        anti = np.abs(phase.real) < 0.5                                # w = +-i
+        if block_type == 'ham':
+            gens[g, m[anti], cols[anti]] = (-2j * phase[anti] / np.sqrt(u)).real
+        else:
+            gens[g, cols[anti], cols[anti]] = -2.0 / u
+    return gens
+
+
 @functools.lru_cache(maxsize=None)
 def _block_generators(basis_name, dim, block_type, labels):
     """Generators of one block over the basis elements named `labels`, in
     the model's basis; shared (read-only) by every member that asks."""
+    if basis_name == 'pp' and block_type in ('ham', 'other_diag'):
+        gens = _pauli_generators(dim, block_type, labels)
+        gens.flags.writeable = False
+        return gens
     b = Basis(basis_name, dim)
     all_labels = b.labels
     els = [b.elements[all_labels.index(l)] for l in labels]
@@ -678,5 +769,186 @@ class FullCPTPOp(_TensorConstants, LinearOperator):
     def _from_nice_serialization(cls, state):
         d = state['dim']
         op = cls(np.eye(d) / d, state['basis'])
+        op.from_vector(state['paramvals'])
+        return op
+
+
+class RepeatedOp(_WrapsOneMember, LinearOperator):
+    """op^k: the dense form of `op` multiplied by itself `num_copies`
+    times.  Its parameters are op's."""
+
+    def __init__(self, op, num_copies):
+        self.repeated_op = self._inner = op
+        self.num_copies = int(num_copies)
+        super().__init__(op.dim, np.empty(0))
+
+    def to_dense(self, v):
+        return torch.linalg.matrix_power(self.repeated_op.to_dense(v), self.num_copies)
+
+    def _to_nice_serialization(self):
+        return {'repeated_op': self.repeated_op.to_nice_serialization(),
+                'num_copies': self.num_copies}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(NicelySerializable.from_nice_serialization(state['repeated_op']),
+                   state['num_copies'])
+
+
+class EmbeddedOp(_WrapsOneMember, LinearOperator):
+    """An operation on some factors of a state space (`target_labels`),
+    embedded into the whole space as the identity on the others.  Its
+    parameters are the embedded op's."""
+
+    def __init__(self, state_space, target_labels, op_to_embed):
+        from pygsti_tpu_torch.baseobjs.statespace import StateSpace
+        self.state_space = StateSpace.cast(state_space)
+        self.target_labels = tuple(target_labels)
+        self.embedded_op = self._inner = op_to_embed
+        self._embedding = Embedding(self.state_space, self.target_labels)
+        super().__init__(self.state_space.dim, np.empty(0))
+
+    def to_dense(self, v):
+        return self._embedding(self.embedded_op.to_dense(v))
+
+    def to_unitary(self, v):
+        """The embedded op's unitary on the whole Hilbert space (the op must
+        have one)."""
+        emb = Embedding(self.state_space, self.target_labels, unitary=True)
+        return emb(self.embedded_op.to_unitary(v))
+
+    def _to_nice_serialization(self):
+        ss = self.state_space
+        return {'state_space_labels': list(ss.tensor_product_block_labels),
+                'state_space_udims': list(ss.tensor_product_block_dims),
+                'target_labels': list(self.target_labels),
+                'embedded_op': self.embedded_op.to_nice_serialization()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        from pygsti_tpu_torch.baseobjs.statespace import QuditSpace
+        ss = QuditSpace(state['state_space_labels'], state['state_space_udims'])
+        return cls(ss, state['target_labels'],
+                   NicelySerializable.from_nice_serialization(state['embedded_op']))
+
+
+class DepolarizeOp(LinearOperator):
+    """Depolarizing channel of one rate: diag(1, w, ..., w), w = 1 - rate,
+    in any basis whose first element is the identity.  param_mode 'depol'
+    takes the rate as the parameter squared (>= 0); any other mode takes
+    the parameter itself."""
+
+    def __init__(self, dim, initial_rate=0.0, param_mode='depol'):
+        self.param_mode = param_mode
+        p0 = np.sqrt(initial_rate) if param_mode == 'depol' else initial_rate
+        super().__init__(dim, np.array([p0], dtype=float))
+
+    def to_dense(self, v):
+        rate = v[0] * v[0] if self.param_mode == 'depol' else v[0]
+        diag = torch.cat([torch.ones(1, dtype=v.dtype, device=v.device),
+                          (1.0 - rate) * torch.ones(self._dim - 1, dtype=v.dtype,
+                                                    device=v.device)])
+        return torch.diag(diag)
+
+    def _to_nice_serialization(self):
+        return {'dim': self._dim, 'param_mode': self.param_mode, 'paramvals': self.to_vector()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        op = cls(state['dim'], 0.0, state['param_mode'])
+        op.from_vector(state['paramvals'])
+        return op
+
+
+class StochasticNoiseOp(_TensorConstants, LinearOperator):
+    """Pauli-stochastic channel rho -> (1 - sum r) rho + sum_i r_i P_i rho
+    P_i over the non-identity elements of `basis`; the rates are the
+    parameters squared, so the channel stays CPTP for sum r <= 1."""
+
+    def __init__(self, dim, basis='pp', initial_rates=None):
+        b = Basis.cast(basis, dim)
+        els = b.elements
+        n = els.shape[0] - 1
+        rates = np.zeros(n) if initial_rates is None else np.asarray(initial_rates, float)
+        super().__init__(dim, np.sqrt(np.clip(rates, 0, None)))
+        self.basis = b.name
+        u = els.shape[1]
+        self._unit_super = np.stack([
+            np.real(change_basis(np.kron(els[i] * np.sqrt(u), (els[i] * np.sqrt(u)).conj()),
+                                 'std', b)) for i in range(1, n + 1)])
+
+    def to_dense(self, v):
+        rates = v * v
+        eye = torch.eye(self._dim, dtype=v.dtype, device=v.device)
+        return (1.0 - rates.sum()) * eye + torch.tensordot(
+            rates, self._const('_unit_super', v.device, v.dtype), dims=1)
+
+    def _to_nice_serialization(self):
+        return {'dim': self._dim, 'basis': self.basis, 'paramvals': self.to_vector()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        op = cls(state['dim'], state['basis'])
+        op.from_vector(state['paramvals'])
+        return op
+
+
+class IdentityPlusErrorgenOp(_WrapsOneMember, LinearOperator):
+    """I + L: the first-order expansion of exp(L), CPTP whenever L is a
+    valid Lindbladian."""
+
+    def __init__(self, errorgen):
+        self.errorgen = self._inner = errorgen
+        super().__init__(errorgen.dim, np.empty(0))
+
+    def to_dense(self, v):
+        return torch.eye(self._dim, dtype=v.dtype, device=v.device) + self.errorgen.to_dense(v)
+
+    def _to_nice_serialization(self):
+        return {'errorgen': self.errorgen.to_nice_serialization()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(NicelySerializable.from_nice_serialization(state['errorgen']))
+
+
+class CPTRop(_TensorConstants, LinearOperator):
+    """A completely positive, trace-reducing map (leakage, loss): the
+    parameters are the Cholesky factor L of an unnormalized Choi matrix (its
+    real diagonal, then (re, im) of its strict lower triangle), and the
+    dense form is the inverse Jamiolkowski image of L L^dag, scaled down to
+    trace 1 only where its trace exceeds 1."""
+
+    def __init__(self, superop_mx, basis='pp', truncate=True):
+        m = np.asarray(superop_mx, float)
+        d = m.shape[0]
+        b = Basis.cast(basis, d)
+        choi = _jam.jamiolkowski_iso(m, b, b)
+        evals, U = np.linalg.eigh((choi + choi.conj().T) / 2)
+        if not (truncate or evals.min() > -1e-10):
+            raise ValueError("superop must be completely positive (or truncate=True)")
+        choi = (U * evals.clip(1e-16, None)) @ U.conj().T
+        L = np.linalg.cholesky(choi + 1e-14 * np.eye(d))
+        super().__init__(d, _lower_tri_to_params(L))
+        self.basis_name = b.name
+        units = np.eye(d * d).reshape(d * d, d, d)
+        self._jam_inv = np.stack([_jam.jamiolkowski_iso_inv(e, b, b).reshape(-1)
+                                  for e in units], axis=1)
+
+    def to_dense(self, v):
+        d = self._dim
+        L = _params_to_lower_tri(v, d)
+        choi = L @ L.mH
+        tr = torch.trace(choi).real
+        choi = choi * torch.where(tr > 1.0, 1.0 / tr, torch.ones_like(tr))
+        out = self._const('_jam_inv', v.device, choi.dtype) @ choi.reshape(-1)
+        return out.reshape(d, d).real
+
+    def _to_nice_serialization(self):
+        return {'dim': self._dim, 'basis': self.basis_name, 'paramvals': self.to_vector()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        op = cls(np.eye(state['dim']), state['basis'])
         op.from_vector(state['paramvals'])
         return op

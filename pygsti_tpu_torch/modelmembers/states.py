@@ -106,6 +106,13 @@ class ComputationalBasisState(State):
     def dense(self):
         return self._vec.copy()
 
+    def to_statevec(self, v):
+        """The state vector |z>, on v's device."""
+        psi = torch.zeros(2 ** len(self.zvals), device=v.device,
+                          dtype=torch.complex128 if v.dtype == torch.float64 else torch.complex64)
+        psi[int("".join(str(z) for z in self.zvals), 2) if self.zvals else 0] = 1.0
+        return psi
+
     def _to_nice_serialization(self):
         return {'zvals': list(self.zvals), 'basis': self.basis}
 

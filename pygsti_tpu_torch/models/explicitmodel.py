@@ -289,6 +289,46 @@ class ExplicitOpModel(OpModel):
 
         return compute
 
+    def statevec_tensors_fn(self):
+        """A pure function v -> (unitaries [K, u, u], state vectors
+        [n_preps, u], effect matrices [n_effects, u, u]), complex, for the
+        state-vector simulator: each operation's unitary, then each
+        composite layer's (the product of its components').  A member with
+        no pure-state form raises ValueError, in the JAX package's words."""
+        from pygsti_tpu_torch.tools.basistools import vec_to_stdmx
+        self._rebuild_paramvec_if_needed()
+        for lbl, o in self.operations.items():
+            if not hasattr(o, 'to_unitary'):
+                raise ValueError(
+                    "Operation %s (%s) has no unitary (statevec) representation;"
+                    " the statevec simulator requires unitary gates -- use the"
+                    " density-matrix simulator for noisy models" % (lbl, type(o).__name__))
+        for lbl, p in self.preps.items():
+            if not hasattr(p, 'to_statevec'):
+                raise ValueError("Prep %s (%s) has no pure-state representation"
+                                 % (lbl, type(p).__name__))
+        if len(self.instruments):
+            raise ValueError("the statevec simulator takes no instruments")
+        ops = list(self.operations.values())
+        gate_pos = {k: i for i, k in enumerate(self.operations.keys())}
+        derived = [[gate_pos[k] for k in comps] for comps in self._derived_layers.values()]
+        preps = list(self.preps.values())
+        effect_mxs = vec_to_stdmx(np.concatenate([povm.dense() for povm in self.povms.values()]),
+                                  self.basis)
+
+        def compute(v):
+            us = [o.to_unitary(v[o.gpindices]) for o in ops]
+            for comps in derived:
+                m = us[comps[0]]
+                for i in comps[1:]:
+                    m = us[i] @ m
+                us.append(m)
+            psis = torch.stack([p.to_statevec(v[p.gpindices]) for p in preps])
+            return torch.stack(us), psis, torch.as_tensor(effect_mxs, dtype=psis.dtype,
+                                                          device=v.device)
+
+        return compute
+
     def flat_tensors_fn(self, composite_layers=True):
         """A pure function v -> every tensor entry as one vector [NT]:
         the op stack, then preps, then effects, each row-major."""

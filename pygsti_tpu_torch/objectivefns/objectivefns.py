@@ -698,11 +698,13 @@ class TimeIndependentMDCObjectiveFunction(object):
     def percircuit(self, paramvec=None):
         """Objective contribution per circuit.  A circuit with omitted
         outcomes carries its correction, so with no penalties
-        sum(percircuit()) == fn()."""
-        terms = self.terms(paramvec)
+        sum(percircuit()) == fn().  The probabilities are simulated once."""
+        p = self.probs(paramvec)
+        with torch.no_grad():
+            terms = self.raw_objfn.terms(torch.as_tensor(p, dtype=DTYPE, device=self.device),
+                                         *self._data).cpu().numpy()
         lay = self.layout
         if lay.has_omitted:
-            p = self.probs(paramvec)
             psum = np.zeros(len(lay.circuits))
             np.add.at(psum, lay.elem_to_circuit, p)
             firsts = lay.omitted_firsts
@@ -1000,8 +1002,10 @@ def _make_penalty_fn(model, penalties):
     host = (M, np.linalg.inv(M), np.asarray(model.basis.elements).astype(complex))
     compute = model.tensors_fn()
     # the primary operations only: the op stack holds them first, then the
-    # composite layers (products of them) and the instruments' members
-    n_ops = len(model.operations)
+    # composite layers (products of them) and the instruments' members; an
+    # implicit model's stack is all layers, and all are penalized, as in the
+    # JAX package
+    n_ops = len(model.operations) if hasattr(model, 'operations') else len(model.op_keys)
     consts = {}
 
     def pen_fn(v):

@@ -29,3 +29,11 @@ def stdmx_to_vec(m, basis):
     if b.real and np.allclose(v.imag, 0, atol=1e-10):
         v = v.real.copy()
     return v
+
+
+def vec_to_stdmx(v, basis):
+    """Vector of components in `basis` (len d**2) -> the d x d matrix
+    sum_a v_a B_a; a stack of vectors [n, d**2] -> [n, d, d]."""
+    v = np.asarray(v)
+    b = Basis.cast(basis, v.shape[-1])
+    return np.tensordot(v, b.elements, axes=1)

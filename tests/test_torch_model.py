@@ -151,3 +151,30 @@ def test_port_imports_no_jax(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert np.array_equal(np.array(json.loads(out.strip().splitlines()[-1])), jm.to_vector())
+
+
+def test_implicit_model_modules_import_no_jax():
+    """The modules of the implicit-model slice load, and a 2-qubit cloud
+    model simulates, in a process that ends with neither JAX nor
+    pygsti_tpu imported."""
+    new = ('baseobjs.statespace', 'modelmembers.opfactory', 'models.modelnoise',
+           'models.stencillabel', 'models.layerrules', 'models.implicitmodel',
+           'models.memberdict', 'models.localnoisemodel', 'models.cloudnoisemodel',
+           'circuits.cloudcircuitconstruction', 'protocols.modeltest',
+           'forwardsims.statevecsim', 'data.freedataset', 'protocols.freeformsim')
+    code = ("import sys, importlib\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec\n"
+            "from pygsti_tpu_torch.models.modelconstruction import "
+            "create_cloud_crosstalk_model_from_hops_and_weights as cc\n"
+            "from pygsti_tpu_torch.circuits.circuit import Circuit\n"
+            "m = cc(QubitProcessorSpec(2, ['Gxpi2', 'Gcnot'], geometry='line'), maxhops=1)\n"
+            "p = m.probabilities(Circuit('Gxpi2:0Gcnot:0:1@(0,1)'), device='cpu')\n"
+            "assert abs(sum(p.values()) - 1) < 1e-12, p\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'
