@@ -87,6 +87,21 @@ Phases, each fatal on failure:
                 against jacfwd, the planted rate, its own launch count
  17. statevec -- phase 15's circuits on a 5-qubit model of static unitaries:
                 state vectors against superoperators on the card
+ 18. q3rb    -- the JAX package's 3-qubit cell (bench.py bench[q3]: 60
+                direct-RB circuits from RandomState(2026), bulk probabilities
+                of a depolarized crosstalk-free model cold and warm) against
+                the CPU path, the noiseless model and the stabilizer
+                simulator; then a 240-circuit DirectRBDesign to depth 128,
+                1,000 shots simulated on the card, RandomizedBenchmarking
+                with 200 bootstraps against the exact decay
+ 19. crb2    -- 2-qubit Clifford RB (240 circuits to 64 Cliffords) simulated
+                on the card and fitted as in 18; mirror-RB circuits of one
+                depth back to their ideal outcomes
+ 20. cloudfit3 -- phase 16 at 3 qubits (534 parameters, d 64, eight
+                outcomes): the op stack beyond a block's shared memory, read
+                by the kernel from global memory; the kernel at this
+                layout's buckets, Tv against jacfwd, the fit, its own launch
+                count
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -116,6 +131,13 @@ MINCLIP = 1e-4
 
 def log(*args):
     print(*args, flush=True)
+
+
+def card_name_and_limit():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                           '--format=csv,noheader'], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
 
 
 def cuda_time_ms(fn, reps):
@@ -1160,6 +1182,8 @@ def phase_objectives(target, lists, ds, est3, fit_value, device):
 CLOUD_GATES = ['Gxpi2', 'Gypi2', 'Gcnot']
 CLOUD_FIDS = [(), ('Gxpi2',), ('Gypi2',), ('Gxpi2', 'Gxpi2')]
 CLOUD_MAXL = 64
+# phase 20's depth cut: the 3-qubit design's longest germ power
+CLOUD3_MAXL = 64
 # phase 15's two sizes: (circuits, one-qubit layers per circuit)
 CLOUD5_SIZES = ((40, 6), (1000, 24))
 
@@ -1407,6 +1431,281 @@ def phase_statevec(designs, device):
             % (n, times['statevec'], times['superop'], dp))
         if not dp < 1e-12:
             raise SystemExit("the state-vector probabilities disagree with the superoperator ones")
+
+
+def ideal_probs(layout, probs, ideals):
+    """Each circuit's probability of its ideal outcome, from the flat
+    probabilities of `layout`."""
+    p = probs.reshape(layout.num_rows, -1)
+    return np.array([p[b, layout.outcomes[b].index((''.join(str(x) for x in ideal),))]
+                     for b, ideal in enumerate(ideals)])
+
+
+def rb_checks(tag, pspec, circuits, ideals, mdl, device):
+    """Card against CPU (1e-10), sums to 1 (1e-12), the noiseless model's
+    ideal outcomes (1e-10) and the stabilizer simulator's (exactly 1);
+    returns the card's probabilities of the ideal outcomes under `mdl`."""
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.forwardsims.stabilizersim import StabilizerForwardSimulator
+    from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
+    sim = SimpleForwardSimulator(mdl, device)
+    layout = sim.create_layout(circuits)
+    p = sim.bulk_fill_probs(layout)
+    cpu = SimpleForwardSimulator(mdl, 'cpu')
+    dp = float(np.max(np.abs(p - cpu.bulk_fill_probs(cpu.create_layout(circuits)))))
+    dsum = float(np.max(np.abs(p.reshape(layout.num_rows, -1).sum(axis=1) - 1)))
+    ideal = create_crosstalk_free_model(pspec, depolarization_strengths={
+        g: 0.0 for g in pspec.gate_names})
+    isim = SimpleForwardSimulator(ideal, device)
+    ilayout = isim.create_layout(circuits)
+    d_ideal = float(np.max(np.abs(ideal_probs(ilayout, isim.bulk_fill_probs(ilayout), ideals)
+                                  - 1)))
+    stab = StabilizerForwardSimulator(pspec)
+    n_stab = sum(stab.probability(c, ''.join(str(x) for x in i)) == 1.0
+                 for c, i in zip(circuits, ideals))
+    log("%s: %d circuits (depth up to %d): card vs CPU max |dp| %.3e (tol 1e-10); sums within "
+        "%.3e of 1 (tol 1e-12); the noiseless model gives the ideal outcome within %.3e of 1 "
+        "(tol 1e-10); the stabilizer simulator gives it probability 1 for %d of them"
+        % (tag, len(circuits), max(c.depth for c in circuits), dp, dsum, d_ideal, n_stab))
+    if not (dp < 1e-10 and dsum < 1e-12 and d_ideal < 1e-10 and n_stab == len(circuits)
+            and np.all(np.isfinite(p))):
+        raise SystemExit("%s: RB circuit probabilities or ideal outcomes are wrong" % tag)
+    return ideal_probs(layout, p, ideals)
+
+
+def rb_fit(tag, design, mdl, device, seed, r_max):
+    """1,000 shots of `design` simulated on the card, RandomizedBenchmarking
+    with 200 bootstraps, against the fit of the exact success probabilities
+    of the same circuits; r must lie in (0, r_max)."""
+    from pygsti_tpu_torch.algorithms.rbfit import std_least_squares_fit
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.protocols.rb import RandomizedBenchmarking
+    circuits = list(design.all_circuits_needing_data)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ds = simulate_data(mdl, circuits, 1000, seed=seed, device=device)
+    sim_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    t0 = time.time()
+    res = RandomizedBenchmarking(bootstrap_samples=200).run(ProtocolData(design, ds))
+    fit_s = time.time() - t0
+    sim = SimpleForwardSimulator(mdl, device)
+    layout = sim.create_layout(circuits)
+    ps = ideal_probs(layout, sim.bulk_fill_probs(layout),
+                     [i for l in design.idealout_lists for i in l])
+    per = len(circuits) // len(design.depths)
+    n = len(design.qubit_labels)
+    exact = std_least_squares_fit(design.depths, [float(np.mean(ps[k * per:(k + 1) * per]))
+                                                  for k in range(len(design.depths))], n)
+    r, r_std, r_exact = res.r, res.r_std, exact['estimates']['r']
+    log("%s: simulate_data(%d circuits x 1000 shots) on the card %.3f s (peak device memory "
+        "%.1f MB); RandomizedBenchmarking (200 bootstraps) %.3f s: r %.6e +/- %.3e (p %.6f), "
+        "the exact success probabilities' fit r %.6e; %d of 200 bootstraps fitted"
+        % (tag, len(circuits), sim_s, peak, fit_s, r, r_std, res.fits['full']['estimates']['p'],
+           r_exact, len(res.bootstraps['full'])))
+    if not (res.fits['full']['success'] and exact['success'] and 0 < r < r_max
+            and abs(r - r_exact) < 3 * r_std):
+        raise SystemExit("%s: the RB fit failed or missed the exact decay: r %g +/- %g, exact %g"
+                         % (tag, r, r_std, r_exact))
+    return r
+
+
+def phase_q3rb(device):
+    """Phase 18: the JAX package's bench[q3] on the card (60 direct-RB
+    circuits of a 3-qubit line from RandomState(2026), bulk probabilities
+    of a depolarized crosstalk-free model), then a 240-circuit direct-RB
+    design simulated on the card and fitted."""
+    from pygsti_tpu_torch.algorithms.randomcircuit import create_direct_rb_circuit
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+    from pygsti_tpu_torch.protocols.rb import DirectRBDesign
+
+    pspec3 = QubitProcessorSpec(3, CLOUD_GATES, geometry='line')
+    rng = np.random.RandomState(2026)
+    t0 = time.time()
+    circs, ideals = [], []
+    for depth in (0, 2, 4, 8, 16, 32):
+        for _ in range(10):
+            c, ideal = create_direct_rb_circuit(pspec3, length=depth, rand_state=rng)
+            circs.append(c)
+            ideals.append(ideal)
+    gen_s = time.time() - t0
+    mdl3 = create_crosstalk_free_model(
+        pspec3, depolarization_strengths={g: 0.01 for g in pspec3.gate_names})
+    sim = SimpleForwardSimulator(mdl3, device)
+    layout = sim.create_layout(circs)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sim.bulk_fill_probs(layout)
+    cold = time.time() - t0
+    t0 = time.time()
+    sim.bulk_fill_probs(layout)
+    warm = time.time() - t0
+    log("q3rb: bench[q3]: %d direct-RB circuits on QubitProcessorSpec(3, %s, 'line') from "
+        "RandomState(2026) in %.2f s on the host (depth up to %d, %d distinct layers); bulk "
+        "probabilities of the crosstalk-free model (depolarized 0.01) on the card cold %.3f s, "
+        "warm %.4f s (%.1f circuits/s on %s)"
+        % (len(circs), CLOUD_GATES, gen_s, max(c.depth for c in circs), len(mdl3.op_keys),
+           cold, warm, len(circs) / warm, card_name_and_limit()))
+    rb_checks('q3rb', pspec3, circs, ideals, mdl3, device)
+    t0 = time.time()
+    design = DirectRBDesign(pspec3, depths=(0, 2, 4, 8, 16, 32, 64, 128), circuits_per_depth=30,
+                            seed=2027)
+    log("q3rb: DirectRBDesign(depths 0..128, 30 circuits each): %d circuits, depth up to %d, "
+        "in %.2f s on the host" % (len(design.all_circuits_needing_data),
+                                   max(c.depth for c in design.all_circuits_needing_data),
+                                   time.time() - t0))
+    rb_checks('q3rb[design]', pspec3, list(design.all_circuits_needing_data),
+              [i for l in design.idealout_lists for i in l], mdl3, device)
+    rb_fit('q3rb[design]', design, mdl3, device, seed=2028, r_max=0.2)
+
+
+def phase_crb2(device):
+    """Phase 19: Clifford RB on 2 qubits, simulated on the card and fitted;
+    mirror-RB circuits of one depth come back to their ideal outcomes."""
+    from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+    from pygsti_tpu_torch.protocols.rb import CliffordRBDesign, MirrorRBDesign
+
+    pspec2 = QubitProcessorSpec(2, CLOUD_GATES, geometry='line')
+    mdl2 = create_crosstalk_free_model(
+        pspec2, depolarization_strengths={g: 0.01 for g in pspec2.gate_names})
+    t0 = time.time()
+    design = CliffordRBDesign(pspec2, depths=(0, 1, 2, 4, 8, 16, 32, 64), circuits_per_depth=30,
+                              seed=2029)
+    circuits = list(design.all_circuits_needing_data)
+    log("crb2: CliffordRBDesign(2 qubits, depths 0..64, 30 circuits each): %d circuits, depth "
+        "up to %d, in %.2f s on the host"
+        % (len(circuits), max(c.depth for c in circuits), time.time() - t0))
+    rb_checks('crb2', pspec2, circuits, [i for l in design.idealout_lists for i in l], mdl2,
+              device)
+    # a compiled 2-qubit Clifford is tens of native gates, each depolarized
+    # 0.01, so the exact decay itself gives r near 0.24: the bound is 0.5
+    rb_fit('crb2', design, mdl2, device, seed=2030, r_max=0.5)
+    mirror = MirrorRBDesign(pspec2, depths=(16,), circuits_per_depth=30, seed=2031)
+    rb_checks('crb2[mirror]', pspec2, list(mirror.all_circuits_needing_data),
+              mirror.idealout_lists[0], mdl2, device)
+
+
+def phase_cloudfit3(device):
+    """Phase 20: phase 16 at 3 qubits: a 534-parameter cloud-noise fit
+    whose op stack (d 64) the kernel reads from global memory; returns
+    (launches, kernel numbers at the layout's buckets)."""
+    from pygsti_tpu_torch.algorithms.core import run_gst_fit_simple
+    from pygsti_tpu_torch.circuits.cloudcircuitconstruction import create_cloudnoise_circuits
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.models.cloudnoisemodel import \
+        create_cloud_crosstalk_model_from_hops_and_weights
+    from pygsti_tpu_torch.objectivefns.objectivefns import two_delta_logl
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate, g_in_shared_memory
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+
+    spec = QubitProcessorSpec(3, CLOUD_GATES, geometry='line')
+    maxls = [L for L in (1, 2, 4, 8, 16, 32, 64) if L <= CLOUD3_MAXL]
+    t0 = time.time()
+    struct = create_cloudnoise_circuits(spec, maxls, CLOUD_FIDS, max_idle_weight=1, maxhops=1,
+                                        extra_gate_weight=1, seed=3, device=device)
+    circuits = list(struct)
+    design_s = time.time() - t0
+
+    def cloud_model():
+        return create_cloud_crosstalk_model_from_hops_and_weights(
+            spec, maxhops=1, max_idle_weight=1, extra_gate_weight=1, gate_type='H+s')
+    truth = cloud_model()
+    vt = 0.002 * np.abs(np.random.RandomState(16).randn(truth.num_params))
+    lbls = truth.idle_member.errorgen.blocks[0].basis_element_labels
+    planted = truth.idle_member.gpindices.start + lbls.index('XII')
+    vt[planted] = 0.03
+    truth.from_vector(vt)
+    ds = simulate_data(truth, circuits, 1000, seed=1616, device=device)
+    start = cloud_model()
+    layout = SimpleForwardSimulator(start, device).create_layout(circuits, ds)
+    K1 = len(start.op_keys) + 1
+    n_par = sum(len(k.components) > 1 for k in start.op_keys)
+    n_out = layout.num_elements // layout.num_rows
+    G = torch.zeros((K1, start.dim, start.dim), dtype=torch.float64, device=device)
+    shared = g_in_shared_memory(G, n_out)
+    optin = getattr(torch.cuda.get_device_properties(device), 'shared_memory_per_block_optin',
+                    None)
+    log("cloudfit3: create_cloudnoise_circuits(3 qubits, maxL %s, maxhops 1, extra gate weight "
+        "1, seed 3) on the card: %d circuits, depth up to %d, %d germs, in %.2f s; model %d "
+        "parameters, K1 %d (%d parallel layers), d %d, %d outcomes; the op stack G is %d bytes "
+        "in float64 against %s bytes of shared memory a block may opt in to: the kernel keeps "
+        "it in %s memory"
+        % (maxls[-1], len(circuits), max(c.depth for c in circuits), len(struct.ys), design_s,
+           start.num_params, K1, n_par, start.dim, n_out, G.numel() * 8, optin,
+           'shared' if shared else 'global'))
+    if start.num_params != 534 or start.dim != 64 or shared:
+        raise SystemExit("unexpected 3-qubit cloud model, or its op stack in shared memory")
+    kernel = hold_kernel_at_buckets(layout, start, device, 'cloudfit3')
+    errs, kms, kplain, keinsum, kbound, shapes = kernel
+    log("cloudfit3: kernel bwd_jacobian at this layout's %d bucket shapes %s: max rel err f64 "
+        "%.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per Jacobian f64 against a bound of "
+        "%.4f ms (%.1f%% of it; G read through L2, not counted); plain %.2f ms, einsum "
+        "yardstick %.2f ms"
+        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], kms, kbound,
+           100 * kbound / kms, kplain, keinsum))
+    x = torch.as_tensor(vt, device=device)
+    t0 = time.time()
+    Tv = start.flat_tensors_jacobian_fn()(x)
+    torch.cuda.synchronize()
+    tv_s = time.time() - t0
+    dTv = float((Tv - torch.func.jacfwd(start.flat_tensors_fn())(x)).abs().max())
+    log("cloudfit3: Tv [%d x %d] by the leaves' jvp and the product rule on the card in %.3f s; "
+        "against torch.func.jacfwd max |d| %.3e (tol 1e-12)" % (*Tv.shape, tv_s, dTv))
+    if not dTv < 1e-12:
+        raise SystemExit("the 3-qubit implicit model's Tv disagrees with jacfwd")
+    del Tv
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    t0 = time.time()
+    iters = []
+    for name in ('chi2', 'logl'):
+        result, objective = run_gst_fit_simple(ds, start, circuits, {'maxiter': LM_MAXITER},
+                                               name, device=device)
+        q = result.optimizer_specific_qtys
+        iters.append(q['iterations'])
+        log("cloudfit3: %s from %s: %d LM iterations, %.3f s, objective %.6f, jac_mode %s, %s"
+            % (name, 'zero' if name == 'chi2' else 'the chi2 fit', q['iterations'],
+               q['wall_s'], result.f, objective.jac_mode, q['msg']))
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    launches = bwd_jacobian_accumulate.launches
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    tdl_fit = two_delta_logl(start, ds, circuits, device=device)
+    tdl_truth = two_delta_logl(truth, ds, circuits, device=device)
+    k = ds.degrees_of_freedom(circuits) - start.num_params
+    nsig = (tdl_fit - k) / np.sqrt(2 * k)
+    rate = float(start.to_vector()[planted])
+    log("cloudfit3: %d + %d LM iterations in %.3f s; kernel launches {'bwd_jacobian': %d}; "
+        "2*DeltaLogL %.6f (the truth's %.6f), k %d, N_sigma %.4f; planted idle H_X on qubit 0 "
+        "0.03, fitted %.6f; peak device memory %.1f MB"
+        % (iters[0], iters[1], fit_s, launches, tdl_fit, tdl_truth, k, nsig, rate, peak))
+    if launches == 0:
+        raise SystemExit("the 3-qubit cloud-noise fit never launched the bwd_jacobian kernel")
+    if not (abs(rate - 0.03) < 0.01 and tdl_fit < tdl_truth + 10 and abs(nsig) < 10):
+        raise SystemExit("the 3-qubit cloud-noise fit missed the planted rate or the optimum")
+    return launches, kernel
+
+
+def rb_and_cloud3_phases(device):
+    """Phases 18-20; returns the 3-qubit cloud fit's kernel launches."""
+    t0 = time.time()
+    phase_q3rb(device)
+    t1 = time.time()
+    phase_crb2(device)
+    t2 = time.time()
+    launches, _ = phase_cloudfit3(device)
+    t3 = time.time()
+    log("phases 18, 19 and 20: %.1f s, %.1f s and %.1f s of the script's wall time"
+        % (t1 - t0, t2 - t1, t3 - t2))
+    return launches
 
 
 def implicit_phases(device):
@@ -1659,27 +1958,29 @@ def main():
     # -- the state-vector simulator
     cloud_launches = implicit_phases(device)
 
+    # -- randomized benchmarking, then the 3-qubit blocked fit ---------------
+    cloud3_launches = rb_and_cloud3_phases(device)
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
         "source": "pygsti_tpu_torch/csrc/bwd_jacobian.cu",
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
-        + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches,
+        + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
+        + cloud3_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
                                   "qutrit fit": qutrit_launches}, **obj_launches,
-                                 **{"cloud-noise fit": cloud_launches}),
+                                 **{"cloud-noise fit": cloud_launches,
+                                    "3-qubit cloud-noise fit": cloud3_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum
         # formulation is reported beside it as a yardstick only
         "library_ms": None, "einsum_yardstick_ms": r64['einsum_ms']}]}))
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True, text=True,
-                         check=True, timeout=60).stdout.strip().splitlines()[0]
-    log(smi)
+    log(card_name_and_limit())
     log(json.dumps({"ok": True, "device": {"platform": "gpu",
                                            "kind": torch.cuda.get_device_name(0),
                                            "count": torch.cuda.device_count()}}))

@@ -162,6 +162,16 @@ class Circuit(object):
             layers.extend(repl.layertup if repl is not None else (layer,))
         return Circuit(tuple(layers), self._line_labels)
 
+    def num_nq_gates(self, nq):
+        """The number of gates that act on exactly `nq` lines."""
+        return sum(1 for layer in self._layers
+                   for c in ((layer,) if layer.is_simple else layer.components)
+                   if c.sslbls is not None and len(c.sslbls) == nq)
+
+    def two_q_gate_count(self):
+        """The number of two-qubit gates: the Clifford compilers' cost."""
+        return self.num_nq_gates(2)
+
     def map_state_space_labels(self, mapper):
         """This circuit with every state-space label s of its layers and
         lines replaced by mapper[s] (or mapper(s) for a function)."""

@@ -44,9 +44,19 @@
 //   A slot passes from its chain warp to the bulk warps and back through two
 //   named barriers (full: bar.arrive by the chain warp, bar.sync by the
 //   bulk; empty: the reverse), so a chain warp starts its next circuit while
-//   the bulk warps store the last one.  The op stack G is loaded once per
-//   block.  The summation order is fixed (by op, then by layer), so two
-//   launches give bitwise equal results.
+//   the bulk warps store the last one.  The summation order is fixed (by op,
+//   then by layer), so two launches give bitwise equal results.
+//
+// Where the op stack G lives (template flag GS).  Where G (K1 x d^2 values)
+// takes at most half the shared memory a block may opt in to on the device
+// and fits beside one layer's buffers, each block copies G into shared
+// memory once (GS = true: every 2-qubit and qutrit shape).  Otherwise G
+// stays in global memory (GS = false) and the chain warps read the columns
+// G[k][:, j] they need through the read-only path (__ldg); the bulk warps
+// never read G.  At d 64 a stack of 10-30 ops
+// is 0.3-1 MB, which stays resident in the H100's 50 MB L2, so those reads
+// cost L2 bandwidth rather than HBM bandwidth.  Shared memory then holds
+// only the slots and the warps' buffers, chunked as below.
 //
 // Shapes.  d = 16, NOUT = 4 (2 qubits) has a compile-time path; any other d
 // and NOUT take a path that reads them at run time.  Any depth: where the
@@ -54,9 +64,9 @@
 // DC layers from the top; the chain carries Bc across chunks and the bulk
 // adds each chunk into A (a read of the thread's own earlier store).  Any B:
 // the grid has at most B blocks and each block takes every gridDim.x-th
-// circuit.  A shape whose op stack plus one layer does not fit the shared
-// memory a block may opt in to on the device is refused: the launcher
-// returns minus the bytes it would need.
+// circuit.  A shape whose buffers for one layer do not fit the shared memory
+// a block may opt in to, even with G in global memory, is refused: the
+// launcher returns minus the bytes it would need.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -98,20 +108,21 @@ __device__ __forceinline__ void bar_arrive(int id, int n) {
 
 __host__ __device__ inline size_t up16(size_t x) { return (x + 15) & ~size_t(15); }
 
-// Byte offsets in shared memory for chunks of DC layers.  Slot s (one per
-// chain warp) starts at slot0 + s * slot_bytes; the chain warp's own buffers
-// at warp0 + s * warp_bytes.
+// Byte offsets in shared memory for chunks of DC layers, with G at offset 0
+// when it lives there (g_shared).  Slot s (one per chain warp) starts at
+// slot0 + s * slot_bytes; the chain warp's own buffers at warp0 + s *
+// warp_bytes.
 struct Layout {
   size_t g, slot0, slot_bytes, stash, f, seg_t, seg_start;
   size_t warp0, warp_bytes, carry, ce, ce_bytes, ce_e, total;
 };
 
 template <typename T>
-__host__ __device__ inline Layout layout(int DC, int K1, int d, int NOUT) {
+__host__ __device__ inline Layout layout(int DC, int K1, int d, int NOUT, bool g_shared) {
   const size_t NOUTp = NOUT + (NOUT & 1);
   Layout L;
   L.g = 0;
-  L.slot0 = up16(sizeof(T) * K1 * d * d);
+  L.slot0 = g_shared ? up16(sizeof(T) * K1 * d * d) : 0;
   size_t o = 0;
   L.stash = o;     o = up16(o + sizeof(T) * DC * d * NOUTp);
   L.f = o;         o = up16(o + sizeof(T) * DC * d);
@@ -160,10 +171,18 @@ __device__ __forceinline__ void warp_copy_async(void* sdst, const void* gsrc, in
   for (int x = (done >> 2) + lane; x < (nbytes >> 2); x += 32) cp_async4(s + 4 * x, g + 4 * x);
 }
 
+// One value of the op stack: from shared memory (GS), or from global memory
+// through the read-only data path.
+template <bool GS, typename T>
+__device__ __forceinline__ T ld_g(const T* p) {
+  if constexpr (GS) return *p;
+  else return __ldg(p);
+}
+
 // DT, NT: d and NOUT known at compile time (the fast path: NT / 2 * DT = 32,
 // so each chain lane owns one column j of one outcome pair); 0, 0: any d and
-// NOUT, read at run time.
-template <typename T, int DT, int NT>
+// NOUT, read at run time.  GS: G in shared memory (true) or global (false).
+template <typename T, int DT, int NT, bool GS>
 __global__ void __launch_bounds__(kThreads, 1)
 bwd_jacobian_kernel(const int32_t* __restrict__ cols, const T* __restrict__ G,
                     const T* __restrict__ E, const T* __restrict__ F,
@@ -173,8 +192,8 @@ bwd_jacobian_kernel(const int32_t* __restrict__ cols, const T* __restrict__ G,
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = DT ? DT : d_rt;
   const int NOUT = NT ? NT : nout_rt;
-  const Layout L = layout<T>(DC, K1, d, NOUT);
-  T* g = reinterpret_cast<T*>(smem + L.g);
+  const Layout L = layout<T>(DC, K1, d, NOUT, GS);
+  const T* g = GS ? reinterpret_cast<const T*>(smem + L.g) : G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int NOUTp = NOUT + (NOUT & 1);
   const int S = d * NOUTp;               // one stash row, [i][n]
@@ -182,8 +201,11 @@ bwd_jacobian_kernel(const int32_t* __restrict__ cols, const T* __restrict__ G,
   const int nch = (D + DC - 1) / DC;
   const int M = (B - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1;
 
-  for (int x = tid; x < K1 * dd; x += kThreads) g[x] = G[x];
-  __syncthreads();
+  if constexpr (GS) {
+    T* gs = reinterpret_cast<T*>(smem + L.g);
+    for (int x = tid; x < K1 * dd; x += kThreads) gs[x] = G[x];
+    __syncthreads();
+  }
 
   if (warp < kSlots) {
     // ---- chain warp: circuits m = warp, warp + kSlots, ... of this block
@@ -255,12 +277,12 @@ bwd_jacobian_kernel(const int32_t* __restrict__ cols, const T* __restrict__ G,
           int k = cs[nt - 1];
           bool valid = static_cast<unsigned>(k) < static_cast<unsigned>(K1);
 #pragma unroll
-          for (int i = 0; i < DT; ++i) gc[i] = g[(valid ? k : 0) * dd + i * DT + j];
+          for (int i = 0; i < DT; ++i) gc[i] = ld_g<GS>(g + (valid ? k : 0) * dd + i * DT + j);
           for (int r = nt - 1; r >= 0; --r) {
             const int kn = r > 0 ? cs[r - 1] : 0;
             const bool vn = static_cast<unsigned>(kn) < static_cast<unsigned>(K1);
 #pragma unroll
-            for (int i = 0; i < DT; ++i) gn[i] = g[(vn ? kn : 0) * dd + i * DT + j];
+            for (int i = 0; i < DT; ++i) gn[i] = ld_g<GS>(g + (vn ? kn : 0) * dd + i * DT + j);
             const T* row = stash + r * S + 2 * np;
             T a[4] = {T(0), T(0), T(0), T(0)}, q[4] = {T(0), T(0), T(0), T(0)};
 #pragma unroll
@@ -292,7 +314,7 @@ bwd_jacobian_kernel(const int32_t* __restrict__ cols, const T* __restrict__ G,
               T acc = T(0);
               if (valid) {
                 const T* gk = g + k * dd + j;
-                for (int i = 0; i < d; ++i) acc += row[i * NOUTp + n] * gk[i * d];
+                for (int i = 0; i < d; ++i) acc += row[i * NOUTp + n] * ld_g<GS>(gk + i * d);
               }
               dst[j * NOUTp + n] = acc;
             }
@@ -386,35 +408,42 @@ bwd_jacobian_kernel(const int32_t* __restrict__ cols, const T* __restrict__ G,
   }
 }
 
-template <typename T, int DT, int NT>
+// The device's SM count and the shared memory a block may opt in to, asked
+// once per device.
+int device_limits(int* dev, int* sms, size_t* smem_max) {
+  cudaError_t err = cudaGetDevice(dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (*dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static int sm_count[64], smem_optin[64];
+  if (sm_count[*dev] == 0) {
+    int optin = 0, count = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, *dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, *dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_optin[*dev] = optin;
+    sm_count[*dev] = count;
+  }
+  *sms = sm_count[*dev];
+  *smem_max = smem_optin[*dev];
+  return 0;
+}
+
+template <typename T, int DT, int NT, bool GS>
 int launch_shape(const void* cols, const void* G, const void* E, const void* F,
                  void* A, void* b_final, int B, int D, int K1, int d, int NOUT,
-                 void* stream) {
-  auto kernel = bwd_jacobian_kernel<T, DT, NT>;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  static int sms[64], smem_optin[64];
-  static size_t granted[64];
-  if (sms[dev] == 0) {
-    int optin = 0, count = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_optin[dev] = optin;
-    sms[dev] = count;
-  }
-  const size_t smem_max = smem_optin[dev];
+                 int dev, int sms, size_t smem_max, void* stream) {
+  auto kernel = bwd_jacobian_kernel<T, DT, NT, GS>;
   // chunks of equal length, as long as the shared memory allows
   int DC = D;
-  while (DC > 1 && layout<T>(DC, K1, d, NOUT).total > smem_max) {
+  while (DC > 1 && layout<T>(DC, K1, d, NOUT, GS).total > smem_max) {
     const int nch = (D + DC - 1) / DC + 1;
     DC = (D + nch - 1) / nch;
   }
-  const size_t smem = layout<T>(DC, K1, d, NOUT).total;
+  const size_t smem = layout<T>(DC, K1, d, NOUT, GS).total;
   if (smem > smem_max) return -static_cast<int>(smem);
+  static size_t granted[64];
+  cudaError_t err;
   if (smem > 48 * 1024 && smem > granted[dev]) {
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
@@ -437,12 +466,35 @@ int launch_shape(const void* cols, const void* G, const void* E, const void* F,
     occ_smem[dev][s] = smem;
     occ_blocks[dev][s] = per_sm;
   }
-  const long grid = B < (long)sms[dev] * per_sm ? B : (long)sms[dev] * per_sm;
+  const long grid = B < (long)sms * per_sm ? B : (long)sms * per_sm;
   kernel<<<static_cast<unsigned>(grid), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(cols), static_cast<const T*>(G), static_cast<const T*>(E),
       static_cast<const T*>(F), static_cast<T*>(A), static_cast<T*>(b_final),
       B, D, K1, d, NOUT, DC);
   return static_cast<int>(cudaGetLastError());
+}
+
+// G in shared memory where it takes at most half of it and fits beside one
+// layer's buffers (so that the chunks keep at least half), else global.
+template <typename T>
+bool g_fits_shared(int K1, int d, int NOUT, size_t smem_max) {
+  return 2 * sizeof(T) * K1 * d * d <= smem_max
+      && layout<T>(1, K1, d, NOUT, true).total <= smem_max;
+}
+
+template <typename T, int DT, int NT>
+int launch_route(const void* cols, const void* G, const void* E, const void* F,
+                 void* A, void* b_final, int B, int D, int K1, int d, int NOUT,
+                 void* stream) {
+  int dev = 0, sms = 0;
+  size_t smem_max = 0;
+  const int err = device_limits(&dev, &sms, &smem_max);
+  if (err != 0) return err;
+  if (g_fits_shared<T>(K1, d, NOUT, smem_max))
+    return launch_shape<T, DT, NT, true>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT,
+                                         dev, sms, smem_max, stream);
+  return launch_shape<T, DT, NT, false>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT,
+                                        dev, sms, smem_max, stream);
 }
 
 template <typename T>
@@ -452,8 +504,8 @@ int launch(const void* cols, const void* G, const void* E, const void* F,
   if (B <= 0 || D <= 0 || K1 <= 0 || d <= 0 || NOUT <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (d == 16 && NOUT == 4)
-    return launch_shape<T, 16, 4>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT, stream);
-  return launch_shape<T, 0, 0>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT, stream);
+    return launch_route<T, 16, 4>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT, stream);
+  return launch_route<T, 0, 0>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT, stream);
 }
 
 }  // namespace
@@ -472,4 +524,16 @@ extern "C" int bwd_jacobian_accumulate_f32(const void* cols, const void* G,
                                            int D, int K1, int d, int NOUT,
                                            void* stream) {
   return launch<float>(cols, G, E, F, A, b_final, B, D, K1, d, NOUT, stream);
+}
+
+// The route a launch on the current device takes for this shape: 1 with G in
+// shared memory, 0 with G in global memory, minus a CUDA error code if the
+// device cannot be asked.  value_bytes is 8 (float64) or 4 (float32).
+extern "C" int bwd_jacobian_g_in_shared(int value_bytes, int K1, int d, int NOUT) {
+  int dev = 0, sms = 0;
+  size_t smem_max = 0;
+  const int err = device_limits(&dev, &sms, &smem_max);
+  if (err != 0) return -err;
+  return value_bytes == 8 ? g_fits_shared<double>(K1, d, NOUT, smem_max)
+                          : g_fits_shared<float>(K1, d, NOUT, smem_max);
 }

@@ -16,7 +16,11 @@ package's rule (``jac_mode=None``):
   'blocked'   every row has the same number of elements and none is
               omitted: rows grouped into depth buckets, a forward scan per
               bucket, the backward accumulation of ops/bwd_jacobian.py, a
-              per-bucket Gram, and one chain through Tv = d tensors / d v;
+              per-bucket Gram, and one chain through Tv = d tensors / d v
+              (where the [NT, NT] Gram of the tensor entries would pass
+              JAC_BLOCK_BYTES and the model has fewer parameters than
+              entries, as at 3 qubits, each block is chained through Tv
+              first and the Gram taken over the parameters);
   'linearize' any other layout (sparse outcomes): P forward-mode tangents
               of the probabilities, pushed through the scan in chunks,
               then one Gram.  The JAX package's 'fwd' computes the same J
@@ -1285,12 +1289,19 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         return tuple(torch.nn.functional.pad(a[idx], (0, pad))
                      for a in (counts, totals, freqs))
 
+    # the Gram over the parameters where the one over the tensor entries
+    # would be large and the parameters fewer (3-qubit models: NT 10^5)
+    chain_first = NT * NT * torch.finfo(DTYPE).bits // 8 > JAC_BLOCK_BYTES \
+        and model.num_params < NT
+
     @torch.no_grad()
     def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
         tf = compute_flat(v)
         Tv = tensors_jacobian(v)                          # [NT, P]
-        M = torch.zeros((NT, NT), dtype=v.dtype, device=device)
-        q = torch.zeros(NT, dtype=v.dtype, device=device)
+        side = Tv.shape[1] if chain_first else NT
+        M = torch.zeros((side, side), dtype=v.dtype, device=device)
+        q = torch.zeros(side, dtype=v.dtype, device=device)
+        Tvj = Tv.to(j_dtype) if chain_first else None
         ls_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)
@@ -1298,6 +1309,8 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
             p = p.to(v.dtype)
             ls = raw.lsvec(p, cb, tb, fb, flag, regs)
             Jw = raw.dlsvec(p, cb, tb, fb, flag, regs).to(j_dtype)[:, None] * Jt
+            if chain_first:
+                Jw = Jw @ Tvj                             # [rows, P]
             # the per-bucket Gram runs at the Jacobian dtype, the sum across
             # buckets at the model dtype: float32 accumulation of the partial
             # Grams degraded LM convergence on the TPU (Nsigma 500 -> 1039)
@@ -1305,6 +1318,8 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
             q += (Jw.T @ ls.to(j_dtype)).to(v.dtype)
             ls_parts.append(ls[:bk['nk'] * n_out])
         ls = torch.cat(ls_parts)[inv_perm]
+        if chain_first:
+            return ls, M, q
         return ls, Tv.T @ (M @ Tv), Tv.T @ q
 
     @torch.no_grad()

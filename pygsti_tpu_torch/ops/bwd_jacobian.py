@@ -8,6 +8,14 @@ the CPU.  On a CUDA tensor it launches the kernel or raises; it never falls
 back to the plain version.  An op index outside ``[0, K1)`` selects no op,
 as the JAX reference's one-hot contraction does: that layer adds nothing to
 A and zeroes the back-propagated effect.
+
+The kernel keeps the op stack G in a block's shared memory where G takes at
+most half of what a block may opt in to and fits beside one layer's buffers
+(every 2-qubit and qutrit shape), and reads G from global memory otherwise
+(d 64 at 3 qubits; d 16 with more than 56 ops in float64 on an H100).  It
+refuses, with ``ValueError``, only a shape whose buffers for one layer
+exceed the shared memory a block may opt in to even with G in global
+memory.
 """
 
 from __future__ import annotations
@@ -78,6 +86,25 @@ def _kernel(dtype):
     return fn
 
 
+def g_in_shared_memory(G, NOUT):
+    """Whether the kernel keeps this op stack G [K1, d, d] (on a CUDA
+    device) in shared memory for NOUT outcomes (True) or reads it from
+    global memory (False); see the module note."""
+    if G.device.type != 'cuda':
+        raise ValueError("the kernel's route is a property of a CUDA device")
+    _kernel(G.dtype)
+    from pygsti_tpu_torch.ops.build import load_library
+    fn = load_library('bwd_jacobian').bwd_jacobian_g_in_shared
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    K1, d, _ = G.shape
+    with torch.cuda.device(G.device):
+        r = fn(G.element_size(), K1, d, NOUT)
+    if r not in (0, 1):
+        raise RuntimeError("bwd_jacobian: CUDA error %d asking the device" % -r)
+    return r == 1
+
+
 def bwd_jacobian_accumulate(cols, G, E, F):
     """(A [B, NOUT, K1, d, d], B_final [B, NOUT, d]); see the module note.
 
@@ -104,11 +131,12 @@ def bwd_jacobian_accumulate(cols, G, E, F):
     with torch.cuda.device(G.device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err < 0:
-        raise ValueError("bwd_jacobian: the op stack G [%d, %d, %d] and one "
-                         "layer's buffers need %d bytes of shared memory, "
-                         "more than one block may opt in to on %s (its "
+        raise ValueError("bwd_jacobian: one layer's buffers at d %d, NOUT %d "
+                         "(K1 %d) need %d bytes of shared memory even with the "
+                         "op stack in global memory, more than one block may "
+                         "opt in to on %s (its "
                          "cudaDevAttrMaxSharedMemoryPerBlockOptin)"
-                         % (K1, d, d, -err, torch.cuda.get_device_name(G.device)))
+                         % (d, NOUT, K1, -err, torch.cuda.get_device_name(G.device)))
     if err != 0:
         raise RuntimeError("bwd_jacobian kernel launch failed: CUDA error %d"
                            % err)

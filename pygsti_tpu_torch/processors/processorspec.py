@@ -97,8 +97,18 @@ class QubitProcessorSpec(ProcessorSpec):
         return out
 
     def compute_clifford_symplectic_reps(self, subset=None):
-        raise NotImplementedError("compute_clifford_symplectic_reps needs tools/symplectic.py, "
-                                  "which is not ported yet (ROADMAP.md, queue 1)")
+        """{gate name: (s, p)} for the native gates that are Cliffords."""
+        from pygsti_tpu_torch.tools import symplectic
+        out = {}
+        for name in (subset if subset is not None else self.gate_names):
+            u = self.gate_unitaries.get(name)
+            if u is None:
+                continue
+            try:
+                out[name] = symplectic.unitary_to_symplectic(u)
+            except ValueError:
+                pass  # not a Clifford
+        return out
 
 
 class QuditProcessorSpec(ProcessorSpec):

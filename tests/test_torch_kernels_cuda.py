@@ -43,7 +43,22 @@ CASES = [
     (168, 19, 5, 9, 3, 'random'), (71, 35, 5, 9, 3, 'random'),
     (52, 66, 5, 9, 3, 'random'), (23, 69, 5, 9, 3, 'random'),
     (101, 69, 5, 9, 3, 'out_of_range'),
+    # op stacks beyond a block's shared memory, read from global memory: the
+    # 3-qubit cloud layout's shapes (d 64, NOUT 8, K1 12), ragged and with
+    # op indices out of range; d 16 at K1 60 (global in float64, shared in
+    # float32) and K1 128 (global in both); K1 2 at d 128 (256 KB)
+    (24, 12, 12, 64, 8, 'random'), (37, 6, 12, 64, 8, 'random'),
+    (20, 12, 12, 64, 8, 'out_of_range'),
+    (40, 20, 60, 16, 4, 'random'), (40, 20, 128, 16, 4, 'random'),
+    (3, 5, 2, 128, 1, 'random'),
 ]
+
+# (K1, d, NOUT, dtype, G in shared memory) on an H100 (227 KB a block; G
+# stays there up to half of it)
+ROUTES = [(7, 16, 4, torch.float64, True), (11, 16, 4, torch.float64, True),
+          (5, 9, 3, torch.float64, True), (12, 64, 8, torch.float64, False),
+          (12, 64, 8, torch.float32, False), (60, 16, 4, torch.float64, False),
+          (60, 16, 4, torch.float32, True), (128, 16, 4, torch.float32, False)]
 
 
 def _rel(a, b):
@@ -100,7 +115,8 @@ def test_cuda_kernel_matches_plain(card, case, dtype, tol):
 def test_cuda_kernel_is_deterministic(card, dtype):
     """Two launches on the same inputs give bitwise equal outputs: the
     summation order is fixed, with no atomics."""
-    for case in ((300, 70, 7, 16, 4, 'random'), (12, 400, 7, 16, 4, 'random')):
+    for case in ((300, 70, 7, 16, 4, 'random'), (12, 400, 7, 16, 4, 'random'),
+                 (24, 12, 12, 64, 8, 'random'), (40, 20, 128, 16, 4, 'random')):
         cols, G, E, F = _inputs(*case, dtype, seed=7)
         A, Bf = bwd_jacobian_accumulate(cols, G, E, F)
         A2, Bf2 = bwd_jacobian_accumulate(cols, G, E, F)
@@ -108,14 +124,27 @@ def test_cuda_kernel_is_deterministic(card, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES, ids=lambda r: 'K%d_d%d_n%d_%s' % (
+    r[0], r[1], r[2], str(r[3])[6:]))
+def test_cuda_kernel_route(card, route):
+    """The 2-qubit and qutrit shapes keep G in shared memory; the 3-qubit
+    shapes and long d 16 stacks read it from global memory."""
+    from pygsti_tpu_torch.ops.bwd_jacobian import g_in_shared_memory
+    K1, d, NOUT, dtype, shared = route
+    G = torch.zeros((K1, d, d), dtype=dtype, device='cuda')
+    assert g_in_shared_memory(G, NOUT) is shared
+
+
+@pytest.mark.cuda
 def test_cuda_kernel_refuses_op_stack_beyond_shared_memory(card):
-    """An op stack of 256 KB (float64, K1 2, d 128) cannot sit in one
-    block's shared memory: the wrapper raises, naming the bytes it needs
-    and the limit, and counts no launch."""
+    """Buffers for one layer at d 128 and 64 outcomes (64 KB of stash per
+    chain warp in float64) exceed one block's shared memory even with the
+    op stack in global memory: the wrapper raises, naming the bytes it
+    needs and the limit, and counts no launch."""
     dev = torch.device('cuda')
     cols = torch.zeros((2, 2), dtype=torch.int32, device=dev)
     G, E, F = (torch.zeros(s, dtype=torch.float64, device=dev)
-               for s in ((2, 128, 128), (2, 1, 128), (2, 2, 128)))
+               for s in ((2, 128, 128), (2, 64, 128), (2, 2, 128)))
     before = bwd_jacobian_accumulate.launches
     with pytest.raises(ValueError, match='bytes of shared memory.*PerBlockOptin'):
         bwd_jacobian_accumulate(cols, G, E, F)

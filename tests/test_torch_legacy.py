@@ -179,7 +179,9 @@ def test_smq_processor_spec(name):
 
 def test_processor_spec_classes():
     """QubitProcessorSpec with given unitaries and 'all-permutations',
-    QuditProcessorSpec, the compilation rules, and what stays unported."""
+    QuditProcessorSpec, the compilation rules, and the Clifford
+    representations (ported since)."""
+    from pygsti_tpu.processors import compilationrules as jcr
     from pygsti_tpu.processors import processorspec as jps
     from pygsti_tpu_torch.processors import processorspec as tps
     from pygsti_tpu_torch.processors import compilationrules as tcr
@@ -197,7 +199,12 @@ def test_processor_spec_classes():
     rules = tcr.CliffordCompilationRules.create_standard(ts)
     assert rules.native_1q == ('Gxpi2', 'Gu') and rules.has_cnot
     assert [str(l) for l in rules.word_for_cnot('a', 'b')] == ['Gcnot:a:b']
-    with pytest.raises(NotImplementedError):
-        ts.compute_clifford_symplectic_reps()
-    with pytest.raises(NotImplementedError):
-        rules.word_for_1q('H', 'a')
+    jreps, treps = js.compute_clifford_symplectic_reps(), ts.compute_clifford_symplectic_reps()
+    assert list(treps) == list(jreps) == ['Gxpi2', 'Gcnot', 'Gu', '{idle}']
+    assert all(np.array_equal(a, b) for k in jreps for a, b in zip(jreps[k], treps[k]))
+    # the compilers know the standard gates only: a native gate given as a
+    # unitary ('Gu') raises KeyError in both packages (ROADMAP.md section 3)
+    jrules = jcr.CliffordCompilationRules.create_standard(js)
+    for r in (rules, jrules):
+        with pytest.raises(KeyError):
+            r.word_for_1q('H', 'a')
