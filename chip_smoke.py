@@ -101,7 +101,18 @@ Phases, each fatal on failure:
                 outcomes): the op stack beyond a block's shared memory, read
                 by the kernel from global memory; the kernel at this
                 layout's buckets, Tv against jacfwd, the fit, its own launch
-                count
+                count; the card's design at maxL 2 against the CPU path's count
+ 21. statistics -- phase 3's 'full' estimate: the Gauss-Newton Hessian
+                through the kernel (against its plain version and finite
+                differences), the exact Hessian (symmetry, finite
+                differences, time, peak memory), the non-gauge dimension,
+                the four projections, 95% error bars of two gates'
+                infidelities from both Hessians, a linear-response error
+                bar; a fit of data that drift between two over-rotations
+                through GateSetTomography.run with the bad-fit actions
+                'wildcard1d', 'wildcard' and 'Robust+' (N_sigma above 2, the
+                budgets at their thresholds, the water-fill card against
+                CPU); the Fisher information by L; its own launch count
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1184,6 +1195,11 @@ CLOUD_FIDS = [(), ('Gxpi2',), ('Gypi2',), ('Gxpi2', 'Gxpi2')]
 CLOUD_MAXL = 64
 # phase 20's depth cut: the 3-qubit design's longest germ power
 CLOUD3_MAXL = 64
+# circuits of phase 20's design at maxL 2 on the CPU path:
+# create_cloudnoise_circuits(QubitProcessorSpec(3, CLOUD_GATES, geometry='line'), [1, 2],
+# CLOUD_FIDS, max_idle_weight=1, maxhops=1, extra_gate_weight=1, seed=3, device='cpu')
+# (about 5 minutes on one CPU)
+CLOUD3_CPU_MAXL2 = 323
 # phase 15's two sizes: (circuits, one-qubit layers per circuit)
 CLOUD5_SIZES = ((40, 6), (1000, 24))
 
@@ -1612,6 +1628,12 @@ def phase_cloudfit3(device):
                                         extra_gate_weight=1, seed=3, device=device)
     circuits = list(struct)
     design_s = time.time() - t0
+    maxl2 = len(dict.fromkeys(c for (L, _), plaq in struct.plaquettes.items() if L <= 2
+                              for c in plaq.circuits))
+    log("cloudfit3: the card's design at maxL 2 holds %d circuits, the CPU path's %d"
+        % (maxl2, CLOUD3_CPU_MAXL2))
+    if maxl2 != CLOUD3_CPU_MAXL2:
+        raise SystemExit("the card's 3-qubit cloud design differs from the CPU path's")
 
     def cloud_model():
         return create_cloud_crosstalk_model_from_hops_and_weights(
@@ -1692,6 +1714,253 @@ def phase_cloudfit3(device):
     if not (abs(rate - 0.03) < 0.01 and tdl_fit < tdl_truth + 10 and abs(nsig) < 10):
         raise SystemExit("the 3-qubit cloud-noise fit missed the planted rate or the optimum")
     return launches, kernel
+
+
+def over_rotated(model, angle):
+    """`model` with Gxpi2:0 and Gxpi2:1 followed by exp(-i angle/2 X) on
+    their qubit: an over-rotation by `angle` rad."""
+    import scipy.linalg
+    from pygsti_tpu_torch.modelmembers.operations import FullTPOp
+    from pygsti_tpu_torch.tools.optools import unitary_to_superop
+    m = model.copy()
+    rx = scipy.linalg.expm(-0.5j * angle * np.array([[0, 1], [1, 0]]))
+    for q, u in ((0, np.kron(rx, np.eye(2))), (1, np.kron(np.eye(2), rx))):
+        lbl = next(k for k in m.operations if k == ('Gxpi2', q))
+        m.operations[lbl] = FullTPOp(np.real(unitary_to_superop(u, 'pp'))
+                                     @ m.operations[lbl].dense())
+    return m
+
+
+def phase_statistics(mp, est, target, datagen, lists, builders, device):
+    """Phase 21: the estimate's error bars and bad-fit handling at full
+    width: phase 3's 'full' estimate's Hessians (Gauss-Newton through the
+    kernel, exact by forward over reverse in chunks), the non-gauge space,
+    the four projections, error bars of two gates' infidelities, linear
+    response; a fit of drifting data (two over-rotations of opposite sign)
+    with the bad-fit actions 'wildcard1d', 'wildcard' and 'Robust+'; the
+    Fisher information by L.  Returns the kernel launches of the phase."""
+    from pygsti_tpu_torch.objectivefns import objectivefns as objfns
+    from pygsti_tpu_torch.objectivefns.wildcardbudget import WaterfillPlan, _WildcardObjective
+    from pygsti_tpu_torch.ops.bwd_jacobian import (bwd_jacobian_accumulate,
+                                                   bwd_jacobian_accumulate_plain)
+    from pygsti_tpu_torch.protocols.confidenceregionfactory import ConfidenceRegionFactory
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.models.nongauge import nongauge_and_gauge_spaces
+    from pygsti_tpu_torch.tools.edesigntools import (calculate_fisher_information_matrices_by_L,
+                                                     calculate_fisher_information_matrix,
+                                                     calculate_fisher_information_per_circuit)
+    from pygsti_tpu_torch.tools.optools import entanglement_infidelity
+    import scipy.stats as st
+    t_phase = time.time()
+    launches = 0
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    # -- (a) the 'full' estimate's Hessians, projections and error bars ----
+    bwd_jacobian_accumulate.launches = 0
+    crf = est.create_confidence_region_factory()
+    obj, t_obj = timed(crf.objective)
+    model = crf.model
+    v0 = model.to_vector()
+    H_a, ta = timed(lambda: crf.compute_hessian(approximate=True))
+    ka = bwd_jacobian_accumulate.launches
+    with torch.no_grad():
+        p = obj._fns['probs'](obj._v(None))
+        h = obj.raw_objfn.hterms(p, *obj._data)
+    _, t_gram = timed(lambda: obj.weighted_gram(h))
+    _, t_grad = timed(obj.gradient)
+    objfns.bwd_jacobian_accumulate = bwd_jacobian_accumulate_plain
+    try:
+        H_plain = obj.weighted_gram(h)
+    finally:
+        objfns.bwd_jacobian_accumulate = bwd_jacobian_accumulate
+    rel_plain = float(np.max(np.abs(H_a - H_plain)) / np.max(np.abs(H_plain)))
+    rng = np.random.RandomState(2110)
+    eps = 1e-6
+    fd_a = []
+    for _ in range(4):
+        u = rng.randn(len(v0))
+        u /= np.linalg.norm(u)
+        Ju = (obj.probs(v0 + eps * u) - obj.probs(v0 - eps * u)) / (2 * eps)
+        quad = float(np.sum(h.cpu().numpy() * Ju ** 2))
+        fd_a.append(abs(u @ H_a @ u - quad) / abs(quad))
+    log("statistics: the objective (layout, data on the card) in %.3f s; approximate Hessian "
+        "[%d x %d] (J^T diag(hterms) J through the kernel, %d launches) with the gradient in "
+        "%.3f s the first time; warm, the weighted Gram %.4f s and the gradient %.4f s; against "
+        "the plain version on the card max rel %.3e (tol 1e-12); u^T H u against sum h (J u)^2 "
+        "with J u by central differences of the probabilities (h 1e-6) along 4 seeded "
+        "directions: rel %s (tol 1e-6)"
+        % (t_obj, H_a.shape[0], H_a.shape[1], ka, ta, t_gram, t_grad, rel_plain,
+           ['%.2e' % x for x in fd_a]))
+    if not (ka > 0 and rel_plain < 1e-12 and max(fd_a) < 1e-6):
+        raise SystemExit("the approximate Hessian disagrees with its plain version or with "
+                         "finite differences")
+    crf_e = ConfidenceRegionFactory(est, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    H_e, te = timed(lambda: crf_e.compute_hessian())
+    peak_e = torch.cuda.max_memory_allocated() / 1e6
+    sym = float(np.max(np.abs(H_e - H_e.T)) / np.max(np.abs(H_e)))
+    fd_e = []
+    for _ in range(4):
+        u = rng.randn(len(v0))
+        u /= np.linalg.norm(u)
+        fd = (obj.gradient(v0 + eps * u) - obj.gradient(v0 - eps * u)) / (2 * eps)
+        Hu = H_e @ u
+        fd_e.append(float(np.max(np.abs(Hu - fd)) / np.max(np.abs(Hu))))
+    log("statistics: exact Hessian (the Gram plus sum dterms d2p, forward over reverse of the "
+        "scan in %d chunks of tangents) in %.3f s, peak device memory %.1f MB; asymmetry %.3e "
+        "(tol 1e-9); H u against central differences of the gradient along 4 seeded directions:"
+        " rel %s (tol 1e-6); exact against approximate max rel %.3e"
+        % (crf_e.objective()._prob_hessian.chunks, te, peak_e, sym, ['%.2e' % x for x in fd_e],
+           float(np.max(np.abs(H_e - H_a)) / np.max(np.abs(H_e)))))
+    if not (sym < 1e-9 and max(fd_e) < 1e-6 and np.all(np.isfinite(H_e))):
+        raise SystemExit("the exact Hessian is not symmetric or disagrees with finite "
+                         "differences")
+    (ng, g), tng = timed(lambda: nongauge_and_gauge_spaces(model, device=device))
+    log("statistics: non-gauge dimension %d, gauge %d (the full gauge group on d %d: %d "
+        "generators), in %.3f s" % (ng.shape[1], g.shape[1], model.dim, model.dim ** 2, tng))
+    if ng.shape[1] != model.num_params - model.dim ** 2:
+        raise SystemExit("unexpected non-gauge dimension %d" % ng.shape[1])
+    for f in (crf, crf_e):
+        for ptype in ('std', 'none', 'intrinsic error', 'optimal gate CIs'):
+            inv, tp = timed(lambda: f.project_hessian(ptype))
+            log("statistics: %s Hessian, projection %r in %.3f s: %d non-gauge parameters, "
+                "finite %s" % ('approximate' if f is crf else 'exact', ptype, tp,
+                               f.nNonGaugeParams, bool(np.all(np.isfinite(inv)))))
+            if not np.all(np.isfinite(inv)):
+                raise SystemExit("a projected inverse is not finite")
+    bars = {}
+    for lbl in (('Gxpi2', 0), ('Gcnot', 0, 1)):
+        key = next(k for k in model.operations if k == lbl)
+
+        def fn(m, key=key):
+            return entanglement_infidelity(m.operations[key].dense(),
+                                           target.operations[key].dense())
+        for name, f in (('approximate', crf), ('exact', crf_e)):
+            eb, tb = timed(lambda: f.view(95, hessian_projection='std').compute_uncertainty(fn))
+            bars[(lbl, name)] = eb
+            log("statistics: 95%% error bar of the entanglement infidelity of %s to the target "
+                "from the %s Hessian: %.6e (infidelity %.6e), in %.2f s"
+                % (key, name, eb, fn(model), tb))
+        a, e = bars[(lbl, 'approximate')], bars[(lbl, 'exact')]
+        if not (np.isfinite(a) and np.isfinite(e) and a > 0 and e > 0
+                and abs(a - e) <= 0.2 * e):
+            raise SystemExit("error bars not positive and finite, or exact and approximate "
+                             "more than 20% apart")
+    crf_lr = ConfidenceRegionFactory(est, device=device)
+    crf_lr._exact = crf_e.hessian
+    crf_lr.enable_linear_response_errorbars()
+    key = next(k for k in model.operations if k == ('Gxpi2', 0))
+    lr, tlr = timed(lambda: crf_lr.view(95).compute_uncertainty(
+        lambda m: entanglement_infidelity(m.operations[key].dense(),
+                                          target.operations[key].dense())))
+    rel_lr = abs(lr - bars[(('Gxpi2', 0), 'exact')]) / bars[(('Gxpi2', 0), 'exact')]
+    log("statistics: linear-response error bar of %s %.6e (CG on the non-gauge subspace, "
+        "%.2f s) against the projected inverse's: rel %.3e (tol 1e-3)" % (key, lr, tlr, rel_lr))
+    if not rel_lr < 1e-3:
+        raise SystemExit("the linear-response error bar disagrees with the projected inverse's")
+    launches += bwd_jacobian_accumulate.launches
+    log("statistics: kernel launches over the Hessians and projections: {'bwd_jacobian': %d}"
+        % bwd_jacobian_accumulate.launches)
+    if bwd_jacobian_accumulate.launches == 0:
+        raise SystemExit("the Hessians never launched the bwd_jacobian kernel")
+
+    # -- (b) a fit that is really bad: drift between two over-rotations ----
+    final = list(lists[-1])
+    t0 = time.time()
+    ds = simulate_data(over_rotated(datagen, 0.01), final, 500, seed=1234, device=device)
+    ds_b = simulate_data(over_rotated(datagen, -0.01), final, 500, seed=1235, device=device)
+    for c in final:
+        ds.add_count_dict(c, dict(ds_b[c].counts))
+    log("badfit: %d circuits, 500 shots from each of +0.01 and -0.01 rad over-rotations of "
+        "Gxpi2:0 and Gxpi2:1, drawn on the card in %.2f s" % (len(ds), time.time() - t0))
+    bwd_jacobian_accumulate.launches = 0
+    gst = GateSetTomography(
+        GSTInitialModel(model=target.copy()), gaugeopt_suite=None, objfn_builders=builders,
+        optimizer={'maxiter': LM_MAXITER}, verbosity=0, device=device,
+        badfit_options={'threshold': 2.0, 'actions': ('wildcard1d', 'wildcard', 'Robust+')})
+    res, trun = timed(lambda: gst.run(ProtocolData(GateSetTomographyDesign(target, lists), ds),
+                                      disable_checkpointing=True))
+    bad = res.estimates['GateSetTomography']
+    nsig = bad.misfit_sigma()
+    stats = bad.parameters['badfit_stats']
+    log("badfit: GateSetTomography.run in %.3f s (fit %.3f s); N_sigma %.4f (threshold 2); "
+        "estimates %s; kernel launches {'bwd_jacobian': %d}"
+        % (trun, bad.parameters['fit_time'], nsig, list(res.estimates),
+           bwd_jacobian_accumulate.launches))
+    for action, st_ in stats.items():
+        log("badfit: action %r: %.3f s, objective evaluations %s"
+            % (action, st_['seconds'], st_.get('evaluations', {})))
+    launches += bwd_jacobian_accumulate.launches
+    if not nsig > 2:
+        raise SystemExit("the drifting data fit to N_sigma %.4f, not above 2" % nsig)
+    mdl = bad.models['final iteration estimate']
+    k = max(ds.degrees_of_freedom(final) - mdl.num_params, 1)
+    bobj = objfns.TimeIndependentMDCObjectiveFunction(
+        objfns.RawPoissonPicDeltaLogLFunction(), mdl, ds, final, device=device)
+    b1 = stats['wildcard1d']['budget']
+    thr1 = st.chi2.ppf(0.95, k)
+    adj1 = _WildcardObjective(bobj, b1).raw_two_dlogl()
+    bnm = stats['wildcard']['budget']
+    thr = st.chi2.ppf(1 - 0.05, k)
+    adjnm = _WildcardObjective(bobj, bnm).clipped_two_dlogl()
+    log("badfit: wildcard1d alpha %.6e (budgets %s); adjusted 2DeltaLogL %.6f against the "
+        "threshold %.6f; Nelder-Mead budget %s, adjusted 2DeltaLogL %.6f against %.6f"
+        % (b1.alpha, ['%.3e' % x for x in b1.wildcard_vector], adj1, thr1,
+           ['%.3e' % x for x in bnm.wildcard_vector], adjnm, thr))
+    if not (b1.alpha > 0 and adj1 <= thr1 * (1 + 1e-6) and adjnm <= thr * (1 + 1e-6)):
+        raise SystemExit("a wildcard budget does not bring 2DeltaLogL to its threshold")
+    plans = [WaterfillPlan(bnm, bobj.layout.element_slices, bobj.layout.circuits, bobj.freqs,
+                           dev) for dev in (device, 'cpu')]
+    probs = bobj.probs()
+    plans[0].update(probs, bnm.wildcard_vector, True)
+    (pc, dc), tw = timed(lambda: plans[0].update(probs, bnm.wildcard_vector, True))
+    (pp, dp), tcpu = timed(lambda: plans[1].update(probs, bnm.wildcard_vector, True))
+    dw = max(float(torch.max(torch.abs(pc.cpu() - pp))), float(torch.max(torch.abs(dc.cpu() - dp))))
+    log("badfit: one batched water-fill of %d circuits with dp/dW: %.4f s on the card (warm), "
+        "%.4f s on the host's CPU; card against CPU max |d| %.3e (tol 1e-13)"
+        % (len(final), tw, tcpu, dw))
+    if not dw < 1e-13:
+        raise SystemExit("the card's water-fill disagrees with the CPU's")
+    rob = res.estimates.get('GateSetTomography.Robust+')
+    if rob is None or 'weights' not in rob.parameters \
+            or 'reoptimized_objfn_value' not in rob.parameters:
+        raise SystemExit("the 'Robust+' estimate lacks its weights or its re-fit")
+    log("badfit: 'Robust+': %d circuits reweighted; the re-fit's 2DeltaLogL on the scaled data "
+        "%.6f" % (len(rob.parameters['weights']), rob.parameters['reoptimized_objfn_value']))
+
+    # -- (c) Fisher information by L at the depolarized target --------------
+    bwd_jacobian_accumulate.launches = 0
+    maxls = [L for L in (1, 2, 4, 8, 16, 32, 64) if L <= MAXL]
+    byL, tf = timed(lambda: calculate_fisher_information_matrices_by_L(
+        datagen, lists, maxls, num_shots=1000, device=device))
+    for L, F in byL.items():
+        ev = np.linalg.eigvalsh((F + F.T) / 2)
+        asym = float(np.max(np.abs(F - F.T)) / np.max(np.abs(F)))
+        if not (asym < 1e-12 and ev.min() > -1e-10 * ev.max()):
+            raise SystemExit("the Fisher information at L %d is not symmetric PSD" % L)
+    some = final[:: len(final) // 50][:50]
+    per = calculate_fisher_information_per_circuit(datagen, some, device=device)
+    F50 = calculate_fisher_information_matrix(datagen, some, device=device)
+    rel50 = float(np.max(np.abs(F50 - sum(per.values()))) / np.max(np.abs(F50)))
+    log("fisher: calculate_fisher_information_matrices_by_L of the %d lists (%d circuits in "
+        "the last, 1000 shots) in %.3f s, symmetric PSD; on 50 circuits the matrix against the "
+        "sum of the per-circuit ones: rel %.3e (tol 1e-10); kernel launches "
+        "{'bwd_jacobian': %d}" % (len(byL), len(final), tf, rel50,
+                                  bwd_jacobian_accumulate.launches))
+    launches += bwd_jacobian_accumulate.launches
+    if not rel50 < 1e-10:
+        raise SystemExit("the Fisher information disagrees with its per-circuit sum")
+    log("phase 21: %.1f s of the script's wall time" % (time.time() - t_phase))
+    return launches
 
 
 def rb_and_cloud3_phases(device):
@@ -1961,6 +2230,9 @@ def main():
     # -- randomized benchmarking, then the 3-qubit blocked fit ---------------
     cloud3_launches = rb_and_cloud3_phases(device)
 
+    # -- error bars, bad-fit handling and Fisher information at full width ----
+    stat_launches = phase_statistics(mp, est, target, datagen, lists, builders, device)
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
@@ -1968,13 +2240,14 @@ def main():
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
-        + cloud3_launches,
+        + cloud3_launches + stat_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
                                   "qutrit fit": qutrit_launches}, **obj_launches,
                                  **{"cloud-noise fit": cloud_launches,
-                                    "3-qubit cloud-noise fit": cloud3_launches}),
+                                    "3-qubit cloud-noise fit": cloud3_launches,
+                                    "statistics": stat_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

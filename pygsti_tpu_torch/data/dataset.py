@@ -65,6 +65,11 @@ class DataSet(object):
     def keys(self):
         return list(self._rows.keys())
 
+    @property
+    def outcome_labels(self):
+        """Every outcome label recorded, in first-seen order."""
+        return list(dict.fromkeys(ol for row in self._rows.values() for ol in row))
+
     def degrees_of_freedom(self, circuits=None):
         """Sum over circuits of (number of recorded outcomes - 1)."""
         circuits = circuits if circuits is not None else self.keys()

@@ -5,7 +5,9 @@ Poisson-picture logL, ObjectiveFunctionBuilder,
 TimeIndependentMDCObjectiveFunction with the omitted-probability
 correction, the penalty rows, and the 'blocked' and forward-mode
 Jacobians; the classes bound to one raw objective, TermWeighted and
-CachedObjectiveFunction; the standalone logl, two_delta_logl and chi2).
+CachedObjectiveFunction; the standalone logl, two_delta_logl and chi2; the
+weighted Gram of the probability Jacobian and the second-derivative term of
+the exact Hessian, behind the error bars and the Fisher information).
 
 The objective evaluates, on one device:
   fn(v)      -> objective value
@@ -178,6 +180,11 @@ class RawObjectiveFunction(object):
     def dterms(self, p, c, t, f):
         raise NotImplementedError()
 
+    def hterms(self, p, c, t, f):
+        """d2 terms / dp2 (the Hessians of tools/likelihoodfns.py and
+        tools/chi2fns.py, and of protocols/confidenceregionfactory.py)."""
+        raise NotImplementedError("%s has no hterms" % type(self).__name__)
+
     def fn(self, p, c, t, f):
         return torch.sum(self.terms(p, c, t, f))
 
@@ -222,6 +229,12 @@ class RawChi2Function(RawObjectiveFunction):
     def dterms(self, p, c, t, f):
         return 2 * self.lsvec(p, c, t, f) * self.dlsvec(p, c, t, f)
 
+    def hterms(self, p, c, t, f):
+        # t (p - f)^2 / p has second derivative 2 t f^2 / p^3; below the clip
+        # t (p - f)^2 / mpc has 2 t / mpc
+        mpc = self.min_prob_clip_for_weighting
+        return torch.where(p > mpc, 2 * t * f ** 2 / torch.clamp(p, min=mpc) ** 3, 2 * t / mpc)
+
     def zero_freq_terms(self, n, p):
         return _chi2_zero_freq_terms(n, p, self.min_prob_clip_for_weighting)
 
@@ -248,6 +261,9 @@ class RawFreqWeightedChi2Function(RawChi2Function):
 
     def dlsvec(self, p, c, t, f):
         return torch.sqrt(t / torch.clamp(f, min=self.min_freq_clip_for_weighting))
+
+    def hterms(self, p, c, t, f):
+        return 2 * t / torch.clamp(f, min=self.min_freq_clip_for_weighting)
 
     def zero_freq_terms(self, n, p):
         return n * p ** 2 / self.min_freq_clip_for_weighting
@@ -286,6 +302,9 @@ class RawPoissonPicDeltaLogLFunction(RawObjectiveFunction):
 
     def dterms(self, p, c, t, f):
         return _sw_logl_dterms(p, c, t, f, self.min_p, self.radius)
+
+    def hterms(self, p, c, t, f):
+        return _sw_logl_hterms(p, c, t, f, self.min_p, self.radius)
 
     def zero_freq_terms(self, n, p):
         return _logl_zero_freq_terms(n, p, self.radius)
@@ -329,6 +348,11 @@ class RawDeltaLogLFunction(RawObjectiveFunction):
         pos = torch.where(p < minp, torch.full_like(p, minp), p)
         d = torch.where(p < minp, -c / minp + c / minp ** 2 * (p - minp), -c / pos)
         return torch.where(c == 0, torch.zeros_like(p), d)
+
+    def hterms(self, p, c, t, f):
+        minp = self.min_p
+        pos = torch.where(p < minp, torch.full_like(p, minp), p)
+        return torch.where(c == 0, torch.zeros_like(p), c / pos ** 2)
 
     def zero_freq_terms(self, n, p):
         return torch.zeros_like(p)
@@ -698,6 +722,51 @@ class TimeIndependentMDCObjectiveFunction(object):
         with torch.no_grad():
             p = self._fns['probs'](self._v(paramvec))
             return self.raw_objfn.terms(p, *self._data).cpu().numpy()
+
+    def gradient(self, paramvec=None):
+        """d/dv of the sum of the raw objective's terms (no omitted-outcome
+        correction, no penalties): J^T dterms, by one reverse pass of the
+        scan."""
+        v = self._v(paramvec)
+        with torch.enable_grad():
+            p, pullback = torch.func.vjp(self._fns['probs'], v)
+            return pullback(self.raw_objfn.dterms(p.detach(), *self._data))[0] \
+                .detach().cpu().numpy()
+
+    def weighted_gram(self, weights, paramvec=None):
+        """J^T diag(w) J [P, P] with J = d probabilities / d v and w one
+        weight per element in layout order (signed).  On a 'blocked'
+        layout the Jacobian's blocks come from the bwd_jacobian kernel."""
+        w = torch.as_tensor(weights, dtype=DTYPE, device=self.device)
+        return self._fns['gram'](self._v(paramvec), w).cpu().numpy()
+
+    def probs_jacobian(self, paramvec=None):
+        """d probabilities / d v [E, P] (through the kernel on a 'blocked'
+        layout)."""
+        return self._fns['jacobian'](self._v(paramvec)).cpu().numpy()
+
+    _prob_hessian = None     # probability_hessian_fn, made at first use
+
+    def probs_hessian_sum(self, weights, paramvec=None):
+        """sum_e w_e d2 p_e / dv2 [P, P] (probability_hessian_fn)."""
+        if self._prob_hessian is None:
+            self._prob_hessian = probability_hessian_fn(self.model, self.layout, self.device)
+        w = torch.as_tensor(weights, dtype=DTYPE, device=self.device)
+        return self._prob_hessian(self._v(paramvec), w).cpu().numpy()
+
+    def hessian(self, paramvec=None, approximate=False):
+        """The Hessian [P, P] of the sum of the raw objective's terms (no
+        omitted-outcome correction, no penalties): J^T diag(hterms) J
+        through ``weighted_gram``, plus, unless `approximate`,
+        sum_e dterms_e d2 p_e / dv2 (probability_hessian_fn)."""
+        v = self._v(paramvec)
+        with torch.no_grad():
+            p = self._fns['probs'](v)
+            H = self._fns['gram'](v, self.raw_objfn.hterms(p, *self._data))
+            H = H.cpu().numpy()
+        if not approximate:
+            H = H + self.probs_hessian_sum(self.raw_objfn.dterms(p, *self._data), paramvec)
+        return H
 
     def percircuit(self, paramvec=None):
         """Objective contribution per circuit.  A circuit with omitted
@@ -1238,7 +1307,16 @@ def _forward_jacobian_fns(model, layout, sim, correction):
         ls = lsvec_of_p(p, counts, totals, freqs, flag, regs)
         return weighted_jac_t(Jt, p, ls, counts, totals, freqs, flag, regs).T
 
-    return jtj_jtf_fn, dlsvec_fn
+    @torch.no_grad()
+    def gram_fn(v, w):
+        _, Jt = probs_and_jac_t(v)
+        return (Jt * w[None, :]) @ Jt.T
+
+    @torch.no_grad()
+    def jacobian_fn(v):
+        return probs_and_jac_t(v)[1].T
+
+    return jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn
 
 
 def _blocked_jacobian_fns(model, layout, sim, raw):
@@ -1283,11 +1361,10 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         Jt = torch.cat([J_ops, J_preps, J_eff], dim=2)
         return p.reshape(-1), Jt.reshape(nb * n_out, NT)
 
-    def bucket_data(bk, counts, totals, freqs):
+    def bucket_data(bk, *arrays):
         pad = (bk['nk_pad'] - bk['nk']) * n_out
         idx = bk['elem_idx']
-        return tuple(torch.nn.functional.pad(a[idx], (0, pad))
-                     for a in (counts, totals, freqs))
+        return tuple(torch.nn.functional.pad(a[idx], (0, pad)) for a in arrays)
 
     # the Gram over the parameters where the one over the tensor entries
     # would be large and the parameters fewer (3-qubit models: NT 10^5)
@@ -1335,7 +1412,181 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
             J_parts.append(Jb[:bk['nk'] * n_out])
         return torch.cat(J_parts, dim=0)[inv_perm]
 
-    return jtj_jtf_fn, dlsvec_fn
+    @torch.no_grad()
+    def gram_fn(v, w):
+        """Tv^T (sum over buckets of Jt^T diag(w) Jt) Tv for per-element
+        weights w (layout order; signed, so no square root is taken), by
+        the same blocks and chain-first rule as jtj_jtf."""
+        tf = compute_flat(v)
+        Tv = tensors_jacobian(v)
+        side = Tv.shape[1] if chain_first else NT
+        M = torch.zeros((side, side), dtype=v.dtype, device=device)
+        Tvj = Tv.to(j_dtype) if chain_first else None
+        for bk in buckets:
+            (wb,) = bucket_data(bk, w)
+            _, Jt = block_probs_jac(tf, bk)
+            if chain_first:
+                Jt = Jt @ Tvj
+            M += (Jt.T @ (wb.to(j_dtype)[:, None] * Jt)).to(v.dtype)
+        return M if chain_first else Tv.T @ (M @ Tv)
+
+    @torch.no_grad()
+    def jacobian_fn(v):
+        """d probabilities / d v [E, P], block by block through the kernel."""
+        tf = compute_flat(v)
+        Tv = tensors_jacobian(v).to(j_dtype)
+        parts = [(block_probs_jac(tf, bk)[1] @ Tv).to(v.dtype)[:bk['nk'] * n_out]
+                 for bk in buckets]
+        return torch.cat(parts, dim=0)[inv_perm]
+
+    return jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn
+
+
+def probability_hessian_fn(model, layout, device):
+    """A function (v, w) -> sum_e w_e d2 p_e / dv2 [P, P] over the layout's
+    elements (w per element, in layout order): the second-derivative term
+    of an objective's exact Hessian, J^T diag(h) J being the other.
+
+    Forward over reverse, written out for the scan so that only states are
+    kept, never the gathered ops.  With phi = sum_e w_e p_e, per row the
+    forward states s_t (s_0 the prep, s_t+1 = G_t s_t) and the backward
+    covectors b_t (b_D = sum of the row's w_e E_e, b_t = G_t^T b_t+1) give
+    d phi / d G_k = sum over layers t of op k of b_t+1 s_t^T.  A tangent
+    (dG, drho, dE) of the tensors, one column of Tv each, moves both:
+    ds_t+1 = G ds_t + dG s_t, db_t = G^T db_t+1 + dG^T b_t+1, and
+    d(d phi / d G_k) = sum (db_t+1 s_t^T + b_t+1 ds_t^T).  Tv^T of that is a
+    column of the parameter Hessian; where the tensors are not linear in
+    the parameters (Lindblad members, composite layers) the term
+    sum_T (d phi / dT) d2T / dv2 is added from forward over reverse of the
+    model's flat tensors.  Rows are taken in depth order, in blocks, and
+    the tangents in chunks whose stashed states stay within the device
+    type's JVP_CHUNK_BYTES; ``chunks`` counts the last call's (row block,
+    tangent chunk) pairs."""
+    device = torch.device(device)
+    compute_flat = model.flat_tensors_fn()
+    tensors_jacobian = model.flat_tensors_jacobian_fn()
+    dim = model.dim
+    n_ops, n_preps = len(model.op_keys), len(model.prep_keys)
+    o_sz, p_sz = n_ops * dim * dim, n_preps * dim
+    K1 = n_ops + 1
+    idx = layout_tensors(layout, device)
+    elem_row, elem_eff = idx['elem_circuit'], idx['elem_effect']
+    B = layout.op_indices.shape[0]
+    order = np.argsort(np.asarray(layout.depths), kind='stable')
+    row_block = 4096
+    blocks = []
+    for a in range(0, B, row_block):
+        rows = order[a:a + row_block]
+        Dk = int(np.asarray(layout.depths)[rows].max()) if len(rows) else 0
+        rows_t = torch.as_tensor(rows, dtype=torch.int64, device=device)
+        # this block's elements, and each one's row within the block
+        pos = np.full(B, -1)
+        pos[rows] = np.arange(len(rows))
+        er = pos[np.asarray(layout.elem_circuit)]
+        els = np.flatnonzero(er >= 0)
+        blocks.append({'ops': idx['op_indices'][rows_t, :Dk], 'prep': idx['prep_index'][rows_t],
+                       'els': torch.as_tensor(els, dtype=torch.int64, device=device),
+                       'el_row': torch.as_tensor(er[els], dtype=torch.int64, device=device),
+                       'nb': len(rows), 'D': Dk})
+    bytes_per = torch.finfo(DTYPE).bits // 8
+
+    def tensors_of(flat):
+        G = torch.cat([flat[:o_sz].reshape(n_ops, dim, dim),
+                       torch.eye(dim, dtype=flat.dtype, device=flat.device)[None]])
+        return G, flat[o_sz:o_sz + p_sz].reshape(n_preps, dim), \
+            flat[o_sz + p_sz:].reshape(-1, dim)
+
+    def block_terms(bk, G, preps, effects, dG, dpreps, deffects, w, primal):
+        """(d grad_T [NT, c], grad_T [NT] or None) of one row block."""
+        nb, Dk, c = bk['nb'], bk['D'], dG.shape[1]
+        ops, rows = bk['ops'], torch.arange(nb, device=device)
+        we = w[bk['els']]
+        eff = elem_eff[bk['els']]
+        e = torch.zeros((nb, dim), dtype=G.dtype, device=device).index_add_(
+            0, bk['el_row'], we[:, None] * effects[eff])
+        de = torch.zeros((nb, c, dim), dtype=G.dtype, device=device).index_add_(
+            0, bk['el_row'], we[:, None, None] * deffects[eff])
+        # W_fwd[j, (k, c, i)] = dG[k, c, i, j]; W_bwd[i, (k, c, j)] = dG[k, c, i, j]
+        W_fwd = dG.permute(3, 0, 1, 2).reshape(dim, K1 * c * dim)
+        W_bwd = dG.permute(2, 0, 1, 3).reshape(dim, K1 * c * dim)
+        S = torch.empty((nb, Dk, dim), dtype=G.dtype, device=device)
+        dS = torch.empty((nb, Dk, c, dim), dtype=G.dtype, device=device)
+        s, ds = preps[bk['prep']], dpreps[bk['prep']]
+        for t in range(Dk):
+            S[:, t], dS[:, t] = s, ds
+            Gt = G[ops[:, t]]
+            ds = torch.bmm(ds, Gt.transpose(1, 2)) \
+                + (s @ W_fwd).view(nb, K1, c, dim)[rows, ops[:, t]]
+            s = torch.bmm(Gt, s.unsqueeze(-1)).squeeze(-1)
+        dgG = torch.zeros((K1, c * dim * dim), dtype=G.dtype, device=device)
+        gG = torch.zeros((K1, dim * dim), dtype=G.dtype, device=device) if primal else None
+        b, db = e, de
+        for t in range(Dk - 1, -1, -1):
+            st, dst, Gt = S[:, t], dS[:, t], G[ops[:, t]]
+            onehot = torch.nn.functional.one_hot(ops[:, t], K1).to(G.dtype).T   # [K1, nb]
+            X = db[:, :, :, None] * st[:, None, None, :] + b[:, None, :, None] * dst[:, :, None, :]
+            dgG += onehot @ X.reshape(nb, -1)
+            if primal:
+                gG += onehot @ (b[:, :, None] * st[:, None, :]).reshape(nb, -1)
+            db = torch.bmm(db, Gt) + (b @ W_bwd).view(nb, K1, c, dim)[rows, ops[:, t]]
+            b = torch.bmm(b.unsqueeze(1), Gt).squeeze(1)
+        dg_prep = torch.zeros((n_preps, c, dim), dtype=G.dtype, device=device).index_add_(
+            0, bk['prep'], db)
+        dg_eff = torch.zeros((effects.shape[0], c, dim), dtype=G.dtype, device=device) \
+            .index_add_(0, eff, we[:, None, None] * ds[bk['el_row']])
+        dg = torch.cat([dgG[:n_ops].view(n_ops, c, dim, dim).permute(0, 2, 3, 1)
+                        .reshape(o_sz, c), dg_prep.permute(0, 2, 1).reshape(p_sz, c),
+                        dg_eff.permute(0, 2, 1).reshape(-1, c)])
+        if not primal:
+            return dg, None
+        g_prep = torch.zeros((n_preps, dim), dtype=G.dtype, device=device).index_add_(
+            0, bk['prep'], b)
+        g_eff = torch.zeros((effects.shape[0], dim), dtype=G.dtype, device=device) \
+            .index_add_(0, eff, we[:, None] * s[bk['el_row']])
+        return dg, torch.cat([gG[:n_ops].reshape(-1), g_prep.reshape(-1), g_eff.reshape(-1)])
+
+    @torch.no_grad()
+    def hessian(v, w):
+        tf = compute_flat(v)
+        Tv = tensors_jacobian(v)                                  # [NT, P]
+        P = Tv.shape[1]
+        G, preps, effects = tensors_of(tf)
+        H = torch.zeros((P, P), dtype=v.dtype, device=device)
+        gT = torch.zeros_like(tf)
+        budget = JVP_CHUNK_BYTES[device.type]
+        hessian.chunks = 0
+        for bk in blocks:
+            per_tangent = bk['nb'] * (bk['D'] * dim + dim * dim + K1 * dim) * bytes_per
+            chunk = max(1, budget // max(per_tangent, 1))
+            for j in range(0, P, chunk):
+                T = Tv[:, j:j + chunk]
+                c = T.shape[1]
+                dG = torch.cat([T[:o_sz].reshape(n_ops, dim, dim, c),
+                                torch.zeros((1, dim, dim, c), dtype=v.dtype, device=device)]
+                               ).permute(0, 3, 1, 2)                        # [K1, c, d, d]
+                dpreps = T[o_sz:o_sz + p_sz].reshape(n_preps, dim, c).transpose(1, 2)
+                deffects = T[o_sz + p_sz:].reshape(-1, dim, c).transpose(1, 2)
+                dg, g = block_terms(bk, G, preps, effects, dG, dpreps, deffects, w, j == 0)
+                hessian.chunks += 1
+                H[:, j:j + chunk] += Tv.T @ dg
+                if g is not None:
+                    gT += g
+        # sum_T gT_T d2 T / dv2, by forward over reverse of the flat tensors
+        with torch.enable_grad():
+            def pulled(x):
+                return torch.func.vjp(compute_flat, x)[1](gT)[0]
+            # about 64 tensor-sized intermediates per tangent
+            n_t = max(1, budget // (64 * tf.numel() * bytes_per))
+            eye = torch.eye(P, dtype=v.dtype, device=device)
+            for j in range(0, P, n_t):
+                # (+ 0 u: where the tensors are linear the tangent is a constant
+                # zero, which vmap would not batch)
+                H[:, j:j + n_t] += torch.vmap(
+                    lambda u: torch.func.jvp(pulled, (v,), (u,))[1] + 0 * u[:1],
+                    out_dims=1)(eye[j:j + n_t])
+        return H
+
+    return hessian
 
 
 def _objective_fns(model, layout, sim, raw, penalties, jac_mode):
@@ -1346,9 +1597,11 @@ def _objective_fns(model, layout, sim, raw, penalties, jac_mode):
     correction = _omitted_correction(layout, raw, sim.device)
     terms_of_p, lsvec_of_p, _ = correction
     if jac_mode == 'blocked':
-        jtj_jtf_fn, dlsvec_fn = _blocked_jacobian_fns(model, layout, sim, raw)
+        jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn = _blocked_jacobian_fns(model, layout, sim,
+                                                                            raw)
     else:
-        jtj_jtf_fn, dlsvec_fn = _forward_jacobian_fns(model, layout, sim, correction)
+        jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn = _forward_jacobian_fns(model, layout, sim,
+                                                                            correction)
 
     @torch.no_grad()
     def lsvec_fn(v, counts, totals, freqs, flag, regs):
@@ -1374,6 +1627,8 @@ def _objective_fns(model, layout, sim, raw, penalties, jac_mode):
                 return torch.autograd.functional.jacobian(pen_fn, v)
         fns = _with_rows(fns, pen_fn, pen_jac)
     fns['probs'] = probs_fn
+    fns['gram'] = gram_fn
+    fns['jacobian'] = jacobian_fn
     fns['jac_mode'] = jac_mode
     return fns
 

@@ -19,10 +19,12 @@ def misfit_sigma(final_objfn_value, final_dof):
 
 class Estimate(object):
     """A GST estimate: models dict (target/seed/iteration/final + gauge-opt
-    variants), fit parameters, and goodness-of-fit access."""
+    variants), fit parameters, and goodness-of-fit access.  ``device`` is
+    where its statistics are computed: the fit's device for a GST estimate."""
 
-    def __init__(self, parent=None, models=None, parameters=None):
+    def __init__(self, parent=None, models=None, parameters=None, device="cuda"):
         self.parent = parent
+        self.device = device
         self.models = collections.OrderedDict(models or {})
         self.parameters = dict(parameters or {})
         self.goparameters = collections.OrderedDict()
@@ -65,10 +67,14 @@ class Estimate(object):
         return misfit_sigma(fit, k)
 
     def create_confidence_region_factory(self, model_label='final iteration estimate',
-                                         circuits_label='final'):
-        raise NotImplementedError(
-            "confidence regions are not ported yet (ROADMAP.md lists "
-            "protocols/confidenceregionfactory.py among the modules to port)")
+                                         circuits_label='final', device=None):
+        """A ConfidenceRegionFactory of the model and circuit list, on
+        `device` (default: the estimate's), kept in
+        ``confidence_region_factories[(model_label, circuits_label)]``."""
+        from pygsti_tpu_torch.protocols.confidenceregionfactory import ConfidenceRegionFactory
+        crf = ConfidenceRegionFactory(self, model_label, circuits_label, device=device)
+        self.confidence_region_factories[CRFkey(model_label, circuits_label)] = crf
+        return crf
 
     def __getitem__(self, key):
         return self.models[key]

@@ -2,9 +2,9 @@
 StandardGST, results and checkpoints (counterpart of
 pygsti_tpu/protocols/gst.py).
 
-The fit and the gauge optimization run on the protocol's ``device``, the
-card by default.  Not ported yet: the bad-fit actions (wildcard budgets and
-robust re-weighting) and reading results back from a directory.
+The fit, the gauge optimization and the bad-fit actions (wildcard budgets
+and robust re-weighting) run on the protocol's ``device``, the card by
+default.  Not ported yet: reading results back from a directory.
 
 A mode whose members LGST cannot carry its estimate into (the Lindblad and
 unitary families) starts from the mode's target, so that the fit keeps the
@@ -528,6 +528,7 @@ class GateSetTomography(Protocol):
             'optimizer_results': opt_results,
         }
         est = Estimate.create_gst_estimate(results, target, seed_model, models, params)
+        est.device = device
         results.add_estimate(est, estimate_key=self.name)
         with profiler.timing('gauge optimization + badfit'):
             _add_gaugeopt_and_badfit(results, self.name, target, self.gaugeopt_suite,
@@ -674,21 +675,180 @@ def _add_gaugeopt_and_badfit(results, estlbl, target_model, gaugeopt_suite,
             printer.log("  -- Added gauge-optimized result '%s' (%.1fs)"
                         % (golbl, time.time() - t0))
     if badfit_options is not None:
-        _add_badfit_estimates(results, estlbl, badfit_options)
+        _add_badfit_estimates(results, estlbl, target_model, badfit_options, printer,
+                              optimizer=optimizer, gaugeopt_suite=gaugeopt_suite,
+                              device=device)
 
 
-def _add_badfit_estimates(results, estlbl, badfit_options):
+def _add_badfit_estimates(results, estlbl, target_model, badfit_options, printer,
+                          optimizer=None, gaugeopt_suite=None, device="cuda"):
     """When the fit is bad (N_sigma above the threshold), apply the bad-fit
-    actions.  With no actions (the default) nothing happens, as in the JAX
-    package; the actions themselves ('wildcard', 'wildcard1d', 'robust',
-    'Robust' and their '+' forms) arrive with the wildcard budget."""
-    nsigma = results.estimates[estlbl].misfit_sigma()
+    actions, each on `device`:
+
+    * 'wildcard1d' -- a one-parameter budget, alpha times each operation's
+      half diamond distance to the target (its Jamiolkowski trace distance
+      where that fails), the least alpha that brings 2 Delta logL to the
+      95% chi2 threshold;
+    * 'wildcard'   -- a budget per operation (and SPAM), by the chain of
+      ``badfit_options.wildcard_methods``: 'neldermead', 'barrier',
+      'cvxpy_noagg' (the red-box linear program) or 'none';
+    * 'robust', 'robust+' -- per-circuit weights (_compute_robust_scaling)
+      in a new estimate '<label>.<action>';
+    * 'Robust', 'Robust+' -- the same, and the model re-fitted (logL,
+      through run_gst_fit_simple and so the blocked Jacobian's kernel) on
+      the data scaled by the weights, gauge-optimized by the suite if any.
+
+    The budget goes into the estimate's parameters as 'unmodeled_error' (the
+    last wildcard action's); the seconds of each action, and each wildcard
+    action's budget and objective evaluations per method, into
+    'badfit_stats'; a re-fit's 2 Delta logL on the scaled data into the new
+    estimate's 'reoptimized_objfn_value'."""
+    import numpy as np
+    import scipy.stats as st
+    from pygsti_tpu_torch.objectivefns.wildcardbudget import (
+        PrimitiveOpsSingleScaleWildcardBudget, PrimitiveOpsWildcardBudget,
+        optimize_wildcard_budget_1d, optimize_wildcard_budget_neldermead)
+    from pygsti_tpu_torch.optimize.wildcardopt import (
+        optimize_wildcard_budget_barrier, optimize_wildcard_budget_percircuit_only_cvxpy)
+    from pygsti_tpu_torch.tools import optools
+
+    est = results.estimates[estlbl]
+    nsigma = est.misfit_sigma()
     if nsigma is None or nsigma <= badfit_options.threshold or not badfit_options.actions:
         return
-    raise NotImplementedError(
-        "bad-fit actions %s are not ported yet (ROADMAP.md lists "
-        "objectivefns/wildcardbudget.py among the modules to port)"
-        % (badfit_options.actions,))
+    printer.log("  -- Fit is bad (Nsigma=%.1f > %.1f): applying badfit actions %s"
+                % (nsigma, badfit_options.threshold, badfit_options.actions))
+    mdl = est.models['final iteration estimate']
+    ds = results.dataset
+    final_circuits = list(results.circuit_lists.get(
+        'final', results.data.edesign.all_circuits_needing_data))
+    k = max(ds.degrees_of_freedom(final_circuits) - mdl.num_params, 1)
+    stats = est.parameters.setdefault('badfit_stats', {})
+
+    def logl_objective(model, dataset):
+        return TimeIndependentMDCObjectiveFunction(RawPoissonPicDeltaLogLFunction(), model,
+                                                   dataset, final_circuits, device=device)
+
+    for action in badfit_options.actions:
+        t0 = time.time()
+        if action == 'wildcard1d':
+            op_labels = list(mdl.operations.keys())
+            ref_vals = []
+            for lbl in op_labels:
+                a, b = mdl.operations[lbl].dense(), target_model.operations[lbl].dense()
+                try:
+                    dd = 0.5 * optools.diamonddist(a, b, mdl.basis)
+                except Exception:
+                    dd = optools.jtracedist(a, b, mdl.basis)
+                ref_vals.append(max(dd, 1e-6))
+            if badfit_options.wildcard_budget_includes_spam:
+                op_labels = op_labels + ['SPAM']
+                ref_vals = ref_vals + [max(np.mean(ref_vals), 1e-6)]
+            budget = optimize_wildcard_budget_1d(
+                logl_objective(mdl, ds), PrimitiveOpsSingleScaleWildcardBudget(op_labels,
+                                                                               ref_vals),
+                st.chi2.ppf(1 - 0.05, k))
+            est.parameters['unmodeled_error'] = budget
+            stats[action] = {'evaluations': {'bisection': budget.evaluations}, 'budget': budget}
+            printer.log("     wildcard1d: alpha=%.4g  (%s)" % (budget.alpha, budget))
+
+        elif action == 'wildcard':
+            op_labels = list(mdl.operations.keys())
+            if badfit_options.wildcard_budget_includes_spam:
+                op_labels = op_labels + ['SPAM']
+            budget = PrimitiveOpsWildcardBudget(op_labels)
+            obj = logl_objective(mdl, ds)
+            pct = badfit_options.wildcard_percentile
+            threshold = st.chi2.ppf(1 - pct, k)
+            redbox_threshold = st.chi2.ppf(1 - pct / max(len(final_circuits), 1), 1)
+            L1weights = np.ones(budget.num_params)
+            evaluations = {}
+            for method in badfit_options.wildcard_methods:
+                opts = dict(method) if isinstance(method, dict) else {}
+                name = opts.pop('name', method)
+                budget.evaluations = 0
+                if name == 'neldermead':
+                    budget = optimize_wildcard_budget_neldermead(
+                        obj, budget, threshold, redbox_threshold, **opts)
+                elif name == 'barrier':
+                    budget = optimize_wildcard_budget_barrier(
+                        budget, L1weights, obj, threshold, redbox_threshold, printer, **opts)
+                elif name == 'cvxpy_noagg':
+                    budget = optimize_wildcard_budget_percircuit_only_cvxpy(
+                        budget, L1weights, obj, redbox_threshold, printer, **opts)
+                elif name != 'none':
+                    raise ValueError("Invalid wildcard method name: %s" % name)
+                evaluations[name] = budget.evaluations
+            est.parameters['unmodeled_error'] = budget
+            stats[action] = {'evaluations': evaluations, 'budget': budget}
+            printer.log("     wildcard: %s" % budget)
+
+        elif action in ('robust', 'Robust', 'robust+', 'Robust+'):
+            weights = _compute_robust_scaling(action, mdl, ds, final_circuits, device)
+            printer.log("     %s scaling: %d circuits reweighted" % (action, len(weights)))
+            new_models = dict(est.models)
+            new_params = dict(est.parameters)
+            new_params['weights'] = weights
+            if action in ('Robust', 'Robust+'):
+                scaled_ds = _scale_dataset(ds, weights, final_circuits)
+                reopt_model = mdl.copy()
+                _, objective = _alg.run_gst_fit_simple(
+                    scaled_ds, reopt_model, final_circuits, SimplerLMOptimizer.cast(optimizer),
+                    ObjectiveFunctionBuilder.create_from('logl'), device=device)
+                new_params['reoptimized_objfn_value'] = 2 * objective.fn()
+                new_models['final iteration estimate'] = reopt_model
+                if gaugeopt_suite is not None and not gaugeopt_suite.is_empty():
+                    for golbl, goparams in gaugeopt_suite.to_dictionary(reopt_model).items():
+                        cur = reopt_model
+                        for stage in goparams.get('stages', [goparams]):
+                            cur = gaugeopt_to_target(cur, target_model, device=device,
+                                                     **dict(stage))
+                        new_models[golbl] = cur
+            new_est = Estimate(results, new_models, new_params)
+            new_est.device = est.device
+            results.add_estimate(new_est, estimate_key="%s.%s" % (estlbl, action))
+        else:
+            raise ValueError("Invalid badfit action: %r" % (action,))
+        stats.setdefault(action, {})['seconds'] = time.time() - t0
+
+
+def _compute_robust_scaling(scale_typ, model, dataset, circuits, device="cuda"):
+    """Per-circuit weights: a circuit whose 2 Delta logL passes the
+    Bonferroni-corrected chi2 threshold (95%) gets expected / value; the
+    '+' forms then also scale the sorted values down to the expected chi2
+    percentiles, keeping their order."""
+    import numpy as np
+    import scipy.stats as st
+    obj = TimeIndependentMDCObjectiveFunction(RawPoissonPicDeltaLogLFunction(), model, dataset,
+                                              circuits, device=device)
+    fitqty = 2.0 * obj.percircuit()
+    expected = max(len(dataset.outcome_labels) - 1, 1)   # degrees of freedom per circuit
+    threshold = np.ceil(st.chi2.ppf(1 - 0.05 / len(circuits), expected))
+    weights = {}
+    scaled = fitqty.copy()
+    for i, c in enumerate(circuits):
+        if fitqty[i] > threshold:
+            weights[c] = expected / fitqty[i]
+            scaled[i] = expected
+    if scale_typ in ('robust+', 'Robust+'):
+        n = len(fitqty)
+        percentiles = [st.chi2.ppf((i + 1) / (n + 1), expected) for i in range(n)]
+        for ibin, i in enumerate(np.argsort(scaled)):
+            fit, exp_val = scaled[i], percentiles[ibin]
+            if fit > exp_val:
+                weights[circuits[i]] = weights.get(circuits[i], 1.0) * exp_val / fit
+    return weights
+
+
+def _scale_dataset(dataset, circuit_weights, circuits):
+    """A copy of `dataset` on `circuits` with each circuit's counts times
+    its weight (1 where it has none)."""
+    from pygsti_tpu_torch.data.dataset import DataSet
+    new_ds = DataSet()
+    for c in circuits:
+        w = circuit_weights.get(c, 1.0)
+        new_ds.add_count_dict(c, {ol: cnt * w for ol, cnt in dataset[c].counts.items()})
+    return new_ds
 
 
 class GateSetTomographyCheckpoint(ProtocolCheckpoint):

@@ -1,10 +1,11 @@
-"""Superoperator conversions, host numpy (counterpart of
-pygsti_tpu/tools/optools.py).  Row-major vectorization: the std-basis
-superoperator of rho -> U rho U^dag is kron(U, U.conj())."""
+"""Superoperator conversions and gate/state metrics, host numpy
+(counterpart of pygsti_tpu/tools/optools.py).  Row-major vectorization: the
+std-basis superoperator of rho -> U rho U^dag is kron(U, U.conj())."""
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.linalg as spl
 
 from pygsti_tpu_torch.tools.basistools import change_basis
 
@@ -75,3 +76,84 @@ def decompose_gate_matrix(op_mx):
             axis = axis / nrm
         out['axis of rotation'] = np.concatenate([[0.0], axis])
     return out
+
+
+# -- metrics -------------------------------------------------------------------
+
+def fidelity(a, b):
+    """State fidelity (Tr sqrt(sqrt(a) b sqrt(a)))^2 of two density
+    matrices; where one of them has rank one it is <psi|other|psi>."""
+    a = np.asarray(a, dtype=complex)
+    b = np.asarray(b, dtype=complex)
+    for x, y in ((a, b), (b, a)):
+        evals = np.linalg.eigvalsh((x + x.conj().T) / 2)
+        if np.isclose(np.max(evals), 1.0, atol=1e-6) and np.isclose(np.sum(evals), 1.0,
+                                                                    atol=1e-6):
+            psi = np.linalg.eigh((x + x.conj().T) / 2)[1][:, -1]
+            return float(np.real(psi.conj() @ y @ psi))
+    sqrt_a = spl.sqrtm(a)
+    evals = np.linalg.eigvals(sqrt_a @ b @ sqrt_a)
+    return float(np.real(np.sum(np.sqrt(np.clip(np.real(evals), 0, None))) ** 2))
+
+
+def frobeniusdist(a, b):
+    return float(np.linalg.norm(np.asarray(a) - np.asarray(b)))
+
+
+def frobeniusdist_squared(a, b):
+    return frobeniusdist(a, b) ** 2
+
+
+def tracenorm(m):
+    """The sum of the singular values."""
+    return float(np.sum(np.linalg.svd(np.asarray(m), compute_uv=False)))
+
+
+def tracedist(a, b):
+    """0.5 * ||a - b||_1."""
+    return 0.5 * tracenorm(np.asarray(a) - np.asarray(b))
+
+
+def jtracedist(a, b, mx_basis='pp'):
+    """The trace distance of the two superoperators' Choi matrices."""
+    from pygsti_tpu_torch.tools.jamiolkowski import jamiolkowski_iso
+    return tracedist(jamiolkowski_iso(a, mx_basis), jamiolkowski_iso(b, mx_basis))
+
+
+def entanglement_fidelity(a, b, mx_basis='pp'):
+    """The fidelity of the two superoperators' Choi matrices."""
+    from pygsti_tpu_torch.tools.jamiolkowski import jamiolkowski_iso
+    return fidelity(jamiolkowski_iso(a, mx_basis), jamiolkowski_iso(b, mx_basis))
+
+
+def process_fidelity(a, b, mx_basis='pp'):
+    return entanglement_fidelity(a, b, mx_basis)
+
+
+def entanglement_infidelity(a, b, mx_basis='pp'):
+    return 1.0 - entanglement_fidelity(a, b, mx_basis)
+
+
+def average_gate_fidelity(a, b, mx_basis='pp'):
+    """(d F_e + 1) / (d + 1)."""
+    d = int(round(np.sqrt(np.asarray(a).shape[0])))
+    return float((d * entanglement_fidelity(a, b, mx_basis) + 1) / (d + 1))
+
+
+def average_gate_infidelity(a, b, mx_basis='pp'):
+    return 1.0 - average_gate_fidelity(a, b, mx_basis)
+
+
+def unitarity(a, mx_basis='pp'):
+    """Tr(E_u^dag E_u) / (d^2 - 1) of the unital block E_u in the 'gm'
+    basis."""
+    b = change_basis(np.asarray(a), mx_basis, 'gm')
+    unital = b[1:, 1:]
+    return float(np.real(np.trace(unital.conj().T @ unital)) / (b.shape[0] - 1))
+
+
+def diamonddist(a, b, mx_basis='pp', return_x=False):
+    """||a - b||_diamond, maximized over pure inputs on the doubled space
+    (tools/sdptools.diamond_norm_distance)."""
+    from pygsti_tpu_torch.tools import sdptools
+    return sdptools.diamond_norm_distance(a, b, mx_basis)

@@ -165,3 +165,26 @@ def test_fit_at_the_jax_packages_optimum(fit_setup):
     assert abs(tdl_t - tdl_j) <= 1e-3 * abs(tdl_j)
     assert abs(tv[planted] - 0.03) < 0.01 and abs(jv[planted] - 0.03) < 0.01
     assert tdl_t < tdl_truth + 10.0
+
+
+def test_greedy_rank_select_keeps_its_basis_orthonormal():
+    """The rank selection of create_cloudnoise_circuits projects each
+    residual off the spanned basis twice and orthonormalizes the rows it
+    adds.  Candidates that lie in the span of a basis whose rows have
+    drifted 1e-6 from orthonormal (the JAX package's single projection
+    drifts without bound over the 3-qubit design: its basis reached 717
+    rows for 534 parameters) add no rank in the port and spurious rank in
+    the JAX package; on fresh candidates both choose the same, and the
+    port's basis stays orthonormal to 1e-13."""
+    rng = np.random.RandomState(8)
+    P, r = 40, 24
+    Q0 = np.linalg.qr(rng.randn(P, r))[0].T
+    drifted = Q0 + 1e-6 * rng.randn(r, P)
+    inside = [rng.randn(6, r) @ drifted for _ in range(10)]
+    assert tccc._greedy_rank_select(inside, drifted)[0] == []
+    assert len(jccc._greedy_rank_select(inside, drifted)[0]) > 0
+    fresh = [rng.randn(6, 5) @ rng.randn(5, P) for _ in range(12)]
+    chosen_t, Qt = tccc._greedy_rank_select(fresh, None)
+    chosen_j, Qj = jccc._greedy_rank_select(fresh, None)
+    assert chosen_t == chosen_j and Qt.shape == Qj.shape == (P, P)
+    assert np.max(np.abs(Qt @ Qt.T - np.eye(P))) < 1e-13

@@ -178,3 +178,25 @@ def test_implicit_model_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def test_statistics_modules_import_no_jax():
+    """The modules of the error-bar and bad-fit slice load, and a batched
+    water-fill runs, in a process that ends with neither JAX nor
+    pygsti_tpu imported."""
+    new = ('tools.optools', 'tools.sdptools', 'models.nongauge', 'tools.likelihoodfns',
+           'tools.chi2fns', 'protocols.confidenceregionfactory', 'protocols.estimate',
+           'objectivefns.wildcardbudget', 'optimize.wildcardopt', 'protocols.gst',
+           'tools.edesigntools')
+    code = ("import sys, importlib\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.objectivefns.wildcardbudget import _waterfill\n"
+            "p = _waterfill([0.7, 0.3], [0.5, 0.5], 0.1)\n"
+            "assert abs(p[0] - 0.6) < 1e-15 and abs(p[1] - 0.4) < 1e-15, p\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'

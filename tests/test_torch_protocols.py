@@ -467,18 +467,32 @@ def test_objfn_builders_and_options():
 
 def test_badfit_actions_raise_until_ported(runs):
     """With the default empty actions a bad fit does nothing, as in the JAX
-    package; an action on a bad fit raises."""
+    package; an action on a bad fit runs (the actions are ported: a
+    'wildcard' budget lands in the estimate's parameters), and an unknown
+    one raises; a good fit takes no action."""
+    from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
+    printer = VerbosityPrinter.create_printer(0)
     est = Estimate(runs['tres'], {'final iteration estimate': runs['tt']},
                    {'final_objfn_value': 5000.0, 'final_dof': 100})
     runs['tres'].add_estimate(est, 'bad')
     try:
-        tgst._add_badfit_estimates(runs['tres'], 'bad', tgst.GSTBadFitOptions())
-        with pytest.raises(NotImplementedError, match="wildcard"):
-            tgst._add_badfit_estimates(runs['tres'], 'bad',
-                                       tgst.GSTBadFitOptions(actions=('wildcard',)))
+        tgst._add_badfit_estimates(runs['tres'], 'bad', runs['tt'], tgst.GSTBadFitOptions(),
+                                   printer, device='cpu')
+        assert 'unmodeled_error' not in est.parameters
+        tgst._add_badfit_estimates(runs['tres'], 'bad', runs['tt'],
+                                   tgst.GSTBadFitOptions(actions=('wildcard',)), printer,
+                                   device='cpu')
+        assert est.parameters['unmodeled_error'].num_params == len(runs['tt'].operations) + 1
+        with pytest.raises(ValueError, match="badfit action"):
+            tgst._add_badfit_estimates(runs['tres'], 'bad', runs['tt'],
+                                       tgst.GSTBadFitOptions(actions=('unknown',)), printer,
+                                       device='cpu')
+        del est.parameters['unmodeled_error']
         est.parameters['final_objfn_value'] = 100.0     # a good fit: nothing to do
-        tgst._add_badfit_estimates(runs['tres'], 'bad',
-                                   tgst.GSTBadFitOptions(actions=('wildcard',)))
+        tgst._add_badfit_estimates(runs['tres'], 'bad', runs['tt'],
+                                   tgst.GSTBadFitOptions(actions=('wildcard',)), printer,
+                                   device='cpu')
+        assert 'unmodeled_error' not in est.parameters
     finally:
         del runs['tres'].estimates['bad']
 
@@ -551,8 +565,9 @@ def test_estimate(runs):
     est = runs['tres'].estimates[NAME]
     assert 'stdgaugeopt' in est and est['target'] is runs['tt']
     assert list(est.keys()) == list(est.models.keys())
-    with pytest.raises(NotImplementedError, match="confidence regions"):
-        est.create_confidence_region_factory()
+    crf = est.create_confidence_region_factory(device='cpu')
+    assert est.confidence_region_factories[('final iteration estimate', 'final')] is crf
+    assert crf.model is est.models['final iteration estimate'] and not crf.has_hessian()
     scratch = Estimate(None, {'target': runs['tt'],
                               'final iteration estimate': est.models['final iteration estimate']})
     assert scratch.misfit_sigma() is None
