@@ -113,12 +113,23 @@ Phases, each fatal on failure:
                 'wildcard1d', 'wildcard' and 'Robust+' (N_sigma above 2, the
                 budgets at their thresholds, the water-fill card against
                 CPU); the Fisher information by L; its own launch count
+ 22. data io -- phase 3's dataset written to a text file and read back
+                (with and without the zero counts); run_long_sequence_gst from
+                the file with its defaults (LGST start, 'stdgaugeopt') against
+                phase 3's optimum, with its own launch count; its results
+                written to a directory and read back bit for bit; the
+                empty-data workflow (a template filled with counts drawn on
+                the card); 4 bootstrap refits of resamples through the
+                kernel, gauge-optimized, their spread of Gxpi2:0's
+                infidelity against phase 21's Hessian error bar; its own
+                launch count
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -1960,7 +1971,215 @@ def phase_statistics(mp, est, target, datagen, lists, builders, device):
     if not rel50 < 1e-10:
         raise SystemExit("the Fisher information disagrees with its per-circuit sum")
     log("phase 21: %.1f s of the script's wall time" % (time.time() - t_phase))
-    return launches
+    return launches, bars[(('Gxpi2', 0), 'exact')]
+
+
+def num_buckets(layout, model, device):
+    """How many depth buckets the blocked Jacobian of `layout` scans: the
+    kernel's launches per LM iteration."""
+    from pygsti_tpu_torch.objectivefns.objectivefns import bucket_plan
+    n_out, d = layout.num_elements // layout.num_rows, model.dim
+    NT = len(model.op_keys) * d * d + d + n_out * d
+    return len(bucket_plan(layout, n_out, NT, device)[0])
+
+
+def same_rows(a, b):
+    """Whether two datasets hold the same circuits, outcome labels and
+    counts, each in the same order."""
+    return a.keys() == b.keys() and a.outcome_labels == b.outcome_labels and all(
+        list(a[c].counts.items()) == list(b[c].counts.items()) for c in a.keys())
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path) for f in fs)
+
+
+def phase_data_io(mp, target, lists, ds, fitted, fit_value, nsigma, datagen, gx_bar95, device):
+    """Phase 22: phase 3's dataset through the text format and the one-call
+    driver, its results through a directory, the empty-data workflow, and
+    the bootstrap: 4 full-width refits of resamples through the kernel,
+    gauge-optimized, with the spread of Gxpi2:0's entanglement infidelity
+    held against phase 21's Hessian error bar.  Runs in a temporary working
+    directory, where the driver writes its checkpoints.  Returns the kernel
+    launches of the driver's fit and of the bootstrap."""
+    from pygsti_tpu_torch.drivers.bootstrap import (bootstrap_error_bars,
+                                                    create_bootstrap_models,
+                                                    gauge_optimize_models)
+    from pygsti_tpu_torch.drivers.longsequence import run_long_sequence_gst
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.io.readers import (read_data_from_dir, read_dataset,
+                                             read_results_from_dir)
+    from pygsti_tpu_torch.io.writers import (fill_in_empty_dataset_with_fake_data,
+                                             write_dataset, write_empty_protocol_data)
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.protocols.estimate import misfit_sigma
+    from pygsti_tpu_torch.protocols.gst import StandardGSTDesign
+    from pygsti_tpu_torch.tools.optools import entanglement_infidelity
+    import scipy.stats as st
+    t_phase = time.time()
+    final = list(lists[-1])
+    maxlengths = [L for L in (1, 2, 4, 8, 16, 32, 64) if L <= MAXL]
+    fids = (mp.prep_fiducials(), mp.meas_fiducials(), mp.germs(), maxlengths)
+    old_cwd = os.getcwd()
+    work = tempfile.mkdtemp(prefix='chip_smoke_io_')
+    os.chdir(work)
+    try:
+        # -- (1) the text round trip, (2) the default read --------------------
+        path = os.path.join(work, 'dataset.txt')
+        t0 = time.time()
+        write_dataset(path, ds)
+        t1 = time.time()
+        back = read_dataset(path, record_zero_counts=True)
+        t2 = time.time()
+        dflt = read_dataset(path)
+        t3 = time.time()
+        log("io: write_dataset of %d circuits in %.3f s, %d bytes; read_dataset("
+            "record_zero_counts=True) in %.3f s, the default read in %.3f s"
+            % (len(ds), t1 - t0, os.path.getsize(path), t2 - t1, t3 - t2))
+        if not same_rows(back, ds):
+            raise SystemExit("the dataset file does not read back to the dataset written")
+        dof_all, dof_dflt = ds.degrees_of_freedom(final), dflt.degrees_of_freedom(final)
+        log("io: degrees of freedom over the final list: %d with every zero count recorded, "
+            "%d read with the default record_zero_counts=False" % (dof_all, dof_dflt))
+        if not dof_dflt <= dof_all or dflt.keys() != ds.keys():
+            raise SystemExit("the default read gained degrees of freedom or lost circuits")
+
+        # -- (3) the driver from the file -------------------------------------
+        torch.cuda.synchronize()
+        bwd_jacobian_accumulate.launches = 0
+        t0 = time.time()
+        res = run_long_sequence_gst(path, target, *fids, verbosity=0, device=device)
+        torch.cuda.synchronize()
+        driver_wall = time.time() - t0
+        driver_launches = bwd_jacobian_accumulate.launches
+        est = res.estimates['GateSetTomography']
+        iters = log_stages('driver', est, lists)
+        value, nsig = est.parameters['final_objfn_value'], est.misfit_sigma()
+        fit_s = est.parameters['fit_time'] - est.parameters['profiler']['checkpoint writes']
+        layout = SimpleForwardSimulator(fitted, device).create_layout(final)
+        nb = num_buckets(layout, fitted, device)
+        drv_model = est.models['final iteration estimate']
+        dp = float(np.max(np.abs(SimpleForwardSimulator(drv_model, device).bulk_fill_probs(layout)
+                                 - SimpleForwardSimulator(fitted, device).bulk_fill_probs(layout))))
+        rel = abs(value - fit_value) / abs(fit_value)
+        log("driver: run_long_sequence_gst(<file>, ..., %s) from LGST with its default "
+            "regularization: %d LM iterations, fit %.3f s, the call %.3f s (LGST, fit, "
+            "'stdgaugeopt', checkpoints); final 2*DeltaLogL %.6f against phase 3's %.6f: rel "
+            "%.3e (tol 1e-3); N_sigma %.4f on %d degrees of freedom less the parameters "
+            "(phase 3: %.4f on %d); 'final iteration estimate' probabilities of all %d circuits "
+            "against phase 3's: max |dp| %.3e (tol 1e-4); kernel launches {'bwd_jacobian': %d} "
+            "(%d buckets x %d iterations = %d)"
+            % (maxlengths, iters, fit_s, driver_wall, value, fit_value, rel, nsig, dof_dflt,
+               nsigma, dof_all, len(final), dp, driver_launches, nb, iters, nb * iters))
+        if not (rel < 1e-3 and dp < 1e-4 and np.isfinite(nsig)):
+            raise SystemExit("the driver's fit from the file missed phase 3's optimum")
+        if driver_launches != nb * iters:
+            raise SystemExit("the driver's kernel launches are not the buckets times the "
+                             "LM iterations")
+
+        # -- (4) the results directory ----------------------------------------
+        rdir = os.path.join(work, 'results')
+        t0 = time.time()
+        res.write(rdir)
+        t1 = time.time()
+        rback = read_results_from_dir(rdir).for_protocol['GateSetTomography']
+        t2 = time.time()
+        best = rback.estimates['GateSetTomography']
+        check = final[:: len(final) // 200][:200]
+        check_layout = SimpleForwardSimulator(fitted, device).create_layout(check)
+        dps = []
+        for k in ('final iteration estimate', 'stdgaugeopt'):
+            if not np.array_equal(best.models[k].to_vector(), est.models[k].to_vector()):
+                raise SystemExit("the %r model does not read back bit for bit" % k)
+            dps.append(float(np.max(np.abs(
+                SimpleForwardSimulator(best.models[k], device).bulk_fill_probs(check_layout)
+                - SimpleForwardSimulator(est.models[k], device).bulk_fill_probs(check_layout)))))
+        data_back = read_data_from_dir(rdir)
+        log("results: write %.3f s, read_results_from_dir %.3f s, the directory %d bytes; "
+            "parameters bit for bit, probabilities of %d circuits max |dp| %s (tol 1e-12), "
+            "N_sigma %.6f read back %.6f"
+            % (t1 - t0, t2 - t1, dir_bytes(rdir), len(check), ['%.1e' % x for x in dps], nsig,
+               best.misfit_sigma()))
+        if not (max(dps) <= 1e-12 and best.misfit_sigma() == nsig
+                and same_rows(data_back.dataset, dflt)):
+            raise SystemExit("the results directory does not read back to the results")
+
+        # -- (5) the empty-data workflow -------------------------------------
+        design = StandardGSTDesign(target, *fids)
+        edir = os.path.join(work, 'empty')
+        t0 = time.time()
+        write_empty_protocol_data(edir, design)
+        t1 = time.time()
+        fill_in_empty_dataset_with_fake_data(os.path.join(edir, 'data', 'dataset.txt'), datagen,
+                                             1000, seed=2211, device=device)
+        t2 = time.time()
+        filled = read_data_from_dir(edir)
+        t3 = time.time()
+        log("empty data: write_empty_protocol_data %.3f s; fill_in_empty_dataset_with_fake_data "
+            "(1000 shots drawn from the card's probabilities) %.3f s; read_data_from_dir %.3f s; "
+            "%d circuits" % (t1 - t0, t2 - t1, t3 - t2, len(filled.dataset)))
+        if filled.dataset.keys() != design.all_circuits_needing_data or any(
+                filled.dataset[c].total != 1000 for c in filled.dataset.keys()):
+            raise SystemExit("the filled-in dataset is not the design's at 1000 shots")
+
+        # -- (6) the bootstrap -----------------------------------------------
+        n_boot, stats = 4, []
+        torch.cuda.synchronize()
+        bwd_jacobian_accumulate.launches = 0
+        t0 = time.time()
+        models, resamples = create_bootstrap_models(
+            n_boot, ds, 'nonparametric', *fids, target_model=target, start_seed=2200,
+            return_data=True, device=device, stats=stats)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        boot_launches = bwd_jacobian_accumulate.launches
+        boot_iters = 0
+        for i, (s, m, rs) in enumerate(zip(stats, models, resamples)):
+            it = sum(r.optimizer_specific_qtys['iterations'] for rr in s['optimizer_results']
+                     for r in rr)
+            boot_iters += it
+            v = s['optimizer_results'][-1][-1].chi2_k_distributed_qty
+            k = max(rs.degrees_of_freedom(final) - m.num_params, 1)
+            # A resample is drawn from the observed frequencies, which already
+            # sit off the model by phase 3's misfit X: at its optimum the refit
+            # keeps X, adds a chi2_k of its own draw and a cross term of
+            # variance 4X, so 2DeltaLogL is near X + k with variance 4X + 2k,
+            # and its N_sigma is near sqrt(k / 2), not near 0.
+            z = (v - fit_value - k) / np.sqrt(4 * fit_value + 2 * k)
+            log("bootstrap: refit %d (seed %d): %d LM iterations (%d launches), %.3f s with its "
+                "resample; 2*DeltaLogL %.6f, N_sigma %.4f (sqrt(k/2) %.4f), against phase 3's "
+                "misfit plus the resample's draw: z %.4f (tol |z| < 10)"
+                % (i, 2200 + i, it, nb * it, s['seconds'], v, misfit_sigma(v, k),
+                   np.sqrt(k / 2), z))
+            if not abs(z) < 10:
+                raise SystemExit("a bootstrap refit is far from its optimum: z %g" % z)
+        gauged = gauge_optimize_models(models, target, device=device)
+        t2 = time.time()
+        key = next(k for k in target.operations if k == ('Gxpi2', 0))
+
+        def infid(m):
+            return entanglement_infidelity(m.operations[key].dense(),
+                                           target.operations[key].dense())
+        mean, std = bootstrap_error_bars(gauged, infid)
+        sigma = gx_bar95 / np.sqrt(st.chi2.ppf(0.95, 1))
+        log("bootstrap: %d refits in %.3f s (%d LM iterations, kernel launches {'bwd_jacobian': "
+            "%d}, %d buckets x %d = %d), gauge_optimize_models %.3f s; entanglement infidelity "
+            "of %s: mean %.6e, standard deviation %.6e against phase 21's Hessian sigma %.6e "
+            "(its 95%% bar %.6e / %.4f): ratio %.3f (within a factor of 10)"
+            % (n_boot, t1 - t0, boot_iters, boot_launches, nb, boot_iters, nb * boot_iters,
+               t2 - t1, key, mean, std, sigma, gx_bar95, np.sqrt(st.chi2.ppf(0.95, 1)),
+               std / sigma))
+        if boot_launches != nb * boot_iters:
+            raise SystemExit("the bootstrap's kernel launches are not the buckets times the LM "
+                             "iterations")
+        if not (np.isfinite(std) and std > 0 and 0.1 < std / sigma < 10):
+            raise SystemExit("the bootstrap's spread is not within a factor of 10 of the "
+                             "Hessian's")
+    finally:
+        os.chdir(old_cwd)
+        shutil.rmtree(work, ignore_errors=True)
+    log("phase 22: %.1f s of the script's wall time" % (time.time() - t_phase))
+    return driver_launches, boot_launches
 
 
 def rb_and_cloud3_phases(device):
@@ -2231,7 +2450,11 @@ def main():
     cloud3_launches = rb_and_cloud3_phases(device)
 
     # -- error bars, bad-fit handling and Fisher information at full width ----
-    stat_launches = phase_statistics(mp, est, target, datagen, lists, builders, device)
+    stat_launches, gx_bar95 = phase_statistics(mp, est, target, datagen, lists, builders, device)
+
+    # -- data in and out, the one-call driver, the bootstrap -----------------
+    driver_launches, boot_launches = phase_data_io(mp, target, lists, ds, fitted, fit_value,
+                                                   nsigma, datagen, gx_bar95, device)
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -2240,14 +2463,16 @@ def main():
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
-        + cloud3_launches + stat_launches,
+        + cloud3_launches + stat_launches + driver_launches + boot_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
                                   "qutrit fit": qutrit_launches}, **obj_launches,
                                  **{"cloud-noise fit": cloud_launches,
                                     "3-qubit cloud-noise fit": cloud3_launches,
-                                    "statistics": stat_launches}),
+                                    "statistics": stat_launches,
+                                    "driver fit": driver_launches,
+                                    "bootstrap": boot_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -11,7 +11,7 @@ from pygsti_tpu_torch.data.dataset import DataSet
 
 def simulate_data(model_or_dataset, circuit_list, num_samples, sample_error='multinomial',
                   seed=None, rand_state=None, alias_dict=None, collision_action='aggregate',
-                  record_zero_counts=True, device="cuda"):
+                  record_zero_counts=True, times=None, device="cuda"):
     """A DataSet of counts drawn from the model's outcome probabilities (or
     from the frequencies of a DataSet), circuit by circuit in list order,
     from a numpy ``RandomState(seed)`` (or `rand_state`) -- the JAX
@@ -24,8 +24,11 @@ def simulate_data(model_or_dataset, circuit_list, num_samples, sample_error='mul
     labels to Circuits that replace them for the simulation only; the
     dataset stays keyed by the circuits given.  With record_zero_counts
     False an outcome drawn zero times is not recorded, which lowers the
-    circuit's degrees of freedom.  collision_action 'keepseparate' raises
-    NotImplementedError, as in the JAX package."""
+    circuit's degrees of freedom.  With `times` the dataset holds time
+    series: one independent draw per timestamp (the first is the draw above,
+    'none' and 'round' repeat it), each outcome recorded with its count as
+    the repetitions at that time, as in the JAX package.  collision_action
+    'keepseparate' raises NotImplementedError, as in the JAX package."""
     from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
     if collision_action not in ('aggregate', 'keepseparate'):
         raise ValueError("Invalid collision_action %r" % (collision_action,))
@@ -67,5 +70,23 @@ def simulate_data(model_or_dataset, circuit_list, num_samples, sample_error='mul
             counts = {o: int(n) for o, n in zip(outcomes, rng.multinomial(N, p))}
         else:
             raise ValueError("Invalid sample_error %r" % sample_error)
-        ds.add_count_dict(c, counts, record_zero_counts=record_zero_counts)
+        if times is None:
+            ds.add_count_dict(c, counts, record_zero_counts=record_zero_counts)
+            continue
+        ols, ts, reps = [], [], []
+        for k, t in enumerate(times):
+            if k == 0 or sample_error in ('none', 'round'):
+                tc = counts
+            elif sample_error == 'multinomial':
+                tc = {o: int(n) for o, n in zip(outcomes, rng.multinomial(N, p))}
+            else:
+                n0 = rng.binomial(N, min(max(p[0], 0.0), 1.0))
+                tc = {outcomes[0]: n0, outcomes[1]: N - n0}
+            for o, n in tc.items():
+                if n == 0 and not record_zero_counts:
+                    continue
+                ols.append(o)
+                ts.append(float(t))
+                reps.append(n)
+        ds.add_raw_series_data(c, ols, ts, reps)
     return ds

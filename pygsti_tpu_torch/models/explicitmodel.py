@@ -77,6 +77,20 @@ class _MemberDict(collections.OrderedDict):
     def __contains__(self, key):
         return super().__contains__(Label(key))
 
+    def __reduce__(self):
+        # OrderedDict's own reduce calls the class without arguments; the
+        # items go in the state and are restored without a rebuild, since
+        # the parent's own state comes back with them
+        return (_MemberDict.__new__, (_MemberDict,),
+                {'_parent': self._parent, '_kind': self._kind, '_items': list(self.items())})
+
+    def __setstate__(self, state):
+        state = dict(state)
+        items = state.pop('_items')
+        self.__dict__.update(state)
+        for key, val in items:
+            collections.OrderedDict.__setitem__(self, key, val)
+
 
 def _rebuilt(member, D, what):
     """The member of the same dense family at D @ its dense value: a static

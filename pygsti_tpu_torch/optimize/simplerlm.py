@@ -14,6 +14,7 @@ finite-difference iterations (ROADMAP.md section 3).
 from __future__ import annotations
 
 import time
+import types
 
 import numpy as np
 import scipy.linalg as _spl
@@ -35,6 +36,14 @@ class OptimizerResult(object):
         self.f_no_penalties = opt_unpenalized_f
         self.chi2_k_distributed_qty = chi2_k_distributed_qty
         self.optimizer_specific_qtys = optimizer_specific_qtys
+
+    def __getstate__(self):
+        # the objective holds its layout and closures over device tensors,
+        # which pickle cannot take (drivers' output_pkl): a pickled result
+        # keeps only the objective's name
+        state = dict(self.__dict__)
+        state['objective'] = types.SimpleNamespace(name=getattr(self.objective, 'name', None))
+        return state
 
 
 class SimplerLMOptimizer(object):

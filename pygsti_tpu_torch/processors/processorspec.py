@@ -1,7 +1,7 @@
 """Processor specifications: a device's qubits, native gates and where each
 gate is available, host Python (counterpart of
-pygsti_tpu/processors/processorspec.py).  ``compute_clifford_symplectic_reps``
-needs the symplectic tools, which are not ported yet."""
+pygsti_tpu/processors/processorspec.py), with
+``compute_clifford_symplectic_reps`` through the port's symplectic tools."""
 
 from __future__ import annotations
 

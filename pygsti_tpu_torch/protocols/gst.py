@@ -4,7 +4,9 @@ pygsti_tpu/protocols/gst.py).
 
 The fit, the gauge optimization and the bad-fit actions (wildcard budgets
 and robust re-weighting) run on the protocol's ``device``, the card by
-default.  Not ported yet: reading results back from a directory.
+default.  Results write to a directory and read back from one
+(``ModelEstimateResults.write``, ``io.read_results_from_dir``): the models
+and the scalar parameters of each estimate, as in the JAX package.
 
 A mode whose members LGST cannot carry its estimate into (the Lindblad and
 unitary families) starts from the mode's target, so that the fit keeps the
@@ -393,6 +395,24 @@ class ModelEstimateResults(ProtocolResults):
                 'models': models, 'parameters': params,
                 'goparameters_keys': list(est.goparameters.keys())}
         return state
+
+    @classmethod
+    def _from_nice_serialization_with_data(cls, state, data):
+        """The results of `state` (written by either package) on `data`:
+        the circuit lists, and per estimate its models, scalar parameters
+        and gauge-opt labels (their settings are not written)."""
+        results = cls(data, Protocol(state.get('protocol_name')), init_circuits=False)
+        for k, strs in state.get('circuit_lists', {}).items():
+            results.circuit_lists[k] = [Circuit(s) for s in strs]
+        for name, est_state in state.get('estimates', {}).items():
+            models = collections.OrderedDict(
+                (k, NicelySerializable.from_nice_serialization(m))
+                for k, m in est_state['models'].items())
+            est = Estimate(results, models, est_state.get('parameters', {}))
+            for gk in est_state.get('goparameters_keys', []):
+                est.goparameters[gk] = {}
+            results.estimates[name] = est
+        return results
 
     def add_model_test(self, target_model, themodel, estimate_key='test', gaugeopt_keys="auto",
                        verbosity=0, device="cuda"):
