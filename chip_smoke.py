@@ -123,6 +123,20 @@ Phases, each fatal on failure:
                 kernel, gauge-optimized, their spread of Gxpi2:0's
                 infidelity against phase 21's Hessian error bar; its own
                 launch count
+ 23. design selection -- smq2Q_XYICNOT 'full' at full width (1,616
+                parameters, 6 ops): find_fiducials with its defaults (781
+                candidates) on the card, both sets spanning d^2 = 16;
+                find_germs with its defaults (greedy, 'allJac', the pool
+                {3: 'all upto'}) on the card, the set complete for its pool
+                and its score recomputed on the host's CPU; per-germ
+                fiducial-pair reduction of the pack's fiducials and
+                test_fiducial_pairs; the selected design to maxL 16 fitted by
+                run_long_sequence_gst_base on 1,000 shots of phase 3's
+                data-generating model, the kernel held at its buckets, its
+                own launch count
+ 24. errgen propagation -- bench.py bench[q10] through the port: H/S error
+                generators through a 10-qubit, 40-layer seeded random
+                Clifford circuit, then their BCH combination at order 2
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -2210,6 +2224,205 @@ def implicit_phases(device):
     return cloud_launches
 
 
+SELECTION_SEED = 2026
+SELECTION_MAXL = [1, 2, 4, 8, 16]
+
+
+def phase_design_selection(datagen, device):
+    """Phase 23: fiducials, germs and fiducial pairs selected for
+    smq2Q_XYICNOT at full width on the card, then the selected design fitted
+    through the kernel; returns the fit's kernel launches."""
+    from pygsti_tpu_torch.algorithms import (fiducialpairreduction as fpr,
+                                             fiducialselection as fs, germselection as gs)
+    from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.drivers.longsequence import run_long_sequence_gst_base
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.modelpacks import smq2Q_XYICNOT as mp
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+
+    t_phase = time.time()
+    target = mp.target_model('full')
+    if (target.num_params, len(target.operations)) != (1616, 6):
+        raise SystemExit("unexpected smq2Q_XYICNOT 'full' model")
+    # (1) fiducials, with find_fiducials' defaults
+    t0 = time.time()
+    prep, meas = fs.find_fiducials(target, verbosity=0, device=device)
+    torch.cuda.synchronize()
+    fid_s = time.time() - t0
+    spans = [fs.compute_composite_fiducial_score(target, f, kind, device=device)
+             for f, kind in ((prep, 'prep'), (meas, 'meas'))]
+    n_cands = sum(5 ** L for L in range(5)) if len(target.operations) == 6 else None
+    log("selection: find_fiducials (%s candidates of length <= 4) in %.2f s on the card: %d "
+        "prep fiducials %s, %d measurement fiducials %s; spanned %d and %d of d^2 = 16, scores "
+        "%.4f and %.4f" % (n_cands, fid_s, len(prep), [f.str for f in prep], len(meas),
+                           [f.str for f in meas], spans[0][1], spans[1][1], spans[0][0],
+                           spans[1][0]))
+    if not (spans[0][1] == 16 and spans[1][1] == 16):
+        raise SystemExit("the selected fiducials do not span the superoperator space")
+
+    # (2) germs, with find_germs' defaults
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    germs = gs.find_germs(target, randomize=True, seed=SELECTION_SEED, verbosity=0,
+                          device=device, stats=stats)
+    torch.cuda.synchronize()
+    germ_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    rmodel = gs._randomized(target, 1e-2, SELECTION_SEED)     # as find_germs randomizes
+    proj = gs._nongauge_projector(rmodel, device=device)
+    n_target = stats['target_directions']
+    score_card, n_card = gs._GermScorer(rmodel, proj, n_target, device, l1_penalty=1e-2)(germs)
+    t0 = time.time()
+    proj_cpu = gs._nongauge_projector(rmodel, device='cpu')
+    score_cpu, n_cpu = gs._GermScorer(rmodel, proj_cpu, n_target, 'cpu', l1_penalty=1e-2)(germs)
+    cpu_s = time.time() - t0
+    rel = abs(score_card - score_cpu) / abs(score_cpu)
+    log("selection: find_germs (greedy, 'allJac', pool {3: 'all upto'}): %d candidates, %d "
+        "directions to cover, %d greedy steps, %d sets scored, %d germs in %.2f s on the card: "
+        "Jacobian and twirl %.2f s, projector %.2f s, scoring (batched eigvalsh) %.2f s; the "
+        "largest stack scored at once %.1f MB, peak device memory %.1f MB; germs %s"
+        % (stats['candidates'], n_target, stats['greedy_steps'], stats['sets_scored'],
+           len(germs), germ_s, stats['jacobian_twirl_s'], stats['projector_s'],
+           stats['scoring_s'], stats['gram_stack_bytes'] / 1e6, peak, [g.str for g in germs]))
+    log("selection: margins: %d candidates with an eigenvalue gap within 10x of eps 1e-6 "
+        "(smallest gap at or above eps %.3e); the amplified count's nearest eigenvalue %.3f "
+        "decades from its threshold 1e-10 x the largest; the selected set's score %.9g "
+        "(%d/%d amplified) on the card, %.9g (%d/%d) recomputed on the host's CPU in %.2f s: "
+        "rel %.3e (tol 1e-8)"
+        % (stats['near_eps_gap_candidates'], stats['smallest_eig_gap'],
+           stats['n_amp_margin_decades'], score_card, n_card, n_target, score_cpu, n_cpu,
+           n_target, cpu_s, rel))
+    if not (n_card >= n_target and n_cpu >= n_target and rel < 1e-8
+            and stats['score'] < 1e6):
+        raise SystemExit("the selected germs are not amplificationally complete, or the card's "
+                         "score disagrees with the CPU's")
+
+    # (3) fiducial-pair reduction of the pack's fiducials for these germs
+    t0 = time.time()
+    fpr_stats = {}
+    pairs = fpr.find_sufficient_fiducial_pairs_per_germ(
+        target, mp.prep_fiducials(), mp.meas_fiducials(), germs, seed=SELECTION_SEED,
+        device=device, stats=fpr_stats)
+    torch.cuda.synchronize()
+    fpr_s = time.time() - t0
+    # each germ's pairs reach the rank of all its pairs' sensitivities on
+    # the model the search randomized (its own criterion)
+    fmodel = fpr._randomized_for_fpr(target, SELECTION_SEED)
+    short = []
+    for g, (rows, pidx, n_amp, _) in zip(germs, fpr._sensitivities(
+            fmodel, germs, mp.prep_fiducials(), mp.meas_fiducials(),
+            gs._nongauge_projector(fmodel, device=device), device=device)):
+        sel = [k for k, p in enumerate(pidx) if p in set(pairs[g])]
+        if fpr._rank(rows[sel]) != n_amp or fpr._rank(rows) != n_amp:
+            short.append(g.str)
+    n_all = len(mp.prep_fiducials()) * len(mp.meas_fiducials())
+    every = {g: [(i, j) for i in range(len(mp.prep_fiducials()))
+                 for j in range(len(mp.meas_fiducials()))] for g in germs}
+    t0 = time.time()
+    amp = fpr.test_fiducial_pairs(pairs, target, mp.prep_fiducials(), mp.meas_fiducials(),
+                                  germs, device=device)
+    amp_all = fpr.test_fiducial_pairs(every, target, mp.prep_fiducials(), mp.meas_fiducials(),
+                                      germs, device=device)
+    test_s = time.time() - t0
+    log("selection: find_sufficient_fiducial_pairs_per_germ in %.2f s: the sensitivities on the "
+        "card, the greedy searches' SVDs on the host's CPU (priced at %.1f s in one process, so "
+        "split over %d worker processes, started in %.2f s); pairs per germ %s of %d, each "
+        "germ's pairs at the full rank of its sensitivities (short: %s); test_fiducial_pairs at "
+        "the target: %d amplified parameters, every pair %d (%.2f s)"
+        % (fpr_s, fpr_stats['predicted_s'], fpr_stats['workers'], fpr_stats['worker_start_s'],
+           [len(pairs[g]) for g in germs], n_all, short, amp, amp_all, test_s))
+    if short or not (0 < amp <= amp_all and all(0 < len(pairs[g]) <= n_all for g in germs)):
+        raise SystemExit("a germ's reduced fiducial pairs miss directions all its pairs reach")
+
+    # (4) the selected design, fitted through the kernel
+    lists = create_lsgst_circuit_lists(target, mp.prep_fiducials(), mp.meas_fiducials(), germs,
+                                       SELECTION_MAXL, fid_pairs=pairs)
+    final = list(lists[-1])
+    ds = simulate_data(datagen, final, 1000, seed=1234, device=device)
+    layout = SimpleForwardSimulator(target, device).create_layout(final)
+    errs, kms, kplain, _, kbound, shapes = hold_kernel_at_buckets(layout, target, device,
+                                                                  'selection')
+    log("selection: the selected design: lists %s, max depth %d; kernel bwd_jacobian at its %d "
+        "bucket shapes %s: max rel err f64 %.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per "
+        "Jacobian f64 against a bound of %.4f ms (%.1f%% of it; plain %.2f ms)"
+        % ([len(l) for l in lists], max(c.depth for c in final), len(shapes), shapes,
+           errs[torch.float64], errs[torch.float32], kms, kbound, 100 * kbound / kms, kplain))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        os.chdir(work)
+        try:
+            torch.cuda.synchronize()
+            bwd_jacobian_accumulate.launches = 0
+            t0 = time.time()
+            res = run_long_sequence_gst_base(ds, target, lists, verbosity=0, device=device)
+            torch.cuda.synchronize()
+            fit_wall = time.time() - t0
+            launches = bwd_jacobian_accumulate.launches
+        finally:
+            os.chdir(cwd)
+    est = res.estimates['GateSetTomography']
+    iters = log_stages('selection', est, lists)
+    nsigma = est.misfit_sigma()
+    fitted = est.models['final iteration estimate']
+    log("selection: run_long_sequence_gst_base on the selected design (%d circuits, 1,000 shots "
+        "of phase 3's data-generating model): %d LM iterations, the call %.2f s (fit %.2f s, "
+        "'stdgaugeopt'); kernel launches {'bwd_jacobian': %d}; final 2*DeltaLogL %.6f, k %d, "
+        "N_sigma %.4f; Frobenius distance of the fit to the data-generating model %.6g"
+        % (len(final), iters, fit_wall, est.parameters['fit_time'], launches,
+           est.parameters['final_objfn_value'], est.parameters['final_dof'], nsigma,
+           fitted.frobeniusdist(datagen)))
+    if launches == 0:
+        raise SystemExit("the fit of the selected design never launched the bwd_jacobian kernel")
+    if not (np.all(np.isfinite(fitted.to_vector())) and nsigma < 10):
+        raise SystemExit("the fit of the selected design is not finite or far from the "
+                         "statistical optimum: N_sigma %g" % nsigma)
+    log("phase 23: %.1f s of the script's wall time (fiducials %.1f s, germs %.1f s, pairs "
+        "%.1f s)" % (time.time() - t_phase, fid_s, germ_s, fpr_s))
+    return launches
+
+
+def phase_errgen_propagation():
+    """Phase 24: bench.py bench[q10] through the port (host integer algebra)."""
+    from pygsti_tpu_torch.circuits.circuit import Circuit
+    from pygsti_tpu_torch.errorgenpropagation import ErrorGeneratorPropagator
+    from pygsti_tpu_torch.tools.errgenproptools import bch_approximation
+    t_phase = time.time()
+    n10 = 10
+    gate_errs = {'Gxpi2': {('H', 'Z'): 0.001, ('S', 'X'): 0.0005},
+                 'Gypi2': {('H', 'X'): 0.001, ('S', 'Y'): 0.0005},
+                 'Gcnot': {('S', 'ZZ'): 0.002, ('H', 'XX'): 0.001}}
+    prop10 = ErrorGeneratorPropagator.from_errorgen_dict(gate_errs, n10, tuple(range(n10)))
+    rng10 = np.random.RandomState(7)
+    gates10 = []
+    for dpt in range(40):
+        if dpt % 2 == 0:
+            for q in range(n10):
+                gates10.append((['Gxpi2', 'Gypi2'][rng10.randint(2)], q))
+        else:
+            for q in range(rng10.randint(2), n10 - 1, 2):
+                gates10.append(('Gcnot', q, q + 1))
+    c10 = Circuit(gates10, tuple(range(n10)))
+    t0 = time.time()
+    errs10 = prop10.propagate_errorgens(c10)
+    prop_wall = time.time() - t0
+    items10 = list(errs10.items())
+    half10 = len(items10) // 2
+    t0 = time.time()
+    bch10 = bch_approximation(dict(items10[:half10]), dict(items10[half10:]), n10, bch_order=2)
+    bch_wall = time.time() - t0
+    log("errgen: propagation through the %d-gate 10-qubit Clifford circuit: %.3f s (%.1f gates/s, "
+        "%d generators); BCH order 2: %.3f s (%d terms)"
+        % (len(gates10), prop_wall, len(gates10) / max(prop_wall, 1e-9), len(errs10), bch_wall,
+           len(bch10)))
+    if not (len(errs10) > 0 and len(bch10) >= len(errs10)
+            and all(np.isfinite(v) for v in bch10.values())):
+        raise SystemExit("error-generator propagation gave no finite generators")
+    log("phase 24: %.1f s of the script's wall time" % (time.time() - t_phase))
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -2456,6 +2669,10 @@ def main():
     driver_launches, boot_launches = phase_data_io(mp, target, lists, ds, fitted, fit_value,
                                                    nsigma, datagen, gx_bar95, device)
 
+    # -- design selection at full width, then error-generator propagation ----
+    selection_launches = phase_design_selection(datagen, device)
+    phase_errgen_propagation()
+
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
         "name": "bwd_jacobian", "route": "cuda",
@@ -2463,7 +2680,8 @@ def main():
         "replaces": "pygsti_tpu/ops/pallas_kernels.py:84",
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
-        + cloud3_launches + stat_launches + driver_launches + boot_launches,
+        + cloud3_launches + stat_launches + driver_launches + boot_launches
+        + selection_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -2472,7 +2690,8 @@ def main():
                                     "3-qubit cloud-noise fit": cloud3_launches,
                                     "statistics": stat_launches,
                                     "driver fit": driver_launches,
-                                    "bootstrap": boot_launches}),
+                                    "bootstrap": boot_launches,
+                                    "design-selection fit": selection_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

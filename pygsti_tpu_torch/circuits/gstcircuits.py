@@ -191,3 +191,40 @@ def create_lsgst_circuits(op_label_src, prep_fiducials, meas_fiducials, germs,
         include_lgst=include_lgst, keep_fraction=keep_fraction,
         keep_seed=keep_seed)
     return list(lists[-1])
+
+
+def create_elgst_lists(op_label_src, germs, max_lengths, trunc_scheme="whole germ powers",
+                       nest=True, include_lgst=True):
+    """Circuit lists for eLGST, one per max length: bare germ powers, no
+    fiducials (reference: gstcircuits.create_elgst_lists:765)."""
+    from pygsti_tpu_torch.circuits.circuitlist import CircuitList
+    op_labels = list(op_label_src.operations.keys()) \
+        if hasattr(op_label_src, 'operations') else list(op_label_src)
+    single_ops = [Circuit((lbl,)) for lbl in op_labels] if include_lgst else []
+    lists = []
+    current = list(single_ops)
+    for L in max_lengths:
+        if L == 0:
+            new = list(single_ops)
+        elif trunc_scheme == "whole germ powers":
+            new = [repeat_with_max_length(g, L) for g in germs]
+        elif trunc_scheme == "truncated germ powers":
+            new = [repeat_and_truncate(g, L) for g in germs]
+        elif trunc_scheme == "length as exponent":
+            new = [g * L for g in germs]
+        else:
+            raise ValueError("Invalid trunc_scheme: %r" % trunc_scheme)
+        if nest:
+            seen = set(c.layertup for c in current)
+            current = current + [c for c in new if c.layertup not in seen]
+            lists.append(CircuitList(list(current)))
+        else:
+            lists.append(CircuitList(list(dict.fromkeys(single_ops + new))))
+    return lists
+
+
+def create_elgst_experiment_list(op_label_src, germs, max_lengths,
+                                 trunc_scheme="whole germ powers", include_lgst=True):
+    """Every circuit of an eLGST experiment: the last nested list."""
+    return list(create_elgst_lists(op_label_src, germs, max_lengths, trunc_scheme,
+                                   nest=True, include_lgst=include_lgst)[-1])

@@ -486,22 +486,35 @@ class ExplicitOpModel(OpModel):
                 out[lbl] = coeffs
         return out
 
-    def depolarize(self, op_noise=None, spam_noise=None):
+    def depolarize(self, op_noise=None, spam_noise=None, max_op_noise=None,
+                   max_spam_noise=None, seed=None):
         """A depolarized copy: each op's non-identity block scaled by
         1 - op_noise; with spam_noise only the preps are depolarized, the
         POVMs are left alone (as in the JAX package and the reference).
+        With `max_op_noise` each op's noise (and with `max_spam_noise` each
+        prep's) is drawn uniformly from [0, max) by numpy's
+        default_rng(seed), the ops' draws first, in the JAX package's order.
         Only the dense families (static, full, full TP) can be rebuilt from
         the scaled dense value; any other member raises TypeError (the JAX
         package fails there too, on the member's constructor)."""
         m = self.copy()
+        rng = np.random.default_rng(seed)
         d = self.dim
-        if op_noise is not None:
-            D = np.diag([1.0] + [1.0 - op_noise] * (d - 1))
-            for lbl, op in list(m.operations.items()):
+        if max_op_noise is not None:
+            op_noises = rng.uniform(0, max_op_noise, len(m.operations))
+        else:
+            op_noises = None if op_noise is None else [op_noise] * len(m.operations)
+        if op_noises is not None:
+            for (lbl, op), noise in zip(list(m.operations.items()), op_noises):
+                D = np.diag([1.0] + [1.0 - noise] * (d - 1))
                 m.operations[lbl] = _rebuilt(op, D, 'depolarize')
-        if spam_noise is not None:
-            D = np.diag([1.0] + [1.0 - spam_noise] * (d - 1))
-            for lbl, p in list(m.preps.items()):
+        if max_spam_noise is not None:
+            spam_noises = rng.uniform(0, max_spam_noise, len(m.preps))
+        else:
+            spam_noises = None if spam_noise is None else [spam_noise] * len(m.preps)
+        if spam_noises is not None:
+            for (lbl, p), noise in zip(list(m.preps.items()), spam_noises):
+                D = np.diag([1.0] + [1.0 - noise] * (d - 1))
                 m.preps[lbl] = _rebuilt(p, D, 'depolarize')
         return m
 

@@ -49,3 +49,13 @@ def fast_jamiolkowski_iso_std(operation_mx, op_mx_basis='pp'):
     d2 = std.shape[0]
     d = int(round(np.sqrt(d2)))
     return std.reshape(d, d, d, d).transpose(0, 2, 1, 3).reshape(d2, d2) / d
+
+
+def fast_jamiolkowski_iso_std_inv(choi_mx, op_mx_basis='pp'):
+    """Inverse of fast_jamiolkowski_iso_std: a std-basis Choi matrix ->
+    the superoperator in `op_mx_basis`."""
+    choi = np.asarray(choi_mx)
+    d2 = choi.shape[0]
+    d = int(round(np.sqrt(d2)))
+    std = choi.reshape(d, d, d, d).transpose(0, 2, 1, 3).reshape(d2, d2) * d
+    return change_basis(std, 'std', op_mx_basis)

@@ -53,6 +53,24 @@ def create_elementary_errorgen(typ, p, q=None):
     raise ValueError("Invalid elementary errorgen type %r" % typ)
 
 
+def create_elementary_errorgen_dual(typ, p, q=None):
+    """Dual elementary error generator in the std basis, scaled so that
+    Tr(dual^dag errorgen) = 1 for the H/S/C/A family on a trace-orthonormal
+    basis of a qubit (the reference's convention)."""
+    p = np.asarray(p, dtype=complex)
+    d = p.shape[0]
+    if typ == 'H':
+        return -1j * (_left(p) - _right(p)) / (2.0 * d)
+    if typ == 'S':
+        return _sandwich(p, p) / d
+    if typ in ('C', 'A'):
+        q = np.asarray(q, dtype=complex)
+        if typ == 'C':
+            return (_sandwich(p, q) + _sandwich(q, p)) / (2 * d)
+        return 1j * (_sandwich(p, q) - _sandwich(q, p)) / (2 * d)
+    raise ValueError("Invalid elementary errorgen type %r" % typ)
+
+
 def create_lindbladian_term_errorgen(typ, lindblad_term_basis_mx, other_mx=None):
     """Lindblad-term generators in the std basis: 'H' is the elementary H
     generator; 'O' is the general term

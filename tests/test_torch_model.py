@@ -200,3 +200,34 @@ def test_statistics_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def test_selection_modules_import_no_jax():
+    """The modules of the design-selection and error-generator-propagation
+    slice load, and a 1-qubit germ search and a propagation run, in a
+    process that ends with neither JAX nor pygsti_tpu imported."""
+    new = ('tools.argchecks', 'algorithms.scoring', 'algorithms.grasp',
+           'algorithms.germselection', 'algorithms.fiducialselection',
+           'algorithms.fiducialpairreduction', 'algorithms.grammatrix', 'algorithms.contract',
+           'algorithms._svdworker', 'circuits.gstcircuits', 'tools.errgenalgebra',
+           'errorgenpropagation',
+           'errorgenpropagation.errorpropagator', 'tools.errgenproptools',
+           'models.modelconstruction')
+    code = ("import sys, importlib\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.modelpacks import smq1Q_XYI as mp\n"
+            "from pygsti_tpu_torch.algorithms.germselection import find_germs\n"
+            "from pygsti_tpu_torch.circuits.circuit import Circuit\n"
+            "from pygsti_tpu_torch.errorgenpropagation import ErrorGeneratorPropagator as E\n"
+            "g = find_germs(mp.target_model('full TP'), seed=1, verbosity=0, device='cpu',\n"
+            "               candidate_germ_counts={2: 'all upto'})\n"
+            "assert len(g) > 3, g\n"
+            "p = E.from_errorgen_dict({'Gxpi2': {('H', 'Z'): 0.01}}, 1, (0,))\n"
+            "assert len(p.propagate_errorgens(Circuit('Gxpi2:0Gxpi2:0@(0)'))) == 2\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'
