@@ -136,7 +136,20 @@ Phases, each fatal on failure:
                 own launch count
  24. errgen propagation -- bench.py bench[q10] through the port: H/S error
                 generators through a 10-qubit, 40-layer seeded random
-                Clifford circuit, then their BCH combination at order 2
+                Clifford circuit, then their BCH combination at order 2,
+                and the all-zeros outcome's probability polynomial
+ 25. mirror  -- 4 qubits: MCFE of six u3-cx circuits (widths 2-4, depths 4
+                and 8; 180 mirror circuits simulated on the card), each
+                estimate held to the circuit's exact process fidelity; a
+                volumetric benchmark of 200 periodic mirror circuits
+                (widths 1-4) simulated on the card, its polarizations, VB
+                table and capability regions; op-less models' predictions
+                and derivatives; the weak CHP simulator on bench[q3]
+ 26. term    -- smq2Q_XYICNOT 'H+s' (240 parameters) on phase 3's maxL-16
+                list (8,740 circuits): the Taylor-term simulator's order-2
+                coefficients built on the card, conservation, the dense
+                simulator's probabilities, cubic convergence, dprobs
+                against central differences, the card against the CPU
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -1554,26 +1567,33 @@ def rb_fit(tag, design, mdl, device, seed, r_max):
     return r
 
 
-def phase_q3rb(device):
-    """Phase 18: the JAX package's bench[q3] on the card (60 direct-RB
-    circuits of a 3-qubit line from RandomState(2026), bulk probabilities
-    of a depolarized crosstalk-free model), then a 240-circuit direct-RB
-    design simulated on the card and fitted."""
+def bench_q3_circuits(pspec3):
+    """bench[q3]'s 60 direct-RB circuits and ideal outcomes: 10 per depth
+    0, 2, 4, 8, 16, 32 on a 3-qubit line, from RandomState(2026)."""
     from pygsti_tpu_torch.algorithms.randomcircuit import create_direct_rb_circuit
-    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
-    from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
-    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
-    from pygsti_tpu_torch.protocols.rb import DirectRBDesign
-
-    pspec3 = QubitProcessorSpec(3, CLOUD_GATES, geometry='line')
     rng = np.random.RandomState(2026)
-    t0 = time.time()
     circs, ideals = [], []
     for depth in (0, 2, 4, 8, 16, 32):
         for _ in range(10):
             c, ideal = create_direct_rb_circuit(pspec3, length=depth, rand_state=rng)
             circs.append(c)
             ideals.append(ideal)
+    return circs, ideals
+
+
+def phase_q3rb(device):
+    """Phase 18: the JAX package's bench[q3] on the card (60 direct-RB
+    circuits of a 3-qubit line from RandomState(2026), bulk probabilities
+    of a depolarized crosstalk-free model), then a 240-circuit direct-RB
+    design simulated on the card and fitted."""
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+    from pygsti_tpu_torch.protocols.rb import DirectRBDesign
+
+    pspec3 = QubitProcessorSpec(3, CLOUD_GATES, geometry='line')
+    t0 = time.time()
+    circs, ideals = bench_q3_circuits(pspec3)
     gen_s = time.time() - t0
     mdl3 = create_crosstalk_free_model(
         pspec3, depolarization_strengths={g: 0.01 for g in pspec3.gate_names})
@@ -2420,7 +2440,368 @@ def phase_errgen_propagation():
     if not (len(errs10) > 0 and len(bch10) >= len(errs10)
             and all(np.isfinite(v) for v in bch10.values())):
         raise SystemExit("error-generator propagation gave no finite generators")
+    from pygsti_tpu_torch.tools.errgenpolytools import circuit_probability_polynomial
+    t0 = time.time()
+    poly10, labels10 = circuit_probability_polynomial(prop10, c10, '0' * n10)
+    p10 = poly10.evaluate(np.array([errs10[l] for l in labels10]))
+    log("errgen: circuit_probability_polynomial of the circuit's all-zeros outcome: %d terms "
+        "over %d rates (order 2) in %.3f s; ideal %.6e, at the propagated rates %.6e"
+        % (len(poly10), len(labels10), time.time() - t0, poly10.get((), 0.0), p10))
+    if not (len(poly10) > len(labels10) and np.isfinite(p10) and 0 <= p10 <= 1):
+        raise SystemExit("the 10-qubit probability polynomial is empty or not a probability")
     log("phase 24: %.1f s of the script's wall time" % (time.time() - t_phase))
+
+
+MIRROR_STRENGTHS = {'Gu3': 0.003, 'Gcnot': 0.02}
+TERM_CIRCUITS = 8740     # phase 3's maxL-16 list
+VB_GATES = ['Gxpi2', 'Gypi2', 'Gxpi', 'Gzpi', 'Gypi', 'Gcnot']
+
+
+def u3_gate(args):
+    from pygsti_tpu_torch.processors.random_compilation import u3_unitary
+    return u3_unitary(*(float(a) for a in args))
+
+
+def mirror_test_circuits(rng):
+    """Six u3-cx circuits: widths 2, 3 and 4 at depths 4 and 8, each layer
+    a Haar-random U3 on every qubit then CNOTs on alternating neighbour
+    pairs."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.circuits.circuit import Circuit
+    from pygsti_tpu_torch.protocols.mirror_edesign import haar_random_u3
+    out = []
+    for w in (2, 3, 4):
+        for depth in (4, 8):
+            layers = []
+            for d in range(depth):
+                layers.append([haar_random_u3(q, rng) for q in range(w)])
+                layers.append([Label('Gcnot', (q, q + 1)) for q in range(d % 2, w - 1, 2)])
+            out.append(Circuit(layers, tuple(range(w))))
+    return out
+
+
+def circuit_superop(mdl, circuit, device):
+    """The dense process matrix of `circuit` under an implicit model: the
+    product of its layers' op-stack slots, on the card."""
+    idx = [mdl.register_layer(l) for l in circuit.layertup]
+    v = torch.as_tensor(mdl.to_vector(), dtype=torch.float64, device=device)
+    ops = mdl.tensors_fn()(v).ops
+    mx = torch.eye(ops.shape[-1], dtype=ops.dtype, device=device)
+    for k in idx:
+        mx = ops[k] @ mx
+    return mx.cpu().numpy()
+
+
+def phase_mirror(device):
+    """Phase 25: mirror benchmarks at 4 qubits.  MCFE of six u3-cx circuits
+    (180 mirror circuits simulated on the card, bootstrap), held to each
+    circuit's exact process fidelity; a volumetric benchmark of periodic
+    mirror circuits at widths 1-4 simulated on the card, its statistics,
+    VB table and capability regions, op-less models' predictions; the
+    weak CHP simulator on bench[q3]."""
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.circuits.circuit import Circuit
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.forwardsims.stabilizersim import StabilizerForwardSimulator
+    from pygsti_tpu_torch.forwardsims.weakforwardsim import CHPForwardSimulator
+    from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
+    from pygsti_tpu_torch.models.oplessmodel import TwirledGatesModel, TwirledLayersModel
+    from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.protocols.scarab import (calculate_mirror_benchmark_results,
+                                                   mirror_benchmark)
+    from pygsti_tpu_torch.protocols.vb import ByDepthSummaryStatistics, PeriodicMirrorCircuitDesign
+    from pygsti_tpu_torch.protocols.vbdataframe import VBDataFrame
+    from pygsti_tpu_torch.tools import optools
+    t_phase = time.time()
+
+    # -- (a) MCFE of six u3-cx circuits --------------------------------------
+    pspec = QubitProcessorSpec(4, ['Gu3', 'Gcnot'], geometry='line',
+                               nonstd_gate_unitaries={'Gu3': u3_gate})
+    mdl = create_crosstalk_free_model(pspec, depolarization_strengths=MIRROR_STRENGTHS)
+    tests = mirror_test_circuits(np.random.RandomState(2026))
+    t0 = time.time()
+    design = mirror_benchmark(tests, num_mcs_per_circ=10, rand_state=np.random.RandomState(0))
+    circuits = design.all_circuits_needing_data
+    design_s = time.time() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    mdl.register_circuit_layers(circuits)
+    reg_s = time.time() - t0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    ds = simulate_data(mdl, circuits, 2000, seed=3, device=device)
+    torch.cuda.synchronize()
+    sim_s = time.time() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.time()
+    vbdf = calculate_mirror_benchmark_results(tests, ProtocolData(design, ds), num_bootstraps=100,
+                                              rand_state=np.random.RandomState(1))
+    boot_s = time.time() - t0
+    log("mirror: %d test circuits -> %d mirror circuits (depth up to %d) in %.2f s on the host; "
+        "op-stack registration %.2f s (%d slots of d %d), simulate_data(2000 shots) on the card "
+        "%.2f s (peak device memory %.2f GB), MCFE with 100 bootstraps %.2f s"
+        % (len(tests), len(circuits), max(c.depth for c in circuits), design_s, reg_s,
+           len(mdl.op_keys), mdl.dim, sim_s, peak_gb, boot_s))
+    ideal = create_crosstalk_free_model(pspec, depolarization_strengths={
+        g: 0.0 for g in MIRROR_STRENGTHS})
+    # the exact process fidelity: the ideal circuit is unitary, so its
+    # superoperator S_U is orthogonal and F_e = Tr(S_U^T S) / d^2 (the Choi
+    # form of optools.entanglement_fidelity needs 64 GB at 4 qubits: it is
+    # held to this one on the 2-qubit circuits' own 2-qubit model)
+    pspec2 = QubitProcessorSpec(2, ['Gu3', 'Gcnot'], geometry='line',
+                                nonstd_gate_unitaries={'Gu3': u3_gate})
+    mdl2 = create_crosstalk_free_model(pspec2, depolarization_strengths=MIRROR_STRENGTHS)
+    ideal2 = create_crosstalk_free_model(pspec2, depolarization_strengths={
+        g: 0.0 for g in MIRROR_STRENGTHS})
+    t = vbdf.table
+    for i, c in enumerate(tests):
+        S, U = circuit_superop(mdl, c, device), circuit_superop(ideal, c, device)
+        exact = float(np.trace(U.T @ S)) / S.shape[0]
+        check = ""
+        if c.num_lines == 2:
+            choi = optools.entanglement_fidelity(circuit_superop(mdl2, c, device),
+                                                 circuit_superop(ideal2, c, device), 'pp')
+            check = "; optools.entanglement_fidelity on the 2-qubit model %.12f" % choi
+            if abs(choi - exact) > 1e-10:
+                raise SystemExit("the trace form of the process fidelity disagrees with optools")
+        est, std = t['process_fidelity'][i], t['process_fidelity_std'][i]
+        log("mirror: width %d depth %2d: MCFE process fidelity %.5f +/- %.5f, exact %.5f "
+            "(|diff| %.5f, bound 3 std + 0.02 = %.5f)%s"
+            % (c.num_lines, c.depth // 2, est, std, exact, abs(est - exact), 3 * std + 0.02, check))
+        if not (np.isfinite(est) and abs(est - exact) <= 3 * std + 0.02):
+            raise SystemExit("MCFE missed the exact process fidelity of test circuit %d" % i)
+
+    # -- (b) volumetric benchmark of periodic mirror circuits ------------------
+    # each width's circuits run on a model of that many qubits, so that the
+    # outcomes are bit strings of the circuit's width
+    vpspec = QubitProcessorSpec(4, VB_GATES, geometry='line')
+    strengths = {g: (0.02 if g == 'Gcnot' else 0.003) for g in VB_GATES}
+    vmdls = {w: create_crosstalk_free_model(QubitProcessorSpec(w, VB_GATES, geometry='line'),
+                                            depolarization_strengths=strengths)
+             for w in (1, 2, 3, 4)}
+    depths = [0, 4, 8, 16, 32]
+    t0 = time.time()
+    designs = {}
+    for w in (1, 2, 3, 4):
+        qs = tuple(range(w))
+        germ = Circuit([[('Gxpi2', 0)]], (0,)) if w == 1 else \
+            Circuit([[('Gxpi2', 0), ('Gypi2', 1)], [('Gcnot', 0, 1)]], qs)
+        designs[w] = PeriodicMirrorCircuitDesign(vpspec, depths, 10, germ, qubit_labels=qs,
+                                                 seed=2026 + w)
+    vb_circuits = [c for d in designs.values() for c in d.all_circuits_needing_data]
+    vb_ideals = [i for d in designs.values() for l in d.idealout_lists for i in l]
+    vdesign_s = time.time() - t0
+    stab = StabilizerForwardSimulator(vpspec)
+    n_ideal = sum(stab.probability(c, ''.join(str(b) for b in i)) == 1.0
+                  for c, i in zip(vb_circuits, vb_ideals))
+    torch.cuda.synchronize()
+    t0 = time.time()
+    vds = {w: simulate_data(vmdls[w], d.all_circuits_needing_data, 1000, seed=4 + w,
+                            device=device) for w, d in designs.items()}
+    torch.cuda.synchronize()
+    vsim_s = time.time() - t0
+    dp = 0.0
+    for w, d in designs.items():
+        some = d.all_circuits_needing_data[::4][:13 if w < 4 else 11]
+        card = SimpleForwardSimulator(vmdls[w], device)
+        cpu = SimpleForwardSimulator(vmdls[w], 'cpu')
+        dp = max(dp, float(np.max(np.abs(card.bulk_fill_probs(card.create_layout(some))
+                                         - cpu.bulk_fill_probs(cpu.create_layout(some))))))
+    t0 = time.time()
+    rows = []
+    for w, d in designs.items():
+        res = ByDepthSummaryStatistics().run(ProtocolData(d, vds[w]))
+        for depth in depths:
+            for k, pol in enumerate(res.statistics['polarization'][depth]):
+                rows.append({'Depth': depth, 'Width': w, 'polarization': pol,
+                             'success_probabilities': res.statistics['success_probabilities'][depth][k],
+                             'total_counts': res.statistics['total_counts'][depth][k]})
+    vb = VBDataFrame.from_benchmarking_data(rows)
+    means = vb.vb_data('polarization', 'mean', lower_cutoff=-np.inf)
+    regions = vb.capability_regions('polarization', threshold=1 / np.e)
+    analysis_s = time.time() - t0
+    log("vb: %d periodic mirror circuits (widths 1-4, depths %s, 10 each; depth up to %d) in "
+        "%.2f s on the host; the stabilizer simulator gives %d of them their ideal outcome with "
+        "probability 1; simulate_data(1000 shots) on the card %.2f s; card vs CPU on %d circuits "
+        "max |dp| %.3e (tol 1e-10); statistics, VB table and capability regions %.2f s"
+        % (len(vb_circuits), depths, max(c.depth for c in vb_circuits), vdesign_s, n_ideal,
+           vsim_s, 50, dp, analysis_s))
+    bad = []
+    for w in (1, 2, 3, 4):
+        line = []
+        for k, depth in enumerate(depths):
+            pols = np.asarray(vb.table['polarization'][(vb.table['Width'] == w)
+                                                       & (vb.table['Depth'] == depth)], float)
+            se = pols.std(ddof=1) / np.sqrt(len(pols))
+            line.append("%d: %.4f +/- %.4f [%d]" % (depth, means[depth, w], se,
+                                                   regions.get((depth, w), -1)))
+            if k:
+                prev = np.asarray(vb.table['polarization'][(vb.table['Width'] == w)
+                                                           & (vb.table['Depth'] == depths[k - 1])],
+                                  float)
+                se2 = np.hypot(se, prev.std(ddof=1) / np.sqrt(len(prev)))
+                if means[depth, w] - means[depths[k - 1], w] > 3 * se2:
+                    bad.append((w, depth))
+        log("vb: width %d mean polarization by depth (standard error) [capability]: %s"
+            % (w, "; ".join(line)))
+    if not (n_ideal == len(vb_circuits) and dp < 1e-10 and not bad):
+        raise SystemExit("VB: ideal outcomes, card vs CPU or monotone polarization failed: %s"
+                         % (bad,))
+
+    # -- (c) op-less models on the VB circuits --------------------------------
+    rates = {'gates': {g: p * (3 / 4 if g != 'Gcnot' else 15 / 16) for g, p in strengths.items()},
+             'readout': {}}
+    sps = np.array([vds[c.num_lines][c].counts.get((''.join(str(b) for b in i),), 0)
+                    / vds[c.num_lines][c].total for c, i in zip(vb_circuits, vb_ideals)])
+    for cls in (TwirledLayersModel, TwirledGatesModel):
+        om = cls(rates, 4, idle_name=None)
+        pred = np.array([om.probabilities(c)[('success',)] for c in vb_circuits])
+        worst = 0.0
+        for c in vb_circuits[::20]:
+            cache = om._circuit_cache(c)
+            an = om._success_dprob(c, None, cache)
+            v0 = om.to_vector().copy()
+            fd = np.empty_like(an)
+            for j in range(len(v0)):
+                vp, vm = v0.copy(), v0.copy()
+                vp[j] += 1e-6
+                vm[j] -= 1e-6
+                om.from_vector(vp)
+                up = om._success_prob(c, cache)
+                om.from_vector(vm)
+                fd[j] = (up - om._success_prob(c, cache)) / 2e-6
+            om.from_vector(v0)
+            worst = max(worst, float(np.abs(an - fd).max()))
+        by_w = ["width %d: predicted %.4f, measured %.4f" % (
+            w, pred[[c.num_lines == w for c in vb_circuits]].mean(),
+            sps[[c.num_lines == w for c in vb_circuits]].mean()) for w in (1, 2, 3, 4)]
+        log("vb: %s success probabilities (mean over depths): %s; analytic dprobs vs central "
+            "differences max |diff| %.3e (tol 1e-6)" % (cls.__name__, "; ".join(by_w), worst))
+        if not (np.all(np.isfinite(pred)) and worst < 1e-6):
+            raise SystemExit("op-less model %s: bad predictions or derivatives" % cls.__name__)
+
+    # -- (d) the weak CHP simulator on bench[q3] ---------------------------------
+    pspec3 = QubitProcessorSpec(3, CLOUD_GATES, geometry='line')
+    circs3, ideals3 = bench_q3_circuits(pspec3)
+    t0 = time.time()
+    chp = CHPForwardSimulator(shots=100, pspec=pspec3, base_seed=0)
+    n_all = sum(chp.probs(c).get((''.join(str(b) for b in i),), 0.0) == 1.0
+                for c, i in zip(circs3, ideals3))
+    log("weak: CHPForwardSimulator(100 shots) on bench[q3]'s %d circuits noiselessly: %d give "
+        "every shot to the ideal outcome (%.2f s on the host)" % (len(circs3), n_all,
+                                                                   time.time() - t0))
+    if n_all != len(circs3):
+        raise SystemExit("the weak simulator missed ideal outcomes")
+    log("phase 25: %.1f s of the script's wall time (registration %.2f s, simulation %.2f + %.2f s, "
+        "MCFE bootstrap %.2f s, VB analysis %.2f s; %s)"
+        % (time.time() - t_phase, reg_s, sim_s, vsim_s, boot_s, analysis_s, card_name_and_limit()))
+
+
+def phase_term_simulator(lists, device):
+    """Phase 26: the Taylor-term simulator at 2 qubits: smq2Q_XYICNOT 'H+s'
+    (240 parameters) moved by 0.001 randn, phase 3's maxL-16 list, the
+    order-2 coefficients built on the card and evaluated there, held to the
+    dense simulator, to themselves at half the rates, to central
+    differences and to the CPU path."""
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.forwardsims.termforwardsim import TermForwardSimulator, TermCoefficients
+    from pygsti_tpu_torch.modelpacks import smq2Q_XYICNOT as mp
+    t_phase = time.time()
+    circuits = list(lists[4])
+    model = mp.target_model('H+s')
+    v0 = model.to_vector()
+    noise = np.random.RandomState(3).randn(model.num_params) * 0.001
+    model.from_vector(v0 + noise)
+    P = model.num_params
+    if len(circuits) != TERM_CIRCUITS or P != 240:
+        raise SystemExit("unexpected term-simulator workload: %d circuits, %d parameters"
+                         % (len(circuits), P))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sim = TermForwardSimulator(model, max_order=2, device=device)
+    stats = {}
+    co = sim.bulk_coefficients(circuits, stats=stats)
+    build_s = stats['seconds']
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # (1) probability conservation of every circuit's polynomials
+    d0 = float((co.c0.sum(1) - 1).abs().max())
+    d1 = float(co.c1.sum(1).abs().max())
+    d2 = float(co.c2.sum(1).abs().max())
+    # (2) against the dense simulator, by depth; (3) at half the rates
+    dense = SimpleForwardSimulator(model, device)
+    layout = dense.create_layout(circuits)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pd = dense.bulk_fill_probs(layout)
+    dense_s = time.time() - t0
+    col = {o: k for k, o in enumerate(co.outcomes)}
+
+    def dense_matrix(flat):
+        out = np.empty((len(circuits), len(co.outcomes)))
+        for i in range(len(circuits)):
+            sl = layout.element_slices[i]
+            for k, o in enumerate(layout.outcomes[i]):
+                out[i, col[o[-1]]] = flat[sl.start + k]
+        return out
+
+    v = torch.as_tensor(model.to_vector(), dtype=torch.float64, device=device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pt = co.probs(v)
+    torch.cuda.synchronize()
+    probs_s = time.time() - t0
+    t0 = time.time()
+    dpt = co.dprobs(v)
+    torch.cuda.synchronize()
+    dprobs_s = time.time() - t0
+    diff = np.abs(pt.cpu().numpy() - dense_matrix(pd)).max(axis=1)
+    depths = np.array([c.depth for c in circuits])
+    by_depth = {int(dd): float(diff[depths == dd].max()) for dd in sorted(set(depths))}
+    half = mp.target_model('H+s')
+    half.from_vector(v0 + noise / 2)
+    ph = SimpleForwardSimulator(half, device).bulk_fill_probs(layout)
+    diff_half = np.abs(co.probs(half.to_vector()).cpu().numpy() - dense_matrix(ph)).max()
+    ratio = diff.max() / diff_half
+    # (4) dprobs against central differences of the term probabilities
+    sub = TermCoefficients(circuits[:200], co.outcomes, co.c0[:200], co.c1[:200], co.c2[:200], P)
+    dsub = sub.dprobs(v)
+    fd = torch.empty_like(dsub)
+    eye = torch.eye(P, dtype=torch.float64, device=device)
+    for k in range(P):
+        fd[..., k] = (sub.probs(v + 1e-6 * eye[k]) - sub.probs(v - 1e-6 * eye[k])) / 2e-6
+    dfd = float((dsub - fd).abs().max())
+    dall = float((dpt[:200] - dsub).abs().max())
+    # (5) the card's coefficients against the CPU path on 100 circuits
+    pick = list(range(0, len(circuits), len(circuits) // 100))[:100]
+    t0 = time.time()
+    cpu = TermForwardSimulator(model, max_order=2, device='cpu').bulk_coefficients(
+        [circuits[i] for i in pick])
+    cpu_s = time.time() - t0
+    at = torch.as_tensor(pick, device=device)
+    rel = 0.0
+    for a, b in ((co.c0[at], cpu.c0), (co.c1[at], cpu.c1), (co.c2[at], cpu.c2)):
+        b = b.to(device)
+        scale = torch.clamp(b.abs().flatten(1).max(dim=1).values, min=1.0)
+        rel = max(rel, float(((a - b).abs().flatten(1).max(dim=1).values / scale).max()))
+    log("term: smq2Q_XYICNOT 'H+s' (%d parameters) moved by 0.001 randn (seed 3); %d circuits "
+        "(maxL 16, depth up to %d); order-2 coefficients built on the card in %.2f s (host "
+        "programs %.2f s; %d buckets, %d chunks; c2 %.2f GB; peak device memory %.2f GB); "
+        "probabilities at a new vector %.4f s, dprobs %.4f s; the dense forward simulator %.3f s "
+        "for the same circuits (%s)"
+        % (P, len(circuits), depths.max(), build_s, stats['seconds_host'], stats['buckets'],
+           stats['chunks'], co.c2.numel() * 8 / 1e9, peak_gb, probs_s, dprobs_s, dense_s,
+           card_name_and_limit()))
+    log("term: outcome sums: constant within %.3e of 1, order 1 %.3e, order 2 %.3e (tol 1e-10); "
+        "max |p_term - p_dense| by depth %s (tol 1e-3); at half the rates %.3e (ratio %.2f, "
+        "band 5-12); dprobs vs central differences (step 1e-6, 200 circuits, %d parameters) "
+        "%.3e (tol 1e-7), 200 vs all %.3e; card vs CPU coefficients on %d circuits rel %.3e "
+        "(tol 1e-12; the CPU path %.2f s)"
+        % (d0, d1, d2, by_depth, diff_half, ratio, P, dfd, dall, len(pick), rel, cpu_s))
+    if not (d0 < 1e-10 and d1 < 1e-10 and d2 < 1e-10 and diff.max() < 1e-3 and 5 < ratio < 12
+            and dfd < 1e-7 and dall < 1e-12 and rel < 1e-12 and peak_gb < 40):
+        raise SystemExit("the Taylor-term simulator failed a check")
+    log("phase 26: %.1f s of the script's wall time" % (time.time() - t_phase))
 
 
 def main():
@@ -2672,6 +3053,14 @@ def main():
     # -- design selection at full width, then error-generator propagation ----
     selection_launches = phase_design_selection(datagen, device)
     phase_errgen_propagation()
+
+    # -- mirror benchmarks at 4 qubits, then the Taylor-term simulator --------
+    t8 = time.time()
+    phase_mirror(device)
+    t9 = time.time()
+    phase_term_simulator(lists, device)
+    log("phases 25 and 26: %.1f s and %.1f s of the script's wall time"
+        % (t9 - t8, time.time() - t9))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{

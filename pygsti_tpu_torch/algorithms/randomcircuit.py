@@ -11,6 +11,19 @@ from pygsti_tpu_torch.tools import symplectic as sym
 from pygsti_tpu_torch.algorithms.compilers import compile_clifford, CompilationRules
 
 
+def _circuit_srep(circuit, pspec):
+    """(s, p) of a Clifford circuit on its own line labels, with the pspec's
+    gate definitions: an RB circuit on a subset of the pspec's qubits gets
+    the symplectic rep of that subset, which its ideal outcome is read
+    from.  (The JAX package takes every pspec qubit here, so its Clifford,
+    direct and mirror RB samplers fail on a qubit subset.)"""
+    if circuit.line_labels == ('*',):
+        return sym.symplectic_rep_of_clifford_circuit(circuit, pspec=pspec)
+    srep = dict(sym.compute_internal_gate_symplectic_representations())
+    srep.update(pspec.compute_clifford_symplectic_reps())
+    return sym.symplectic_rep_of_clifford_circuit(circuit, srep_dict=srep)
+
+
 def create_clifford_rb_circuit(pspec, clifford_compilations=None, length=1,
                                qubit_labels=None, randomizeout=False, citerations=20,
                                compilercache=None, seed=None, rand_state=None,
@@ -48,8 +61,7 @@ def create_clifford_rb_circuit(pspec, clifford_compilations=None, length=1,
     p_comp = np.zeros(2 * n, np.int64)
     layers = []
     if interleaved_circuit is not None:
-        s_int, p_int = sym.symplectic_rep_of_clifford_circuit(
-            interleaved_circuit, pspec=pspec)
+        s_int, p_int = _circuit_srep(interleaved_circuit, pspec)
     for _ in range(length + 1):
         s, p = sym.random_clifford(n, rand_state=rng)
         circ = _compile(s, p)
@@ -71,7 +83,7 @@ def create_clifford_rb_circuit(pspec, clifford_compilations=None, length=1,
 
     full = Circuit(layers, qubit_labels)
     # ideal outcome via stabilizer propagation
-    s_tot, p_tot = sym.symplectic_rep_of_clifford_circuit(full, pspec=pspec)
+    s_tot, p_tot = _circuit_srep(full, pspec)
     state = sym.prep_stabilizer_state(n, [0] * n)
     state = sym.apply_clifford_to_stabilizer_state(s_tot, p_tot, *state)
     idealout = sym.measure_all_qubits_deterministic(*state)
@@ -210,7 +222,7 @@ def create_direct_rb_circuit(pspec, clifford_compilations=None, length=1,
             pspec, qubit_labels, rand_state=rng, **(lsargs or {})))
     # inversion
     partial = Circuit(layers, qubit_labels)
-    s_par, p_par = sym.symplectic_rep_of_clifford_circuit(partial, pspec=pspec)
+    s_par, p_par = _circuit_srep(partial, pspec)
     s_inv, p_inv = sym.inverse_clifford(s_par, p_par)
     if randomizeout:
         s_pauli = np.identity(2 * n, np.int64)
@@ -221,7 +233,7 @@ def create_direct_rb_circuit(pspec, clifford_compilations=None, length=1,
                                    rand_state=rng).layertup)
 
     full = Circuit(layers, qubit_labels)
-    s_tot, p_tot = sym.symplectic_rep_of_clifford_circuit(full, pspec=pspec)
+    s_tot, p_tot = _circuit_srep(full, pspec)
     state = sym.prep_stabilizer_state(n, [0] * n)
     state = sym.apply_clifford_to_stabilizer_state(s_tot, p_tot, *state)
     idealout = sym.measure_all_qubits_deterministic(*state)
@@ -310,7 +322,7 @@ def create_mirror_rb_circuit(pspec, absolute_compilation=None, length=0,
         layers.extend(compile_1q_word(s_i, p_i, rules, q))
 
     full = Circuit(layers, qubit_labels)
-    s_tot, p_tot = sym.symplectic_rep_of_clifford_circuit(full, pspec=pspec)
+    s_tot, p_tot = _circuit_srep(full, pspec)
     state = sym.prep_stabilizer_state(n, [0] * n)
     state = sym.apply_clifford_to_stabilizer_state(s_tot, p_tot, *state)
     idealout = sym.measure_all_qubits_deterministic(*state)

@@ -68,6 +68,10 @@ class Circuit(object):
         return self._line_labels
 
     @property
+    def num_lines(self):
+        return len(self._line_labels)
+
+    @property
     def depth(self):
         return len(self._layers)
 

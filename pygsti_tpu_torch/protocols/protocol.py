@@ -3,8 +3,10 @@
 they write and read: edesign/edesign.json, data/dataset.json (or a
 filled-in data/dataset.txt) and results/<protocol name>.json.  A directory
 the JAX package wrote reads here: its module names are read as the port's
-(``resolve_module_name``).  The combined and simultaneous designs and the
-runners are not ported yet."""
+(``resolve_module_name``).  The combined, simultaneous and freeform
+designs write their children and auxiliary information and read back as
+what they were (the JAX package's three do not read back: ROADMAP.md
+section 3); the runners are not ported yet.  Host work only."""
 
 from __future__ import annotations
 
@@ -111,6 +113,79 @@ class CircuitListsDesign(ExperimentDesign):
         lists = [[Circuit(s) for s in cl] for cl in state['circuit_lists']]
         return cls(lists, [Circuit(s) for s in state['circuits']],
                    state.get('qubit_labels'), state.get('nested', False))
+
+
+class CombinedExperimentDesign(ExperimentDesign):
+    """Several named sub-designs run together; their circuits are the union
+    of the sub-designs', in order."""
+
+    def __init__(self, sub_designs, qubit_labels=None):
+        super().__init__(None, qubit_labels, children=sub_designs)
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        children = collections.OrderedDict(
+            (k, NicelySerializable.from_nice_serialization(v))
+            for k, v in state.get('children', {}).items())
+        return cls(children, state.get('qubit_labels'))
+
+
+class SimultaneousExperimentDesign(ExperimentDesign):
+    """Side-by-side designs on disjoint qubit subsets: circuit i is the
+    layer-by-layer parallel composition of each sub-design's circuit i (a
+    sub-design with fewer circuits contributes an empty one)."""
+
+    def __init__(self, edesigns, qubit_labels=None):
+        from pygsti_tpu_torch.baseobjs.label import LabelTupTup
+        edesigns = list(edesigns)
+        children = collections.OrderedDict(
+            (str(tuple(ed.qubit_labels) if ed.qubit_labels else ('*',)), ed) for ed in edesigns)
+        circuits = []
+        for i in range(max(len(ed.all_circuits_needing_data) for ed in edesigns)):
+            group = []
+            for ed in edesigns:
+                cl = ed.all_circuits_needing_data
+                group.append(cl[i] if i < len(cl) else Circuit((), ed.qubit_labels))
+            lines = [q for c in group if c.line_labels != ('*',) for q in c.line_labels]
+            layers = []
+            for t in range(max(c.depth for c in group)):
+                comps = []
+                for c in group:
+                    if t < c.depth:
+                        lbl = c[t]
+                        comps.extend(lbl.components if not lbl.is_simple else (lbl,))
+                layers.append(LabelTupTup.init(tuple(comps)))
+            circuits.append(Circuit(layers, tuple(lines) if lines else None))
+        super().__init__(circuits, qubit_labels, children=children)
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls([NicelySerializable.from_nice_serialization(v)
+                    for v in state['children'].values()], state.get('qubit_labels'))
+
+
+class FreeformDesign(ExperimentDesign):
+    """Circuits with per-circuit auxiliary information: ``aux_info`` maps
+    each circuit to its value (None when a plain list was given)."""
+
+    def __init__(self, circuits, qubit_labels=None):
+        if isinstance(circuits, dict):
+            self.aux_info = dict(circuits)
+            circuits = list(circuits.keys())
+        else:
+            self.aux_info = {c: None for c in circuits}
+        super().__init__(circuits, qubit_labels)
+
+    def _to_nice_serialization(self):
+        state = super()._to_nice_serialization()
+        state['aux_info'] = [self.aux_info[c] for c in self._all_circuits_needing_data]
+        return state
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        circuits = [Circuit(s) for s in state['circuits']]
+        aux = state.get('aux_info', [None] * len(circuits))
+        return cls(dict(zip(circuits, aux)), state.get('qubit_labels'))
 
 
 class ProtocolData(object):

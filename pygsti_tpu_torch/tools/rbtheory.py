@@ -104,6 +104,26 @@ def errormaps(model, target_model):
     return out
 
 
+def gate_dependence_of_errormaps(model, target_model, norm='diamond'):
+    """delta_avg = mean_g ||E_g - E_avg|| measuring how gate-dependent the
+    error maps are (reference: rbtheory.gate_dependence_of_errormaps:516).
+    norm in ('diamond', '1to1', 'fro'); 'diamond' is half the diamond
+    distance of tools/optools.diamonddist (an SDP on the host)."""
+    from pygsti_tpu_torch.tools import optools as _ot
+    maps = errormaps(model, target_model)
+    avg = maps.pop('Gavg')
+    deltas = []
+    for key, E in maps.items():
+        D = E - avg
+        if norm == 'diamond':
+            deltas.append(0.5 * _ot.diamonddist(E, avg))
+        elif norm == '1to1':
+            deltas.append(float(np.linalg.norm(D, 1)))
+        else:
+            deltas.append(float(np.linalg.norm(D, 'fro')))
+    return float(np.mean(deltas))
+
+
 def R_matrix(model, group, group_to_model=None, weights=None):
     """The RB 'R-matrix' of Proctor et al PRL 119, 130502 (2017),
     generalized to weighted subset sampling (reference:

@@ -231,3 +231,43 @@ def test_selection_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def test_mirror_and_term_modules_import_no_jax():
+    """The modules of the mirror-benchmark and Taylor-term slice load, and
+    a mirror design, its MCFE arithmetic, an op-less model, the weak
+    simulator and a term-simulator build run, in a process that ends with
+    neither JAX, pygsti_tpu nor pandas imported."""
+    new = ('protocols.protocol', 'tools.mcfetools', 'processors.random_compilation',
+           'protocols.mirror_edesign', 'tools.dataframetools', 'protocols.vbdataframe',
+           'protocols.vb', 'protocols.scarab', 'models.oplessmodel',
+           'forwardsims.weakforwardsim', 'tools.rbtheory', 'baseobjs.polynomial',
+           'baseobjs.opcalc', 'modelmembers.term', 'forwardsims.termforwardsim',
+           'tools.errgenpolytools')
+    code = ("import sys, importlib\n"
+            "import numpy as np\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.circuits.circuit import Circuit\n"
+            "from pygsti_tpu_torch.baseobjs.label import Label\n"
+            "from pygsti_tpu_torch.protocols.mirror_edesign import make_mirror_edesign\n"
+            "from pygsti_tpu_torch.protocols.vbdataframe import VBDataFrame\n"
+            "from pygsti_tpu_torch.models.oplessmodel import TwirledLayersModel\n"
+            "from pygsti_tpu_torch.forwardsims.termforwardsim import TermForwardSimulator\n"
+            "from pygsti_tpu_torch.modelpacks import smq1Q_XYI as mp\n"
+            "c = Circuit([[Label('Gu3', (0,), args=(0.3, 0.1, -0.4))]], (0,))\n"
+            "ed = make_mirror_edesign([c], 2, rand_state=np.random.RandomState(0))\n"
+            "assert sorted(ed.keys()) == ['br', 'ref', 'rr']\n"
+            "vb = VBDataFrame.from_benchmarking_data([{'Depth': 1, 'Width': 1, 'polarization': 0.9}])\n"
+            "assert vb.vb_data()[1, 1] == 0.9\n"
+            "m = TwirledLayersModel({'gates': {'Gx': 0.01}, 'readout': {}}, 1)\n"
+            "assert 0 < m.probabilities(Circuit([('Gx', 0)], (0,)))[('success',)] < 1\n"
+            "sim = TermForwardSimulator(mp.target_model('H+s'), device='cpu')\n"
+            "co = sim.bulk_coefficients([Circuit([('Gxpi2', 0)], (0,))])\n"
+            "assert abs(float(co.probs(np.zeros(30)).sum()) - 1) < 1e-12\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu', 'pandas')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'
