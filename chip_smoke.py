@@ -150,6 +150,19 @@ Phases, each fatal on failure:
                 coefficients built on the card, conservation, the dense
                 simulator's probabilities, cubic convergence, dprobs
                 against central differences, the card against the CPU
+ 27. time-resolved fit -- smq2Q_XYICNOT 'full TP' depolarized 0.01 whose
+                Gxpi2:0 is a LinearTimeDriftOp (15 'H' rates, one planted:
+                0.02 rad at the last of 10 timestamps); phase 3's 13,958
+                circuits at 100 shots per timestamp drawn on the card; the
+                fit from the drift-free target by SimplerLMOptimizer through
+                TimeDependentPoissonPicLogLFunction (the kernel once per time
+                and bucket), its own launch count; the fitted rates' norm,
+                N_sigma, jtj_jtf card against CPU, the kernel at the fit's
+                buckets with G(t = 9)
+ 28. drift   -- the same drift ramping to 0.2 rad over 1,000 single-shot
+                timestamps of the maxL-4 list (3,527 circuits): StabilityAnalysis
+                (spectra on the card), 'filter' and 'mle' characterization,
+                DataComparator on the halves; the same on static data
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -776,9 +789,10 @@ def phase_sparse(datagen, fitted, ds, lists, device):
                          "diff %.3e" % rel)
 
 
-def hold_kernel_at_buckets(layout, model, device, prefix):
+def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None):
     """The kernel against its plain version at every bucket shape of
-    `layout` on the model's own op stack and random E and F, f64 and f32,
+    `layout` on the model's own op stack (at `at_time`, for a model with
+    time-dependent members) and random E and F, f64 and f32,
     one line per shape; returns ({dtype: max relative error}, and f64 ms
     per Jacobian of the kernel, of the plain version, of the einsum
     yardstick, the least time the card could take for the same work, and
@@ -795,8 +809,9 @@ def hold_kernel_at_buckets(layout, model, device, prefix):
     NT = (K1 - 1) * d * d + d + n_out * d
     buckets, _ = bucket_plan(layout, n_out, NT, device)
     gen = torch.Generator(device='cpu').manual_seed(99)
-    G64 = torch.cat([model.tensors_fn()(torch.as_tensor(model.to_vector())).ops,
-                     torch.eye(d, dtype=torch.float64)[None]]).to(device)
+    v = torch.as_tensor(model.to_vector())
+    ten = model.tensors_fn()(v) if at_time is None else model.tensors_fn_t()(v, at_time)
+    G64 = torch.cat([ten.ops, torch.eye(d, dtype=torch.float64)[None]]).to(device)
     errs, ms, plain_ms, einsum_ms, bound_ms = {}, 0.0, 0.0, 0.0, 0.0
     for dtype in (torch.float64, torch.float32):
         G = G64.to(dtype)
@@ -2804,6 +2819,313 @@ def phase_term_simulator(lists, device):
     log("phase 26: %.1f s of the script's wall time" % (time.time() - t_phase))
 
 
+TD_TIMES = 10            # phase 27: timestamps 0..9
+TD_SHOTS = 100           # shots per circuit per timestamp (cell 1's 1,000 split in time)
+TD_LAST_ANGLE = 0.02     # Gxpi2:0's over-rotation at the last timestamp, rad
+DRIFT_T = 1000           # phase 28: single-shot timestamps per circuit
+DRIFT_LAST_ANGLE = 0.2   # Gxpi2:0's over-rotation at the last of them, rad
+DRIFT_CIRCUITS = 3527    # cell 1's maxL-4 list
+
+
+def drifting_model(base_model, rate):
+    """`base_model` with Gxpi2:0 a LinearTimeDriftOp: its FullTPOp over the
+    base's dense Gxpi2:0, times exp(t L) for an 'H' generator in 'pp' on d
+    16 (15 rates) whose X-on-qubit-0 rate is `rate` (the over-rotation at
+    time t is rate * t rad)."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.modelmembers import operations as ops
+    model = base_model.copy()
+    key = Label('Gxpi2', 0)
+    model.operations[key] = ops.LinearTimeDriftOp(
+        ops.FullTPOp(model.operations[key].dense()),
+        ops.build_lindblad_errorgen('pp', 'H', dim=16, initial_coeffs={('H', 'XI'): rate}))
+    return model
+
+
+def time_resolved_probs(model, circuits, times, device):
+    """(layout, probabilities [len(times), n_circuits, n_outcomes]) of
+    `model` at each time, on the card."""
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    sim = SimpleForwardSimulator(model, device)
+    layout = sim.create_layout(circuits)
+    probs = sim.probs_fn(layout)
+    v = torch.as_tensor(model.to_vector(), dtype=torch.float64, device=device)
+    with torch.no_grad():
+        P = torch.stack([probs(v, float(t)) for t in times])
+    return layout, P.reshape(len(times), len(circuits), -1)
+
+
+def draw_outcomes(P, shots, seed):
+    """Counts [T, C, n_out] of `shots` multinomial draws per (time,
+    circuit) from probabilities P [T, C, n_out], on the card from a seeded
+    torch.Generator."""
+    gen = torch.Generator(device=P.device).manual_seed(seed)
+    p = torch.clamp(P, min=0.0).reshape(-1, P.shape[-1])
+    idx = torch.multinomial(p / p.sum(dim=1, keepdim=True), shots, replacement=True,
+                            generator=gen)
+    counts = torch.zeros_like(p, dtype=torch.int64).scatter_add_(
+        1, idx, torch.ones_like(idx))
+    return counts.reshape(P.shape)
+
+
+def phase_time_resolved_fit(mp, lists, device):
+    """Phase 27: smq2Q_XYICNOT 'full TP' depolarized 0.01 (cell 1's
+    data-generating model) whose Gxpi2:0 drifts linearly in time (one
+    planted H rate on X of qubit 0, 0.02 rad at the last of 10 timestamps),
+    cell 1's 13,958 circuits at 100 shots per timestamp drawn on the card,
+    fitted from the drift-free target by SimplerLMOptimizer through
+    TimeDependentPoissonPicLogLFunction; the kernel held at the fit's
+    buckets with G(t = 9).  Returns the fit's kernel launches."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.data.dataset import DataSet
+    from pygsti_tpu_torch.objectivefns.timedep import TimeDependentPoissonPicLogLFunction
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.optimize.simplerlm import SimplerLMOptimizer
+    t_phase = time.time()
+    circuits = list(lists[-1])
+    times = [float(t) for t in range(TD_TIMES)]
+    rate = TD_LAST_ANGLE / times[-1]
+    truth = drifting_model(mp.target_model('full TP').depolarize(op_noise=0.01,
+                                                                 spam_noise=0.01), rate)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    layout, P = time_resolved_probs(truth, circuits, times, device)
+    counts = draw_outcomes(P, TD_SHOTS, 1234).cpu().numpy()
+    t1 = time.time()
+    ds = DataSet()
+    for i, c in enumerate(circuits):
+        outs = layout.outcomes[i]
+        ds.add_raw_series_data(c, [o for _ in times for o in outs],
+                               [t for t in times for _ in outs], counts[:, i].ravel().tolist())
+    t2 = time.time()
+    log("time-resolved fit: %d circuits x %d timestamps x %d shots drawn on the card in %.3f s "
+        "(seed 1234), dataset built in %.3f s; planted H_XI rate %.6g per unit time"
+        % (len(circuits), len(times), TD_SHOTS, t1 - t0, t2 - t1, rate))
+    model = drifting_model(mp.target_model('full TP'), 0.0)
+    obj = TimeDependentPoissonPicLogLFunction(model, ds, circuits, device=device)
+    P_params = model.num_params
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bwd_jacobian_accumulate.launches = 0
+    t0 = time.time()
+    result = SimplerLMOptimizer(maxiter=LM_MAXITER).run(obj, printer=0)
+    fit_s = time.time() - t0      # ends in the loop's read of its result
+    launches = bwd_jacobian_accumulate.launches
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    iters = result.optimizer_specific_qtys['iterations']
+    fitted = model.operations[Label('Gxpi2', 0)].drift_errorgen.to_vector()
+    planted = truth.operations[Label('Gxpi2', 0)].drift_errorgen.to_vector()
+    two_dlogl = obj.chi2k_distributed_qty(obj.fn(result.x))
+    k = obj.num_elements - len(circuits) * len(times) - P_params
+    nsigma = (two_dlogl - k) / np.sqrt(2 * k)
+    # at 100 shots per (circuit, time) many outcomes expect about one count,
+    # where 2DeltaLogL at the truth exceeds its asymptotic chi2 mean: its
+    # exact mean, each element's count binomial at the truth's probability,
+    # is the reference the fit is held to, less the P the fit takes
+    truth_two_dlogl = obj.chi2k_distributed_qty(obj.fn(truth.to_vector()))
+    expected = expected_two_dlogl(obj.probs(truth.to_vector()), obj.total_counts, device)
+    z = (two_dlogl - (expected - P_params)) / np.sqrt(2 * k)
+    log("time-resolved fit: %d parameters (15 drift rates), %d elements, %d buckets per time; "
+        "%d LM iterations in %.3f s (%.1f ms each), exit '%s'; 2DeltaLogL %.6f, k %d, N_sigma "
+        "%.4f; at the truth on these data %.6f, its exact mean over draws %.3f (%.3f above "
+        "rows x (outcomes - 1)), z = (2DeltaLogL - (mean - P)) / sqrt(2k) = %.4f; kernel "
+        "launches %d (times x buckets x Jacobians = %d x %d x %d); peak %.1f MB"
+        % (P_params, obj.num_elements, obj.num_buckets // len(times), iters, fit_s,
+           1e3 * fit_s / max(iters, 1), result.optimizer_specific_qtys['msg'], two_dlogl, k,
+           nsigma, truth_two_dlogl, expected, expected - (k + P_params), z, launches,
+           len(times), obj.num_buckets // len(times), iters, peak))
+    labels = [str(l) for l in model.operations[Label('Gxpi2', 0)].drift_errorgen
+              .errorgen_coefficient_labels()]
+    log("time-resolved fit: fitted H rates %s; planted %s; norms %.6g fitted, %.6g planted "
+        "(%.2f%% off)" % (", ".join("%s %.3e" % lv for lv in zip(labels, fitted)),
+                          ", ".join("%s %.3e" % lv for lv in zip(labels, planted) if lv[1]),
+                          np.linalg.norm(fitted), np.linalg.norm(planted),
+                          100 * abs(np.linalg.norm(fitted) / np.linalg.norm(planted) - 1)))
+    if launches != obj.num_buckets * iters:
+        raise SystemExit("time-resolved fit: %d launches, not times x buckets x Jacobians"
+                         % launches)
+    if not abs(np.linalg.norm(fitted) / np.linalg.norm(planted) - 1) < 0.1:
+        raise SystemExit("time-resolved fit: the fitted drift rates' norm is not within 10% "
+                         "of the planted rate")
+    if not (np.isfinite(nsigma) and np.isfinite(z) and abs(z) < 10):
+        raise SystemExit("time-resolved fit: z %g (N_sigma %g)" % (z, nsigma))
+    # one jtj_jtf on the card against the CPU path, on the first list's
+    # circuits (the CPU's blocked Jacobian at full width and 10 times is
+    # minutes of this host's time)
+    small = list(lists[0])
+    out = [TimeDependentPoissonPicLogLFunction(model, ds, small, device=dev).jtj_jtf(result.x)
+           for dev in (device, 'cpu')]
+    rel = max(float(np.max(np.abs(a - b)) / np.max(np.abs(b))) for a, b in zip(*out))
+    log("time-resolved fit: lsvec/JTJ/JTf on the card vs the CPU path (%d circuits x %d "
+        "times): max rel diff %.3e (tol 1e-12)" % (len(small), len(times), rel))
+    if not rel < 1e-12:
+        raise SystemExit("time-resolved fit: the card's jtj_jtf disagrees with the CPU path")
+    errs, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
+        layout, model, device, 'time-resolved fit (G at t = %g)' % times[-1], at_time=times[-1])
+    log("time-resolved fit: the kernel at %d bucket shapes %s with G(t = %g): rel err f64 "
+        "%.3e, f32 %.3e; %.4f ms per Jacobian (bound %.4f ms), plain %.3f ms, einsum %.3f ms; "
+        "phase %.1f s"
+        % (len(shapes), shapes, times[-1], errs[torch.float64], errs[torch.float32], ms,
+           bound_ms, plain_ms, einsum_ms, time.time() - t_phase))
+    return launches
+
+
+def expected_two_dlogl(probs, totals, device, chunk=1 << 16):
+    """The mean of the Poisson-picture 2DeltaLogL over draws at
+    probabilities `probs` (each element's count binomial of its total),
+    summed exactly over the counts 0..total, on the card."""
+    from pygsti_tpu_torch.objectivefns.objectivefns import RawPoissonPicDeltaLogLFunction
+    raw = RawPoissonPicDeltaLogLFunction()
+    p = torch.clamp(torch.as_tensor(probs, dtype=torch.float64, device=device), 0.0, 1.0)
+    N = torch.as_tensor(totals, dtype=torch.float64, device=device)
+    n = torch.arange(int(N.max()) + 1, dtype=torch.float64, device=device)
+    total = 0.0
+    for s in range(0, p.shape[0], chunk):
+        pc, Nc = p[s:s + chunk, None], N[s:s + chunk, None]
+        valid = n[None, :] <= Nc
+        nn = torch.where(valid, n[None, :], 0.0)
+        logpmf = (torch.lgamma(Nc + 1) - torch.lgamma(nn + 1) - torch.lgamma(Nc - nn + 1)
+                  + torch.xlogy(nn, pc) + torch.xlogy(Nc - nn, 1 - pc))
+        pmf = torch.where(valid, torch.exp(logpmf), 0.0)
+        terms = raw.terms(pc.expand_as(nn), nn, Nc.expand_as(nn), nn / Nc)
+        total += float((pmf * torch.where(valid, terms, 0.0)).sum())
+    return raw.chi2k_distributed_qty(total)
+
+
+def contains_gxpi2_0(circuit):
+    from pygsti_tpu_torch.baseobjs.label import Label
+    return any(comp == Label('Gxpi2', 0) for layer in circuit.layertup
+               for comp in layer.components)
+
+
+def drift_data(model, circuits, seed, device):
+    """(DataSet of DRIFT_T single shots per circuit at times 0..T-1, the
+    two halves' aggregated DataSets, the exact probabilities [T, C, n_out],
+    seconds of the draw and of the build), drawn on the card."""
+    from pygsti_tpu_torch.data.dataset import DataSet
+    times = np.arange(DRIFT_T, dtype=float)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    layout, P = time_resolved_probs(model, circuits, times, device)
+    shots = torch.argmax(draw_outcomes(P, 1, seed), dim=-1).cpu().numpy()   # [T, C]
+    t1 = time.time()
+    if any(list(outs) != sorted(outs) for outs in layout.outcomes):
+        raise SystemExit("drift: a circuit's outcomes are not in the analyzer's (sorted) order")
+    ds, halves = DataSet(), (DataSet(), DataSet())
+    for i, c in enumerate(circuits):
+        outs = layout.outcomes[i]
+        ds.add_raw_series_data(c, [outs[k] for k in shots[:, i]], times)
+        for half, sl in zip(halves, (slice(0, DRIFT_T // 2), slice(DRIFT_T // 2, None))):
+            n = np.bincount(shots[sl, i], minlength=len(outs))
+            half.add_count_dict(c, {o: int(x) for o, x in zip(outs, n)})
+    t2 = time.time()
+    return ds, halves, P, t1 - t0, t2 - t1
+
+
+def phase_drift_detection(mp, lists, device):
+    """Phase 28 (Proctor et al., Nat. Commun. 11, 5396 (2020)): the drifting
+    model of phase 27 with Gxpi2:0's over-rotation ramping 0 -> 0.2 rad over
+    1,000 single-shot timestamps of cell 1's maxL-4 circuits (3.53 M shots
+    drawn on the card); StabilityAnalysis with its 'auto' tests, then
+    'filter' characterization of every circuit and 'mle' of the five of
+    largest power; DataComparator on the halves split at t = 500; the same
+    on data of the same shape from the static model (seed 1235)."""
+    from pygsti_tpu_torch.data.datacomparator import DataComparator
+    from pygsti_tpu_torch.extras.drift import signal
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.protocols.stability import StabilityAnalysis, StabilityAnalysisDesign
+    t_phase = time.time()
+    circuits = list(lists[2])
+    if len(circuits) != DRIFT_CIRCUITS:
+        raise SystemExit("unexpected drift design: %d circuits" % len(circuits))
+    datagen = mp.target_model('full TP').depolarize(op_noise=0.01, spam_noise=0.01)
+    runs = {}
+    for tag, rate, seed in (('drifting', DRIFT_LAST_ANGLE / (DRIFT_T - 1), 1234),
+                            ('static', 0.0, 1235)):
+        ds, halves, P, draw_s, build_s = drift_data(drifting_model(datagen, rate), circuits,
+                                                     seed, device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        res = StabilityAnalysis(device=device).run(
+            ProtocolData(StabilityAnalysisDesign(circuits), ds))
+        run_s = time.time() - t0
+        an = res.stabilityanalyzer
+        flagged = list(res.unstable_circuits)
+        t0 = time.time()
+        comp = DataComparator(list(halves), device=device).run()
+        comp_s = time.time() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e6
+        log("drift %s: rate %.6g per step; draw %.3f s, dataset build %.3f s; StabilityAnalysis"
+            ".run %.3f s (clickstreams %.3f s, spectra %.3f s of %s f64, detection %.3f s, the "
+            "flagged circuits' trajectories the rest); DataComparator %.3f s; peak %.1f MB; "
+            "flagged %d of %d by the analyzer (tests %s, per-circuit power threshold %.4f), "
+            "%d by DataComparator (aggregate N_sigma %.3f)"
+            % (tag, rate, draw_s, build_s, run_s, an.seconds['clickstreams'],
+               an.seconds['spectra'], an._basespectra.shape, an.seconds['detection'], comp_s,
+               peak, len(flagged), len(circuits), an._condtests[an._def_detection],
+               an.power_threshold(('circuit',)), len(comp.inconsistent_circuits),
+               comp.aggregate_nsigma))
+        runs[tag] = (res, comp, P)
+    res, comp, P = runs['drifting']
+    an = res.stabilityanalyzer
+    flagged = list(res.unstable_circuits)
+    # the characterization: 'filter' on every circuit, 'mle' on the five of
+    # largest power in the per-circuit test's spectra
+    an.run_instability_characterization(estimator='filter')
+    filter_s = an.seconds['characterization']
+    power = an._averaged_spectra(('circuit',))[:, 1:].max(axis=1)
+    top5 = [an._circuits[j] for j in np.argsort(-power, kind='stable')[:5]]
+    an.run_instability_characterization(estimator='mle', circuits=top5, default=False)
+    mle_s = an.seconds['characterization']
+    bounds = [an.maximum_tvd_bound(c, estimator='mle') for c in top5]
+    log("drift drifting: characterization 'filter' of all %d circuits %.3f s, 'mle' of the 5 "
+        "of largest power %.3f s (%s: max powers %s, TVD bounds filter %s, mle %s); largest "
+        "TVD bound over all circuits %.4f"
+        % (len(circuits), filter_s, mle_s, [c.str for c in top5],
+           ["%.2f" % p for p in np.sort(power)[::-1][:5]],
+           ["%.4f" % an.maximum_tvd_bound(c) for c in top5], ["%.4f" % b for b in bounds],
+           an.maxmax_tvd_bound()))
+    # the noiseless spectra: the same standardized DCT of the exact
+    # trajectories, averaged over the independent outcomes as the test is
+    exact = P.permute(1, 2, 0)[:, :-1, :]                            # [C, n_out - 1, T]
+    noiseless = signal.dct_power_spectra(exact, device).mean(dim=1)[:, 1:].max(dim=1).values
+    threshold = an.power_threshold(('circuit',))
+    must = {c.str for c, p in zip(circuits, noiseless.cpu().numpy()) if p >= 3 * threshold}
+    got = {c.str for c in flagged}
+    others = [c for c in flagged if not contains_gxpi2_0(c)]
+    # the card's spectra against the CPU path on 100 circuits
+    rows = np.linspace(0, len(circuits) - 1, 100).astype(int)
+    indep = an._outcomes[:-1]
+    X = np.array([[an._timeinfo[(an._dskeys[0], an._circuits[j])][1].get(
+        o, np.zeros(DRIFT_T))[:DRIFT_T] for o in indep] for j in rows])
+    cpu = signal.dct_power_spectra(X, 'cpu').numpy()
+    cpu[X.std(axis=-1) == 0] = 0.0
+    spec_err = float(np.max(np.abs(cpu - an._basespectra[0, rows])))
+    static_res, static_comp, _ = runs['static']
+    log("drift drifting: %d circuits whose noiseless spectrum has a mode >= 3x the threshold, "
+        "%d of them flagged; %d flagged circuits without Gxpi2:0 (%s); the card's spectra vs "
+        "the CPU path on 100 circuits: max abs diff %.3e (tol 1e-12); phase %.1f s"
+        % (len(must), len(must & got), len(others), [c.str for c in others][:3], spec_err,
+           time.time() - t_phase))
+    if not res.instability_detected:
+        raise SystemExit("drift: no drift detected in the drifting data")
+    if len(others) > 1:
+        raise SystemExit("drift: %d flagged circuits lack Gxpi2:0" % len(others))
+    if not must <= got:
+        raise SystemExit("drift: %d circuits with a strong noiseless mode were not flagged"
+                         % len(must - got))
+    if not spec_err < 1e-12:
+        raise SystemExit("drift: the card's spectra disagree with the CPU path")
+    if len(static_res.unstable_circuits) > 1 or len(static_comp.inconsistent_circuits) > 1:
+        raise SystemExit("drift: the static data flag %d circuits (analyzer) and %d "
+                         "(DataComparator)" % (len(static_res.unstable_circuits),
+                                               len(static_comp.inconsistent_circuits)))
+    if not comp.aggregate_nsigma > 10:
+        raise SystemExit("drift: DataComparator's aggregate N_sigma on the drifting halves "
+                         "is %g" % comp.aggregate_nsigma)
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -3059,8 +3381,15 @@ def main():
     phase_mirror(device)
     t9 = time.time()
     phase_term_simulator(lists, device)
-    log("phases 25 and 26: %.1f s and %.1f s of the script's wall time"
-        % (t9 - t8, time.time() - t9))
+    t10 = time.time()
+    log("phases 25 and 26: %.1f s and %.1f s of the script's wall time" % (t9 - t8, t10 - t9))
+
+    # -- time-resolved GST, then drift detection and data comparison ---------
+    td_launches = phase_time_resolved_fit(mp, lists, device)
+    t11 = time.time()
+    phase_drift_detection(mp, lists, device)
+    log("phases 27 and 28: %.1f s and %.1f s of the script's wall time"
+        % (t11 - t10, time.time() - t11))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -3070,7 +3399,7 @@ def main():
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
         + cloud3_launches + stat_launches + driver_launches + boot_launches
-        + selection_launches,
+        + selection_launches + td_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -3080,7 +3409,8 @@ def main():
                                     "statistics": stat_launches,
                                     "driver fit": driver_launches,
                                     "bootstrap": boot_launches,
-                                    "design-selection fit": selection_launches}),
+                                    "design-selection fit": selection_launches,
+                                    "time-resolved fit": td_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

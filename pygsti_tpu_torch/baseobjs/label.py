@@ -8,6 +8,12 @@
 * ``LabelTupWithArgs`` -- a simple label with arguments, e.g.
                      ``Label('Gzr', (0,), args=('0.5',))`` <-> ``"Gzr;0.5:0"``:
                      the operation an op factory makes for those arguments.
+* ``LabelTupWithTime`` / ``LabelTupTupWithTime`` -- a simple label or a layer
+                     with a start time, stored as ``('@TIME', name, time,
+                     sslbls)`` and ``(('@TTIME', time), *components)``: the
+                     JAX package's tuples, so the two packages' labels hash
+                     and compare alike.  ``Label(..., time=t)`` takes the
+                     time and ignores it, as the JAX package's factory does.
 
 Labels are immutable, hashable, compare equal to the equivalent plain tuple
 or string, and serve as dict keys in models.
@@ -19,7 +25,7 @@ from __future__ import annotations
 class Label(object):
     """Factory: dispatches to LabelTup / LabelStr / LabelTupTup."""
 
-    def __new__(cls, name, state_space_labels=None, args=None):
+    def __new__(cls, name, state_space_labels=None, time=None, args=None):
         if isinstance(name, (LabelTup, LabelStr, LabelTupTup)):
             return name
         if args:
@@ -209,3 +215,84 @@ class LabelTupTup(tuple):
 
     def __reduce__(self):
         return (LabelTupTup, (tuple(self),))
+
+
+class LabelTupWithTime(LabelTup):
+    """A simple label with a (relative) start time, stored as
+    ('@TIME', name, time, sslbls)."""
+
+    __slots__ = ()
+
+    @classmethod
+    def init(cls, name, sslbls, time=0.0):
+        return tuple.__new__(cls, ('@TIME', name, float(time), tuple(sslbls)))
+
+    @property
+    def name(self):
+        return self[1]
+
+    @property
+    def time(self):
+        return self[2]
+
+    @property
+    def sslbls(self):
+        return self[3]
+
+    @property
+    def args(self):
+        return ()
+
+    def map_state_space_labels(self, mapper):
+        m = mapper.__getitem__ if hasattr(mapper, '__getitem__') else mapper
+        return LabelTupWithTime.init(self.name, tuple(m(s) for s in self.sslbls), self.time)
+
+    def __str__(self):
+        s = self.name + "".join(":" + str(x) for x in self.sslbls)
+        if self.time != 0.0:
+            s += "!%g" % self.time
+        return s
+
+    def __repr__(self):
+        return "Label(%s, time=%g)" % (str((self.name,) + self.sslbls), self.time)
+
+    def __reduce__(self):
+        return (LabelTupWithTime.init, (self.name, self.sslbls, self.time))
+
+
+class LabelTupTupWithTime(LabelTupTup):
+    """A layer label with a start time, stored as
+    (('@TTIME', time), *components)."""
+
+    __slots__ = ()
+
+    @classmethod
+    def init(cls, component_labels, time=0.0):
+        return tuple.__new__(cls, (('@TTIME', float(time)),) + tuple(component_labels))
+
+    @property
+    def time(self):
+        return self[0][1]
+
+    @property
+    def components(self):
+        return tuple(self[1:])
+
+    @property
+    def sslbls(self):
+        s = []
+        for comp in self.components:
+            if comp.sslbls is None:
+                return None
+            s.extend(comp.sslbls)
+        return tuple(s) if s else None
+
+    def map_state_space_labels(self, mapper):
+        return LabelTupTupWithTime.init(
+            tuple(c.map_state_space_labels(mapper) for c in self.components), self.time)
+
+    def __str__(self):
+        return "[" + "".join(str(c) for c in self.components) + "]"
+
+    def __reduce__(self):
+        return (LabelTupTupWithTime.init, (self.components, self.time))

@@ -1,5 +1,7 @@
-"""Simulated data (counterpart of pygsti_tpu/data/datasetconstruction.py:
-simulate_data)."""
+"""Simulated data and dataset transforms (counterpart of
+pygsti_tpu/data/datasetconstruction.py): simulate_data, and the host
+transforms aggregate_dataset_outcomes, filter_dataset and
+trim_to_constant_numtimesteps, row for row the JAX package's."""
 
 from __future__ import annotations
 
@@ -90,3 +92,93 @@ def simulate_data(model_or_dataset, circuit_list, num_samples, sample_error='mul
                 reps.append(n)
         ds.add_raw_series_data(c, ols, ts, reps)
     return ds
+
+
+def aggregate_dataset_outcomes(dataset, label_merge_dict, record_zero_counts=True):
+    """A static DataSet whose outcomes merge the old ones, e.g. 2-qubit
+    data into one qubit's marginal.  `label_merge_dict` maps each new
+    outcome label to the list of old labels (strings or tuples) it
+    absorbs; a merged count of 0 is recorded unless record_zero_counts is
+    False."""
+    norm = {}
+    for new, olds in label_merge_dict.items():
+        new_t = new if isinstance(new, tuple) else (new,)
+        norm[new_t] = [o if isinstance(o, tuple) else (o,) for o in olds]
+    out = DataSet(outcome_labels=[k[0] for k in norm])
+    for c in dataset.keys():
+        row = dataset[c]
+        counts = {}
+        for new_t, olds in norm.items():
+            tot = sum(row.counts.get(o, 0) for o in olds)
+            if tot > 0 or record_zero_counts:
+                counts[new_t[0]] = tot
+        out.add_count_dict(c, counts)
+    out.done_adding_data()
+    return out
+
+
+def _marginalize_outcome(outcome, keep_indices):
+    """The outcome string kept at `keep_indices`, as a 1-tuple."""
+    return (''.join(outcome[0][i] for i in keep_indices),)
+
+
+def filter_dataset(dataset, sectors_to_keep, sindices_to_keep=None, new_sectors=None,
+                   idle=((),), record_zero_counts=True, filtercircuits=True):
+    """A static DataSet on the lines `sectors_to_keep`: each outcome string
+    marginalized to the kept lines' characters (at `sindices_to_keep`, or
+    the kept lines' positions among the circuit's), and with
+    `filtercircuits` only the circuits whose gates all act within the kept
+    lines; `new_sectors` relabels the kept lines.  None when no circuit
+    is kept.  `idle` and `record_zero_counts` are accepted and not used,
+    as in the JAX package."""
+    sectors = list(sectors_to_keep)
+    out = None
+    for c in dataset.keys():
+        lls = list(c.line_labels)
+        keep_idx = list(sindices_to_keep) if sindices_to_keep is not None \
+            else [lls.index(s) for s in sectors if s in lls]
+        if filtercircuits and any(
+                comp.sslbls is not None and not set(comp.sslbls) <= set(sectors)
+                for layer in c.layertup
+                for comp in ((layer,) if layer.is_simple else tuple(layer.components))):
+            continue
+        if new_sectors is not None:
+            mapping = {s: new_sectors[i] for i, s in enumerate(sectors)}
+            new_c = c.map_state_space_labels(lambda x: mapping.get(x, x))
+            new_c = Circuit(new_c.layertup, tuple(mapping[s] for s in sectors if s in lls))
+        else:
+            new_c = Circuit(c.layertup, tuple(s for s in sectors if s in lls))
+        counts = {}
+        for outcome, cnt in dataset[c].counts.items():
+            m = _marginalize_outcome(outcome, keep_idx)
+            counts[m] = counts.get(m, 0) + cnt
+        if out is None:
+            out = DataSet(outcome_labels=sorted({o[0] for o in counts}))
+        out.add_count_dict(new_c, {k[0]: v for k, v in counts.items()})
+    if out is not None:
+        out.done_adding_data()
+    return out
+
+
+def trim_to_constant_numtimesteps(ds):
+    """A time-series DataSet in which every circuit keeps its first n
+    distinct timestamps, n the least number any circuit has, with their
+    repetitions (the JAX package drops them, so its trimmed counts are
+    wrong where a repetition passes 1: ROADMAP.md section 3)."""
+    n_times = []
+    for c in ds.keys():
+        row = ds[c]
+        if row.time is None:
+            raise ValueError("trim_to_constant_numtimesteps requires time-series data")
+        n_times.append(len(set(row.time)))
+    min_times = min(n_times) if n_times else 0
+    out = DataSet(outcome_labels=ds.outcome_labels)
+    for c in ds.keys():
+        row = ds[c]
+        keep = set(sorted(set(row.time))[:min_times])
+        reps = row.reps if row.reps is not None else [1] * len(row.time)
+        kept = [(ol, t, r) for ol, t, r in zip(row.outcome_series, row.time, reps) if t in keep]
+        out.add_raw_series_data(c, [k[0] for k in kept], [k[1] for k in kept],
+                                [k[2] for k in kept])
+    out.done_adding_data()
+    return out

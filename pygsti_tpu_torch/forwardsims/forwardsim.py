@@ -110,7 +110,9 @@ class SimpleForwardSimulator(object):
                                                observed_outcomes_only=observed_outcomes_only)
 
     def probs_fn(self, layout):
-        """A pure function v -> probabilities [n_elements] for `layout`."""
+        """A pure function v -> probabilities [n_elements] for `layout`.
+        It also takes a time, probs(v, t): the probabilities with the
+        model's tensors at time t (ExplicitOpModel.tensors_fn)."""
         layout.check_op_stack(self.model)
         compute = self.model.tensors_fn()
         idx = layout_tensors(layout, self.device)
@@ -118,12 +120,12 @@ class SimpleForwardSimulator(object):
         gathered = layout.num_rows * dim * dim * torch.finfo(DTYPE).bits // 8
         plan = grouped_plan(layout, self.device) if gathered > GATHER_BYTES_MAX else None
 
-        def probs(v):
-            t = compute(v)
-            eye = torch.eye(dim, dtype=t.ops.dtype, device=t.ops.device)[None]
-            G = torch.cat([t.ops, eye], dim=0)            # [K+1, d, d]
-            rho = propagate(G, t.preps[idx['prep_index']], idx['op_indices'], plan)
-            E = t.effects[idx['elem_effect']]             # [E, d]
+        def probs(v, t=None):
+            ten = compute(v) if t is None else compute(v, t)
+            eye = torch.eye(dim, dtype=ten.ops.dtype, device=ten.ops.device)[None]
+            G = torch.cat([ten.ops, eye], dim=0)          # [K+1, d, d]
+            rho = propagate(G, ten.preps[idx['prep_index']], idx['op_indices'], plan)
+            E = ten.effects[idx['elem_effect']]           # [E, d]
             return (E * rho[idx['elem_circuit']]).sum(dim=1)
 
         return probs

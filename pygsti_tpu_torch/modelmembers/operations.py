@@ -715,6 +715,48 @@ class ExpErrorgenOp(_WrapsOneMember, LinearOperator):
         return cls(NicelySerializable.from_nice_serialization(state['errorgen']))
 
 
+class LinearTimeDriftOp(LinearOperator):
+    """A time-dependent operation G(t) = exp(t L) G_base, with L the dense
+    form of a drift error generator.  Its parameters are the base
+    operation's, then the generator's.  ``to_dense(v)`` is G(0) = G_base;
+    ``to_dense_t(v, t)`` is G(t), through _matrix_exp (the drift rates put
+    t L at exactly the 1-norms where torch.linalg.matrix_exp errs)."""
+
+    def __init__(self, base_op, drift_errorgen):
+        self.base_op = base_op
+        self.drift_errorgen = drift_errorgen
+        super().__init__(base_op.dim, np.empty(0))
+
+    @property
+    def num_params(self):
+        return self.base_op.num_params + self.drift_errorgen.num_params
+
+    def to_vector(self):
+        return np.concatenate([self.base_op.to_vector(), self.drift_errorgen.to_vector()])
+
+    def from_vector(self, v):
+        nb = self.base_op.num_params
+        self.base_op.from_vector(v[:nb])
+        self.drift_errorgen.from_vector(v[nb:])
+
+    def to_dense(self, v):
+        return self.base_op.to_dense(v[:self.base_op.num_params])
+
+    def to_dense_t(self, v, t):
+        nb = self.base_op.num_params
+        L = self.drift_errorgen.to_dense(v[nb:])
+        return _matrix_exp(t * L) @ self.base_op.to_dense(v[:nb])
+
+    def _to_nice_serialization(self):
+        return {'base_op': self.base_op.to_nice_serialization(),
+                'drift_errorgen': self.drift_errorgen.to_nice_serialization()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(NicelySerializable.from_nice_serialization(state['base_op']),
+                   NicelySerializable.from_nice_serialization(state['drift_errorgen']))
+
+
 class FullCPTPOp(_TensorConstants, LinearOperator):
     """Channel parameterized by the Cholesky factor of its trace-normalized
     Choi matrix: the parameters are L's real diagonal, then (re, im) of its

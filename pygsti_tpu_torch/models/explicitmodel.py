@@ -229,6 +229,10 @@ class ExplicitOpModel(OpModel):
     def tensors_fn(self, composite_layers=True):
         """A pure function v -> ModelTensors (safe under torch.func); with
         composite_layers=False the op stack leaves the composite layers out.
+        The function also takes a time, compute(v, t): a member with a time
+        form (``to_dense_t``, e.g. LinearTimeDriftOp) is then taken at t,
+        every other member in its static form; t None is time 0's static
+        form, the function of v alone.
 
         Members whose dense form is ``post @ E @ pre`` around an error map E
         (ModelMember.error_map_form) are grouped by their error map's
@@ -271,7 +275,7 @@ class ExplicitOpModel(OpModel):
                 consts[key] = torch.as_tensor(array, dtype=dtype or v.dtype, device=v.device)
             return consts[key]
 
-        def compute(v):
+        def compute(v, t=None):
             dense = [None] * len(members)
             for gi, (emap, uses, _) in enumerate(groups):
                 idx = const(('idx', gi), gather[gi], v, torch.int64)
@@ -284,7 +288,11 @@ class ExplicitOpModel(OpModel):
                         mx = const(('post', pos), post, v) @ mx
                     dense[pos] = mx
             for pos, m in enumerate(members):
-                if pos not in grouped:
+                if pos in grouped:
+                    continue
+                if t is not None and hasattr(m, 'to_dense_t'):
+                    dense[pos] = m.to_dense_t(v[m.gpindices], t)
+                else:
                     dense[pos] = m.to_dense(v[m.gpindices])
             # an operation is one slot of the op stack, a composite layer
             # one (the product of its components, the first applied first),
@@ -343,16 +351,32 @@ class ExplicitOpModel(OpModel):
 
         return compute
 
+    def tensors_fn_t(self, composite_layers=True):
+        """The function compute(v, t) -> ModelTensors at time t (the JAX
+        package's ``tensors_fn_t``; tensors_fn's function, given a time)."""
+        return self.tensors_fn(composite_layers)
+
     def flat_tensors_fn(self, composite_layers=True):
         """A pure function v -> every tensor entry as one vector [NT]:
-        the op stack, then preps, then effects, each row-major."""
+        the op stack, then preps, then effects, each row-major.  It also
+        takes a time, flat(v, t), as tensors_fn's function does."""
         compute = self.tensors_fn(composite_layers)
 
-        def flat(v):
-            t = compute(v)
-            return torch.cat([t.ops.reshape(-1), t.preps.reshape(-1), t.effects.reshape(-1)])
+        def flat(v, t=None):
+            ten = compute(v, t)
+            return torch.cat([ten.ops.reshape(-1), ten.preps.reshape(-1),
+                              ten.effects.reshape(-1)])
 
         return flat
+
+    def flat_tensors_fn_t(self, composite_layers=True):
+        """flat(v, t): the flat tensor entries at time t."""
+        return self.flat_tensors_fn(composite_layers)
+
+    def flat_tensors_jacobian_fn_t(self):
+        """jacobian(v, t): Tv(t) = d flat tensors(t) / d v [NT, P], by the
+        same block-diagonal forward mode as flat_tensors_jacobian_fn."""
+        return self.flat_tensors_jacobian_fn()
 
     def flat_tensors_jacobian_fn(self):
         """A function v -> Tv = d flat tensors / d v, [NT, P].
@@ -371,7 +395,8 @@ class ExplicitOpModel(OpModel):
         so it is left out of that pass; its rows follow from its
         components' rows by the product rule, d(G_b G_a) = dG_b G_a +
         G_b dG_a, and are put in place between the operations' rows and the
-        instruments'."""
+        instruments'.  The function also takes a time, jacobian(v, t): Tv
+        of the tensors at time t."""
         self._rebuild_paramvec_if_needed()
         flat = self.flat_tensors_fn(composite_layers=False)
         P = len(self._paramvec)
@@ -396,7 +421,7 @@ class ExplicitOpModel(OpModel):
         mask = row_member[:, None] == param_member[None, :]
         consts = {}
 
-        def jacobian(v):
+        def jacobian(v, t=None):
             if P == 0:
                 return torch.zeros((len(row_member) + len(derived) * d * d, 0),
                                    dtype=v.dtype, device=v.device)
@@ -407,13 +432,16 @@ class ExplicitOpModel(OpModel):
                                torch.as_tensor(mask, device=v.device))
             S, k_of_param, own = consts[key]
             # vmap of jvp over the C seed tangents: what jacfwd does over the
-            # P unit vectors
+            # P unit vectors (batched on dim 0: a tangent that no output
+            # depends on, as of a static base at t None, comes back unbatched,
+            # which vmap can broadcast there and not on dim 1)
             compressed = torch.vmap(
-                lambda t: torch.func.jvp(flat, (v,), (t,))[1], out_dims=1)(S)    # [NT, C]
+                lambda tangent: torch.func.jvp(lambda x: flat(x, t), (v,), (tangent,))[1]
+            )(S).T                                                             # [NT, C]
             T = compressed[:, k_of_param] * own
             if not derived:
                 return T
-            G = flat(v)[:n_gate_rows].reshape(-1, d, d)
+            G = flat(v, t)[:n_gate_rows].reshape(-1, d, d)
             dG = T[:n_gate_rows].reshape(-1, d, d, P)
             rows = []
             for comps in derived:

@@ -7,7 +7,11 @@ correction, the penalty rows, and the 'blocked' and forward-mode
 Jacobians; the classes bound to one raw objective, TermWeighted and
 CachedObjectiveFunction; the standalone logl, two_delta_logl and chi2; the
 weighted Gram of the probability Jacobian and the second-derivative term of
-the exact Hessian, behind the error bars and the Fisher information).
+the exact Hessian, behind the error bars and the Fisher information; the
+host-side time-dependent classes, whose elements each take the model at
+their own time).  ``block_probs_jac``, one row block's probabilities and
+their Jacobian through the kernel, serves this module's blocked Jacobian
+and the time-resolved objectives of objectivefns/timedep.py.
 
 The objective evaluates, on one device:
   fn(v)      -> objective value
@@ -1018,6 +1022,122 @@ class TermWeighted(TimeIndependentMDCObjectiveFunction):
         return np.sqrt(np.clip(self.terms(paramvec), 0.0, None))
 
 
+class TimeDependentMDCObjectiveFunction(object):
+    """Objective over time-resolved data whose elements are (circuit,
+    timestamp, observed outcome) triples, each probability taken at the
+    element's own time through the model's ``tensors_fn_t`` (the JAX
+    package's class of this module sets the time through a member's
+    ``set_time``, which no member defines, so it takes every element at
+    t = 0: ROADMAP.md section 3).  Elements follow the JAX package's order:
+    circuit, then its distinct times ascending, then the outcomes in the
+    order first seen at that time; a row without times is at 0.0.
+    ``dterms`` is the exact derivative (the JAX package: forward
+    differences, step `eps`).  The objective module
+    ``objectivefns/timedep.py`` is the one the LM fits run on."""
+
+    def __init__(self, raw_objfn, model, dataset, circuits, penalties=None, name=None,
+                 verbosity=0, device="cuda"):
+        if penalties:
+            raise ValueError("the time-resolved objective takes no penalties")
+        self.raw_objfn = raw_objfn
+        self.model = model
+        self.dataset = dataset
+        self.circuits = list(circuits) if circuits is not None else list(dataset.keys())
+        self.name = name or raw_objfn.name
+        self.device = torch.device(device)
+        self._elements = []  # (circuit index, time, outcome, count, total at t)
+        for ci, c in enumerate(self.circuits):
+            row = dataset[c]
+            if row.time is not None and len(row.time) > 0:
+                times = np.asarray(row.time)
+                series = row.outcome_series if row.outcome_series is not None \
+                    else list(row.counts.keys())
+                reps = np.asarray(row.reps if row.reps is not None else np.ones(len(times)))
+                for t in np.unique(times):
+                    sel = np.flatnonzero(times == t)
+                    by_outcome = {}
+                    for i in sel:
+                        by_outcome[series[i]] = by_outcome.get(series[i], 0.0) + float(reps[i])
+                    tot = float(np.sum(reps[sel]))
+                    for ol, cnt in by_outcome.items():
+                        self._elements.append((ci, float(t), ol, cnt, tot))
+            else:
+                tot = float(row.total)
+                for ol, cnt in row.counts.items():
+                    self._elements.append((ci, 0.0, ol, float(cnt), tot))
+        self.counts = np.array([e[3] for e in self._elements])
+        self.total_counts = np.array([e[4] for e in self._elements])
+        with np.errstate(invalid='ignore', divide='ignore'):
+            self.freqs = np.where(self.total_counts > 0, self.counts / np.where(
+                self.total_counts > 0, self.total_counts, 1.0), 0.0)
+        sim = SimpleForwardSimulator(model, self.device)
+        layout = sim.create_layout(self.circuits)
+        self._probs_fn = sim.probs_fn(layout)
+        self._times = sorted({e[1] for e in self._elements})
+        # each element's time and layout element (-1: an outcome the model
+        # does not give, probability 0 as in the JAX package)
+        where = [{o: layout.element_slices[ci].start + k for k, o in enumerate(outs)}
+                 for ci, outs in enumerate(layout.outcomes)]
+        self._elem_time = torch.as_tensor([self._times.index(e[1]) for e in self._elements],
+                                          device=self.device)
+        self._elem_idx = torch.as_tensor([where[e[0]].get(e[2], -1) for e in self._elements],
+                                         device=self.device)
+        self._data = tuple(torch.as_tensor(a, dtype=DTYPE, device=self.device)
+                           for a in (self.counts, self.total_counts, self.freqs))
+
+    @property
+    def num_elements(self):
+        return len(self._elements)
+
+    def _v(self, paramvec):
+        v = paramvec if paramvec is not None else self.model.to_vector()
+        return torch.as_tensor(np.asarray(v, float), dtype=DTYPE, device=self.device)
+
+    def _probs(self, v):
+        P = torch.stack([self._probs_fn(v, t) for t in self._times])     # [T, E_layout]
+        p = P[self._elem_time, self._elem_idx.clamp(min=0)]
+        return torch.where(self._elem_idx >= 0, p, torch.zeros_like(p))
+
+    def _terms(self, v):
+        return self.raw_objfn.terms(self._probs(v), *self._data)
+
+    def probs_vector(self, paramvec=None):
+        with torch.no_grad():
+            return self._probs(self._v(paramvec)).cpu().numpy()
+
+    def terms(self, paramvec=None):
+        with torch.no_grad():
+            return self._terms(self._v(paramvec)).cpu().numpy()
+
+    def lsvec(self, paramvec=None):
+        return np.sqrt(np.clip(self.terms(paramvec), 0.0, None))
+
+    def fn(self, paramvec=None):
+        return float(np.sum(self.terms(paramvec)))
+
+    def dterms(self, paramvec=None):
+        """d terms / d parameters [n_elements, P], by forward mode."""
+        return torch.func.jacfwd(self._terms)(self._v(paramvec)).cpu().numpy()
+
+
+class TimeDependentChi2Function(TimeDependentMDCObjectiveFunction):
+    """Time-resolved chi2."""
+
+    def __init__(self, model, dataset, circuits, regularization=None, penalties=None,
+                 name='time-dep chi2', **kwargs):
+        super().__init__(RawChi2Function(regularization), model, dataset, circuits,
+                         penalties, name, **kwargs)
+
+
+class TimeDependentPoissonPicLogLFunction(TimeDependentMDCObjectiveFunction):
+    """Time-resolved Poisson-picture delta-logL."""
+
+    def __init__(self, model, dataset, circuits, regularization=None, penalties=None,
+                 name='time-dep logl', **kwargs):
+        super().__init__(RawPoissonPicDeltaLogLFunction(regularization), model, dataset,
+                         circuits, penalties, name, **kwargs)
+
+
 # -- CPTP / SPAM penalty pieces -------------------------------------------------
 # (used by the gauge objective and by the penalty rows of the fit's objective)
 _NEG_EIG_SQRT_SHIFT = 1e-6
@@ -1107,7 +1227,7 @@ def _make_penalty_fn(model, penalties):
 
 # -- the blocked Jacobian ------------------------------------------------------
 
-def bucket_plan(layout, n_out, NT, device):
+def bucket_plan(layout, n_out, NT, device, rows=None):
     """Depth-bucketed circuit blocks, cached on the layout per device.
 
     Rows (one per circuit, or per combination of its instruments' members)
@@ -1117,24 +1237,33 @@ def bucket_plan(layout, n_out, NT, device):
     and effect row 0 (padded rows get zero counts, so they add nothing).
     Returns (buckets, inv_perm): each bucket is a dict of device tensors
     plus its element indices; inv_perm puts the concatenated bucket
-    residuals back in layout element order."""
+    residuals back in layout element order.  `rows` (ascending row
+    indices) plans those rows alone, by the same rule over their depths,
+    and is not cached: its buckets' element indices are still the
+    layout's, and inv_perm puts the residuals in the ascending order of
+    those elements."""
     cache = layout.__dict__.setdefault('_bucket_plans', {})
     key = (str(device), n_out, NT)
-    if key in cache:
+    if rows is None and key in cache:
         return cache[key]
     B, D = layout.op_indices.shape
+    depths = np.asarray(layout.depths)
+    if rows is None:
+        order = np.argsort(depths, kind='stable')
+    else:
+        rows = np.asarray(rows, dtype=np.int64)
+        order = rows[np.argsort(depths[rows], kind='stable')]
+        B, D = len(rows), max(int(depths[rows].max()), 1)
     # rows per block: the JAX package's budget rule, never beyond the batch
     blk = min(max(64, JAC_BLOCK_BYTES
                   // (max(n_out, 1) * NT * torch.finfo(DTYPE).bits // 8)), B)
-    depths = np.asarray(layout.depths)
-    order = np.argsort(depths, kind='stable')
     if B < 256:
         edges = [D]
     else:
-        qs = sorted({int(np.ceil(np.percentile(depths, p))) for p in (50, 75, 90)})
+        qs = sorted({int(np.ceil(np.percentile(depths[order], p))) for p in (50, 75, 90)})
         edges = [e for e in qs if 0 < e < D] + [D]
     align = 64
-    eff_rows_all = layout.elem_effect.reshape(B, n_out)
+    eff_rows_all = layout.elem_effect.reshape(layout.op_indices.shape[0], n_out)
     buckets, elem_sorted = [], []
     lo = -1
     for e in edges:
@@ -1143,16 +1272,16 @@ def bucket_plan(layout, n_out, NT, device):
         Dk = max(int(e), 1)
         step = max(blk, align)
         for s in range(0, len(sel), step):
-            rows = sel[s:s + step]
-            nk = len(rows)
+            rows_k = sel[s:s + step]
+            nk = len(rows_k)
             nk_pad = -(-nk // align) * align
             op_b = np.full((nk_pad, Dk), layout.identity_index, np.int32)
-            op_b[:nk] = layout.op_indices[rows][:, :Dk]
+            op_b[:nk] = layout.op_indices[rows_k][:, :Dk]
             prep_b = np.zeros(nk_pad, np.int64)
-            prep_b[:nk] = layout.prep_index[rows]
+            prep_b[:nk] = layout.prep_index[rows_k]
             eff_b = np.zeros((nk_pad, n_out), np.int64)
-            eff_b[:nk] = eff_rows_all[rows]
-            elem_idx = (rows[:, None] * n_out + np.arange(n_out)).ravel()
+            eff_b[:nk] = eff_rows_all[rows_k]
+            elem_idx = (rows_k[:, None] * n_out + np.arange(n_out)).ravel()
             elem_sorted.append(elem_idx)
             buckets.append({
                 'cols': torch.as_tensor(op_b, device=device),
@@ -1163,6 +1292,8 @@ def bucket_plan(layout, n_out, NT, device):
                 'nk': nk, 'nk_pad': nk_pad})
     inv_perm = torch.as_tensor(np.argsort(np.concatenate(elem_sorted)),
                                dtype=torch.int64, device=device)
+    if rows is not None:
+        return buckets, inv_perm
     cache[key] = (buckets, inv_perm)
     return cache[key]
 
@@ -1319,6 +1450,42 @@ def _forward_jacobian_fns(model, layout, sim, correction):
     return jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn
 
 
+def block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out):
+    """(probs [nb*n_out], Jt = d probs / d tensor entries [nb*n_out, NT])
+    for one row block `bk` of bucket_plan, from the flat tensor entries
+    `tf` [NT] of a model of `n_ops` op-stack slots, `n_preps` preps and
+    `n_eff` effect rows on dimension `dim`: the forward scan stashing the
+    state before each layer, then the backward accumulation kernel binning
+    per-op gradients.  The static and the time-resolved objectives both
+    take their blocks here."""
+    device = tf.device
+    j_dtype = DTYPE
+    o_sz, p_sz = n_ops * dim * dim, n_preps * dim
+    NT = o_sz + p_sz + n_eff * dim
+    ops = tf[:o_sz].reshape(n_ops, dim, dim).to(j_dtype)
+    preps = tf[o_sz:o_sz + p_sz].reshape(n_preps, dim).to(j_dtype)
+    effects = tf[o_sz + p_sz:].reshape(n_eff, dim).to(j_dtype)
+    eye = torch.eye(dim, dtype=j_dtype, device=device)[None]
+    G = torch.cat([ops, eye], dim=0)                  # [K+1, d, d]
+    cols64 = bk['cols64']
+    nb, Dk = cols64.shape
+    E = effects[bk['eff']]                            # [nb, n_out, d]
+    F = torch.empty((nb, Dk, dim), dtype=j_dtype, device=device)
+    S = preps[bk['prep']]                             # [nb, d]
+    for t in range(Dk):
+        F[:, t] = S
+        S = torch.bmm(G[cols64[:, t]], S.unsqueeze(-1)).squeeze(-1)
+    A, B_final = bwd_jacobian_accumulate(bk['cols'], G, E, F)
+    p = torch.einsum('bni,bi->bn', E, S)
+    J_ops = A[:, :, :n_ops].reshape(nb, n_out, o_sz)
+    prep_oh = torch.nn.functional.one_hot(bk['prep'], n_preps).to(j_dtype)
+    J_preps = torch.einsum('br,bnj->bnrj', prep_oh, B_final).reshape(nb, n_out, p_sz)
+    eff_oh = torch.nn.functional.one_hot(bk['eff'], n_eff).to(j_dtype)
+    J_eff = torch.einsum('bne,bj->bnej', eff_oh, S).reshape(nb, n_out, n_eff * dim)
+    Jt = torch.cat([J_ops, J_preps, J_eff], dim=2)
+    return p.reshape(-1), Jt.reshape(nb * n_out, NT)
+
+
 def _blocked_jacobian_fns(model, layout, sim, raw):
     """jtj_jtf and dlsvec from the blocked Jacobian (module note)."""
     device = sim.device
@@ -1330,36 +1497,11 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
     n_preps = len(model.prep_keys)
     n_eff = sum(model.povms[k].num_outcomes for k in model.povm_keys)
     NT = n_ops * dim * dim + n_preps * dim + n_eff * dim
-    o_sz, p_sz = n_ops * dim * dim, n_preps * dim
     j_dtype = DTYPE
     buckets, inv_perm = bucket_plan(layout, n_out, NT, device)
 
-    def block_probs_jac(tf, bk):
-        """(probs [nb*n_out], Jt [nb*n_out, NT]) for one row block:
-        forward scan stashing the state before each layer, then the
-        backward accumulation kernel bins per-op gradients."""
-        ops = tf[:o_sz].reshape(n_ops, dim, dim).to(j_dtype)
-        preps = tf[o_sz:o_sz + p_sz].reshape(n_preps, dim).to(j_dtype)
-        effects = tf[o_sz + p_sz:].reshape(n_eff, dim).to(j_dtype)
-        eye = torch.eye(dim, dtype=j_dtype, device=device)[None]
-        G = torch.cat([ops, eye], dim=0)                  # [K+1, d, d]
-        cols64 = bk['cols64']
-        nb, Dk = cols64.shape
-        E = effects[bk['eff']]                            # [nb, n_out, d]
-        F = torch.empty((nb, Dk, dim), dtype=j_dtype, device=device)
-        S = preps[bk['prep']]                             # [nb, d]
-        for t in range(Dk):
-            F[:, t] = S
-            S = torch.bmm(G[cols64[:, t]], S.unsqueeze(-1)).squeeze(-1)
-        A, B_final = bwd_jacobian_accumulate(bk['cols'], G, E, F)
-        p = torch.einsum('bni,bi->bn', E, S)
-        J_ops = A[:, :, :n_ops].reshape(nb, n_out, o_sz)
-        prep_oh = torch.nn.functional.one_hot(bk['prep'], n_preps).to(j_dtype)
-        J_preps = torch.einsum('br,bnj->bnrj', prep_oh, B_final).reshape(nb, n_out, p_sz)
-        eff_oh = torch.nn.functional.one_hot(bk['eff'], n_eff).to(j_dtype)
-        J_eff = torch.einsum('bne,bj->bnej', eff_oh, S).reshape(nb, n_out, n_eff * dim)
-        Jt = torch.cat([J_ops, J_preps, J_eff], dim=2)
-        return p.reshape(-1), Jt.reshape(nb * n_out, NT)
+    def block(tf, bk):
+        return block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out)
 
     def bucket_data(bk, *arrays):
         pad = (bk['nk_pad'] - bk['nk']) * n_out
@@ -1382,7 +1524,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         ls_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)
-            p, Jt = block_probs_jac(tf, bk)
+            p, Jt = block(tf, bk)
             p = p.to(v.dtype)
             ls = raw.lsvec(p, cb, tb, fb, flag, regs)
             Jw = raw.dlsvec(p, cb, tb, fb, flag, regs).to(j_dtype)[:, None] * Jt
@@ -1406,7 +1548,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         J_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)
-            p, Jt = block_probs_jac(tf, bk)
+            p, Jt = block(tf, bk)
             dls = raw.dlsvec(p.to(v.dtype), cb, tb, fb, flag, regs)
             Jb = ((dls.to(j_dtype)[:, None] * Jt) @ Tv).to(v.dtype)
             J_parts.append(Jb[:bk['nk'] * n_out])
@@ -1424,7 +1566,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         Tvj = Tv.to(j_dtype) if chain_first else None
         for bk in buckets:
             (wb,) = bucket_data(bk, w)
-            _, Jt = block_probs_jac(tf, bk)
+            _, Jt = block(tf, bk)
             if chain_first:
                 Jt = Jt @ Tvj
             M += (Jt.T @ (wb.to(j_dtype)[:, None] * Jt)).to(v.dtype)
@@ -1435,7 +1577,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         """d probabilities / d v [E, P], block by block through the kernel."""
         tf = compute_flat(v)
         Tv = tensors_jacobian(v).to(j_dtype)
-        parts = [(block_probs_jac(tf, bk)[1] @ Tv).to(v.dtype)[:bk['nk'] * n_out]
+        parts = [(block(tf, bk)[1] @ Tv).to(v.dtype)[:bk['nk'] * n_out]
                  for bk in buckets]
         return torch.cat(parts, dim=0)[inv_perm]
 

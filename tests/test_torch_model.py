@@ -271,3 +271,49 @@ def test_mirror_and_term_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def test_drift_and_timedep_modules_import_no_jax():
+    """The modules of the time-resolved and drift slice load, and a
+    time-resolved objective, a stability analysis and a data comparison
+    run, in a process that ends with neither JAX nor pygsti_tpu imported."""
+    new = ('baseobjs.label', 'modelmembers.operations', 'models.explicitmodel',
+           'objectivefns.objectivefns', 'objectivefns.timedep', 'data.datasetconstruction',
+           'tools.hypothesis', 'data.hypothesistest', 'data.datacomparator',
+           'extras.drift', 'extras.drift.signal', 'extras.drift.probtrajectory',
+           'extras.drift.trmodel', 'extras.drift.stabilityanalyzer', 'protocols.stability')
+    code = ("import sys, importlib\n"
+            "import numpy as np\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.baseobjs.label import Label\n"
+            "from pygsti_tpu_torch.circuits.circuit import Circuit\n"
+            "from pygsti_tpu_torch.data.dataset import DataSet\n"
+            "from pygsti_tpu_torch.data.datacomparator import DataComparator\n"
+            "from pygsti_tpu_torch.modelmembers import operations as ops\n"
+            "from pygsti_tpu_torch.modelpacks import smq1Q_XYI as mp\n"
+            "from pygsti_tpu_torch.objectivefns.timedep import TimeDependentPoissonPicLogLFunction\n"
+            "from pygsti_tpu_torch.protocols.protocol import ExperimentDesign, ProtocolData\n"
+            "from pygsti_tpu_torch.protocols.stability import StabilityAnalysis\n"
+            "m = mp.target_model('static')\n"
+            "k = Label('Gxpi2', 0)\n"
+            "m.operations[k] = ops.LinearTimeDriftOp(ops.StaticArbitraryOp(m.operations[k].dense()),\n"
+            "    ops.build_lindblad_errorgen('pp', 'H', dim=4))\n"
+            "rng = np.random.RandomState(0)\n"
+            "ds = DataSet()\n"
+            "for c in (Circuit('Gxpi2:0@(0)'), Circuit('Gypi2:0@(0)')):\n"
+            "    ds.add_raw_series_data(c, [('1',) if b else ('0',) for b in rng.rand(200) < 0.5],\n"
+            "                           np.arange(200.0))\n"
+            "obj = TimeDependentPoissonPicLogLFunction(m, ds, list(ds.keys()), device='cpu')\n"
+            "ls, jtj, jtf = obj.jtj_jtf(m.to_vector())\n"
+            "assert jtj.shape == (3, 3) and np.isfinite(ls).all(), jtj\n"
+            "r = StabilityAnalysis(device='cpu').run(ProtocolData(ExperimentDesign(list(ds.keys())), ds))\n"
+            "assert r.stabilityanalyzer._basespectra.shape == (1, 2, 1, 200)\n"
+            "comp = DataComparator([ds, ds], device='cpu').run()\n"
+            "assert comp.inconsistent_circuits == [] and comp.aggregate_llr == 0\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'
