@@ -163,6 +163,24 @@ Phases, each fatal on failure:
                 timestamps of the maxL-4 list (3,527 circuits): StabilityAnalysis
                 (spectra on the card), 'filter' and 'mle' characterization,
                 DataComparator on the halves; the same on static data
+ 29. fogi    -- smq2Q_XYICNOT 'H+s' (240 parameters) with its FOGI
+                decomposition (174 FOGI, 66 FOGV directions, set up on the
+                host); a truth of planted FOGI components on phase 3's
+                13,958 circuits at 1,000 shots drawn on the card, fitted
+                through GateSetTomography.run (a) in FOGI coordinates (174
+                parameters, the interposer in Tv) and (b) in the raw ones:
+                (a) not below (b) and above it by no more than (b)'s 66
+                extra FOGV parameters can take from the noise, (a) within 5
+                Hessian sigma of the planted components;
+                Tv card against CPU and jacfwd; the kernel at the fit's
+                buckets; each fit's own launch count
+ 30. leakage -- create_3level_model of smq1Q_XYI 'full TP' (243
+                parameters, d 9, two outcomes), a truth whose Gxpi2:0 leaks,
+                the lite design at maxL 1..64 (793 circuits) drawn on the
+                card, GateSetTomography.run, add_lago_models: probabilities
+                kept, the element in U(2)+U(1), the leakage rate against the
+                truth's in one frame; the kernel at this layout's buckets
+                (d 9, NOUT 2); its own launch count
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -3126,6 +3144,358 @@ def phase_drift_detection(mp, lists, device):
                          "is %g" % comp.aggregate_nsigma)
 
 
+FOGI_RATE = 1e-3         # phase 29: the planted rates' scale (H normal, S |normal|)
+LEAK_ANGLE = 0.05        # phase 30: Gxpi2:0's rotation of |1> toward |2>, rad
+LEAK_MARGIN = 0.3        # phase 30: the leakage rate's relative margin
+LEAK_BOOTSTRAPS = 4      # phase 30: bootstrap refits behind that margin
+
+
+def planted_hs_model(mp, rate, seed):
+    """The pack's 'H+s' target with seeded rates: each member's H rates
+    normal(0, rate), its S rates |normal(0, rate)| (so the truth is CPTP)."""
+    m = mp.target_model('H+s')
+    rs = np.random.RandomState(seed)
+    for member in list(m.operations.values()) + list(m.preps.values()) \
+            + list(m.povms.values()):
+        member.set_errorgen_coefficients({
+            l: rate * (rs.randn() if l.errorgen_type == 'H' else abs(rs.randn()))
+            for l in member.errorgen_coefficient_labels()})
+    m._mark_for_rebuild()
+    return m
+
+
+def phase_fogi_fit(mp, lists, builders, device):
+    """Phase 29: smq2Q_XYICNOT 'H+s' (240 parameters) with its FOGI
+    decomposition set up on the host (174 FOGI, 66 FOGV directions), a truth
+    of planted FOGI components, cell 1's 13,958 circuits at 1,000 shots
+    drawn on the card, fitted from the target through GateSetTomography.run
+    (a) in FOGI coordinates, 174 parameters through the interposer, and (b)
+    in the raw 'H+s' coordinates; the reparameterized Tv card against CPU
+    and jacfwd, the kernel at the fit's buckets.  Returns {path: launches}."""
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.tools.optools import entanglement_infidelity
+    t_phase = time.time()
+    final = list(lists[-1])
+
+    # -- the FOGI decomposition, on the host ----------------------------------
+    fogi_target = mp.target_model('H+s')
+    t0 = time.time()
+    store = fogi_target.setup_fogi(include_spam=True, reparameterize=True)
+    setup_s = time.time() - t0
+    counts = (store.num_fogi_directions, store.num_fogv_directions, fogi_target.num_params,
+              fogi_target.num_member_params)
+    log("fogi: setup_fogi(include_spam=True, reparameterize=True) on the host in %.3f s: %d "
+        "FOGI and %d FOGV directions, %d model parameters over %d member parameters"
+        % ((setup_s,) + counts))
+    if counts != (174, 66, 174, 240):
+        raise SystemExit("fogi: unexpected FOGI decomposition %s" % (counts,))
+
+    # -- the truth: planted FOGI components (and FOGV ones), data on the card --
+    physical = planted_hs_model(mp, FOGI_RATE, 1234)
+    physical.setup_fogi(include_spam=True)
+    comps = physical.fogi_errorgen_components_array(include_fogv=True)
+    truth = mp.target_model('H+s')
+    truth.setup_fogi(include_spam=True)
+    truth.set_fogi_errorgen_components_array(comps, include_fogv=True)
+    planted = comps[:store.num_fogi_directions]
+    back = float(np.max(np.abs(truth.to_vector() - physical.to_vector())))
+    infids = [entanglement_infidelity(op.dense(), t.dense())
+              for op, t in zip(truth.operations.values(),
+                               mp.target_model('full').operations.values())]
+    t0 = time.time()
+    ds = simulate_data(truth, final, 1000, seed=1234, device=device)
+    log("fogi: truth of seeded rates (H normal, S |normal|, scale %g) set through "
+        "set_fogi_errorgen_components_array (FOGI + FOGV; back to the raw rates within %.1e); "
+        "planted FOGI components |max| %.3e, rms %.3e; entanglement infidelities of the ops "
+        "%s; %d circuits x 1000 shots drawn on the card in %.2f s (seed 1234)"
+        % (FOGI_RATE, back, np.max(np.abs(planted)), np.sqrt(np.mean(planted ** 2)),
+           ['%.2e' % x for x in infids], len(final), time.time() - t0))
+    if not back < 1e-12:
+        raise SystemExit("fogi: the components do not give the truth's rates back")
+
+    # -- the reparameterized Tv: card, CPU, jacfwd; its cost ------------------
+    v_card = torch.as_tensor(planted, dtype=torch.float64, device=device)
+    Tv_card = fogi_target.flat_tensors_jacobian_fn()(v_card)
+    Tv_cpu = fogi_target.flat_tensors_jacobian_fn()(v_card.cpu())
+    J_fwd = torch.func.jacfwd(fogi_target.flat_tensors_fn())(v_card)
+    scale = float(Tv_cpu.abs().max())
+    rel_cpu = float((Tv_card.cpu() - Tv_cpu).abs().max()) / scale
+    rel_fwd = float((Tv_card - J_fwd).abs().max()) / scale
+    raw = mp.target_model('H+s')
+    w_card = torch.as_tensor(fogi_target.param_interposer.model_paramvec_to_ops_paramvec(planted),
+                             dtype=torch.float64, device=device)
+    timings = {}
+    for name, m, v in (('with the interposer', fogi_target, v_card),
+                       ('without (the raw model at M v)', raw, w_card)):
+        flat, jac = m.flat_tensors_fn(), m.flat_tensors_jacobian_fn()
+        timings[name] = cuda_time_ms(lambda: (flat(v), jac(v)), 10)
+    log("fogi: Tv [%d x %d] of the reparameterized model on the card against the CPU path: "
+        "max rel %.3e, against torch.func.jacfwd of the flat tensors on the card: max rel %.3e "
+        "(tol 1e-12); one tensors_fn + Tv: %s"
+        % (Tv_card.shape[0], Tv_card.shape[1], rel_cpu, rel_fwd,
+           ", ".join("%.3f ms %s" % (ms, k) for k, ms in timings.items())))
+    if not (rel_cpu < 1e-12 and rel_fwd < 1e-12):
+        raise SystemExit("fogi: the reparameterized Tv disagrees with the CPU path or jacfwd")
+
+    # -- the two fits --------------------------------------------------------
+    def run_fit(model, prefix):
+        gst = GateSetTomography(GSTInitialModel(model=model), gaugeopt_suite=None,
+                                objfn_builders=builders, optimizer={'maxiter': LM_MAXITER},
+                                verbosity=0, device=device)
+        return fit_launches(gst, ProtocolData(GateSetTomographyDesign(model, lists), ds),
+                            prefix, lists)
+    est_a, la, fit_a_s, it_a, peak_a = run_fit(fogi_target.copy(), 'fogi fit (a)')
+    est_b, lb, fit_b_s, it_b, peak_b = run_fit(mp.target_model('H+s'), 'fogi fit (b)')
+    fa, fb = est_a.models['final iteration estimate'], est_b.models['final iteration estimate']
+    layout = SimpleForwardSimulator(fa, device).create_layout(final)
+    nb = num_buckets(layout, fa, device)
+    val_a, val_b = est_a.parameters['final_objfn_value'], est_b.parameters['final_objfn_value']
+    ns_a, ns_b = est_a.misfit_sigma(), est_b.misfit_sigma()
+    for tag, est, launches, fit_s, iters, peak, m in (
+            ('(a) FOGI', est_a, la, fit_a_s, it_a, peak_a, fa),
+            ('(b) raw', est_b, lb, fit_b_s, it_b, peak_b, fb)):
+        log("fogi fit %s: %d parameters, %d LM iterations in %.3f s (%.1f ms each); final "
+            "2*DeltaLogL %.6f, k %d, N_sigma %.4f; kernel launches {'bwd_jacobian': %d} "
+            "(%d buckets x %d iterations = %d); peak device memory %.1f MB"
+            % (tag, m.num_params, iters, fit_s, 1e3 * fit_s / max(iters, 1),
+               est.parameters['final_objfn_value'], est.parameters['final_dof'],
+               est.misfit_sigma(), launches, nb, iters, nb * iters, peak))
+        if launches != nb * iters:
+            raise SystemExit("fogi fit %s: the kernel's launches are not the buckets times "
+                             "the LM iterations" % tag)
+        if not (np.all(np.isfinite(m.to_vector())) and est.misfit_sigma() < 10):
+            raise SystemExit("fogi fit %s is not finite or far from the statistical optimum: "
+                             "N_sigma %g" % (tag, est.misfit_sigma()))
+    if fa.num_params != 174 or fa.param_interposer is None:
+        raise SystemExit("fogi fit (a) lost its FOGI parameterization")
+    log("fogi: 2*DeltaLogL (a) - (b) = %.6g (%.3e relative; the FOGI family lies inside the "
+        "raw one, so (a) may not lie below (b) by more than 1e-6 relative)"
+        % (val_a - val_b, (val_a - val_b) / abs(val_b)))
+    if not val_a >= val_b - 1e-6 * abs(val_b):
+        raise SystemExit("fogi: the FOGI fit lies below the raw fit")
+
+    # -- the components against fit (b)'s and the planted ones ----------------
+    t0 = time.time()
+    crf = est_a.create_confidence_region_factory()
+    crf.compute_hessian(approximate=True)
+    sigma = np.sqrt(np.abs(np.diag(crf.project_hessian('none'))))
+    hess_s = time.time() - t0
+    theta_a = fa.to_vector()
+    fb_f = fb.copy()
+    fb_f.setup_fogi(include_spam=True)
+    comps_b = fb_f.fogi_errorgen_components_array()
+    fogv_b = fb_f.fogi_errorgen_components_array(include_fogv=True)[len(comps_b):]
+    dev_ab = np.abs(comps_b - theta_a)
+    z = np.abs(theta_a - planted) / sigma
+    worst_ab = int(np.argmax(dev_ab / (3 * sigma + 1e-4)))
+    worst_z = int(np.argmax(z))
+    labels = fa.fogi_errorgen_component_labels()
+    n_fogv = store.num_fogv_directions
+    gain_bound = n_fogv + 5 * np.sqrt(2 * n_fogv)
+    log("fogi: Gauss-Newton Hessian of fit (a) through the kernel and its inverse in %.3f s; "
+        "sigma of the 174 components: min %.3e, median %.3e, max %.3e; |fit (a) - planted| / "
+        "sigma: max %.3f (%s), rms %.3f; fit (a)'s parameters against its model's FOGI "
+        "components: max |diff| %.3e" % (hess_s, sigma.min(), np.median(sigma), sigma.max(),
+                                         z.max(), labels[worst_z], np.sqrt(np.mean(z ** 2)),
+                                         float(np.max(np.abs(fa.fogi_errorgen_components_array()
+                                                             - theta_a)))))
+    # The raw 'H+s' coordinates are no gauge-fixed family: the first-order
+    # gauge (FOGV) directions move the probabilities at second order, and
+    # from the target the raw fit follows them far past first order, buying
+    # at most what its n_fogv extra parameters can take from the noise.
+    log("fogi: fit (b)'s FOGV components |max| %.3e (first order holds near 0); its FOGI "
+        "components against fit (a)'s parameters: max |diff| %.3e, %.1f of (3 sigma + 1e-4) at "
+        "%s; 2*DeltaLogL (a) - (b) = %.6g against the %d FOGV directions' chi2 allowance "
+        "%d + 5 sqrt(2 x %d) = %.3f"
+        % (np.max(np.abs(fogv_b)), dev_ab.max(), dev_ab[worst_ab] / (3 * sigma[worst_ab] + 1e-4),
+           labels[worst_ab], val_a - val_b, n_fogv, n_fogv, n_fogv, gain_bound))
+    if not val_a - val_b <= gain_bound:
+        raise SystemExit("fogi: the raw fit lies further below the FOGI fit than its FOGV "
+                         "directions allow")
+    if not z.max() < 5:
+        raise SystemExit("fogi: a fitted component lies %.2f sigma from the planted one"
+                         % z.max())
+    if not np.max(np.abs(fa.fogi_errorgen_components_array() - theta_a)) < 1e-10:
+        raise SystemExit("fogi: fit (a)'s parameters are not its model's FOGI components")
+
+    errs, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
+        layout, fa, device, 'fogi fit')
+    log("fogi: the kernel at the fit's %d bucket shapes %s with this model's G (d %d): rel "
+        "err f64 %.3e, f32 %.3e; %.4f ms per Jacobian (bound %.4f ms, %.1f%% of it), plain "
+        "%.3f ms, einsum %.3f ms; phase %.1f s"
+        % (len(shapes), shapes, fa.dim, errs[torch.float64], errs[torch.float32], ms, bound_ms,
+           100 * bound_ms / ms, plain_ms, einsum_ms, time.time() - t_phase))
+    return {'fogi fit (a)': la, 'fogi fit (b)': lb}
+
+
+def leaky_truth(target3):
+    """The 3-level target depolarized 0.01, its Gxpi2:0 followed by a
+    rotation of |1> toward |2> by LEAK_ANGLE."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.tools.optools import unitary_to_superop
+    truth = target3.depolarize(op_noise=0.01)
+    rot = np.eye(3, dtype=complex)
+    rot[1, 1] = rot[2, 2] = np.cos(LEAK_ANGLE)
+    rot[1, 2], rot[2, 1] = -np.sin(LEAK_ANGLE), np.sin(LEAK_ANGLE)
+    gx = truth.operations[Label('Gxpi2', 0)]
+    truth.operations[Label('Gxpi2', 0)] = type(gx)(
+        np.real(unitary_to_superop(rot, 'gm')) @ gx.dense())
+    return truth
+
+
+def phase_leakage_fit(builders, device):
+    """Phase 30: leakage GST of one qubit: create_3level_model of smq1Q_XYI
+    'full TP' (243 parameters, d 9, outcome '1' counting level 2), a truth
+    depolarized 0.01 whose Gxpi2:0 leaks, the lite design at maxL 1..64 at
+    1,000 shots drawn on the card, GateSetTomography.run from the target,
+    then add_lago_models; the kernel at this layout's buckets (d 9, NOUT 2).
+    Returns {path: launches}."""
+    from pygsti_tpu_torch import leakage
+    from pygsti_tpu_torch.algorithms.gaugeopt import gaugeopt_to_target
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.modelpacks import smq1Q_XYI as mp1
+    from pygsti_tpu_torch.models.gaugegroup import TPGaugeGroup
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    t_phase = time.time()
+    gx = Label('Gxpi2', 0)
+    target = leakage.create_3level_model(mp1.target_model('full TP'), gate_type='full TP')
+    lists = create_lsgst_circuit_lists(target, mp1.prep_fiducials(), mp1.meas_fiducials(),
+                                       mp1.germs(lite=True), [1, 2, 4, 8, 16, 32, 64])
+    final = list(lists[-1])
+    log("leakage: create_3level_model(smq1Q_XYI 'full TP'): %d parameters, %d operations, d "
+        "%d, outcomes %s; design %d lists, final %d circuits, depth %d"
+        % (target.num_params, len(target.operations), target.dim,
+           target.povms['Mdefault'].outcome_labels, len(lists), len(final),
+           max(c.depth for c in final)))
+    if (target.num_params, len(target.operations), target.dim, len(final)) != (243, 3, 9, 793):
+        raise SystemExit("leakage: unexpected 3-level model or design")
+    truth = leaky_truth(target)
+    rate_true = leakage.gate_leakage_rate(truth.operations[gx].dense())
+    seep_true = leakage.gate_seepage_rate(truth.operations[gx].dense())
+    t0 = time.time()
+    ds = simulate_data(truth, final, 1000, seed=1234, device=device)
+    log("leakage: truth depolarized 0.01, Gxpi2:0 then |1>->|2> by %g rad: leakage rate %.6g, "
+        "seepage %.6g; %d circuits x 1000 shots drawn on the card in %.2f s (seed 1234)"
+        % (LEAK_ANGLE, rate_true, seep_true, len(final), time.time() - t0))
+    layout = SimpleForwardSimulator(target, device).create_layout(final)
+    errs, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
+        layout, target, device, 'leakage')
+    log("leakage: the kernel at this layout's %d bucket shapes %s (d 9, NOUT 2, K1 %d): rel err "
+        "f64 %.3e, f32 %.3e; %.4f ms per Jacobian against a bound of %.4f ms (%.1f%% of it), "
+        "plain %.3f ms, einsum %.3f ms"
+        % (len(shapes), shapes, len(target.op_keys) + 1, errs[torch.float64],
+           errs[torch.float32], ms, bound_ms, 100 * bound_ms / ms, plain_ms, einsum_ms))
+
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()), gaugeopt_suite=None,
+                            objfn_builders=builders, optimizer={'maxiter': LM_MAXITER},
+                            verbosity=0, device=device)
+    est, launches, fit_s, iters, peak = fit_launches(
+        gst, ProtocolData(GateSetTomographyDesign(target, lists), ds), 'leakage fit', lists)
+    fitted = est.models['final iteration estimate']
+    nb = num_buckets(layout, fitted, device)
+    nsigma = est.misfit_sigma()
+    from pygsti_tpu_torch.objectivefns.objectivefns import two_delta_logl
+    truth_value = two_delta_logl(truth, ds, final, device=device)
+    log("leakage fit: %d LM iterations in %.3f s (%.1f ms each); final 2*DeltaLogL %.6f (the "
+        "truth's %.6f), k %d, N_sigma %.4f; kernel launches {'bwd_jacobian': %d} (%d buckets "
+        "x %d iterations = %d); peak device memory %.1f MB"
+        % (iters, fit_s, 1e3 * fit_s / max(iters, 1), est.parameters['final_objfn_value'],
+           truth_value, est.parameters['final_dof'], nsigma, launches, nb, iters, nb * iters,
+           peak))
+    if launches != nb * iters:
+        raise SystemExit("leakage fit: the kernel's launches are not the buckets times the LM "
+                         "iterations")
+    if not (np.all(np.isfinite(fitted.to_vector())) and nsigma < 10):
+        raise SystemExit("leakage fit is not finite or far from the statistical optimum: "
+                         "N_sigma %g" % nsigma)
+
+    # -- LAGO ----------------------------------------------------------------
+    torch.cuda.synchronize()
+    t0 = time.time()
+    leakage.add_lago_models(est.parent, device=device)
+    lago_s = time.time() - t0
+    lago = est.models['LAGO']
+    suite = leakage.std_lago_gopsuite(fitted)['LAGO'][0]
+    again, x, el = gaugeopt_to_target(fitted, est.models['target'], item_weights=suite[
+        'item_weights'], gauge_group=suite['gauge_group'], return_all=True, device=device)
+    R = leakage.subspace_restriction(el.transform_matrix, 'gm')
+    orth = float(np.max(np.abs(R @ R.T - np.eye(4))))
+    sim_f = SimpleForwardSimulator(fitted, device)
+    p_fit = sim_f.bulk_fill_probs(layout)
+    dp = max(float(np.max(np.abs(SimpleForwardSimulator(m, device).bulk_fill_probs(layout)
+                                 - p_fit))) for m in (lago, again))
+    rate_lago = leakage.gate_leakage_rate(lago.operations[gx].dense())
+    seep_lago = leakage.gate_seepage_rate(lago.operations[gx].dense())
+    tgt_gx = est.models['target'].operations[gx].dense()
+    log("leakage: add_lago_models (std_lago_gopsuite: U(2)+U(1), %d parameters) in %.3f s; "
+        "probabilities of all %d circuits against the fit's: max |dp| %.3e (tol 1e-9); the "
+        "element's computational-subspace restriction R: max |R R^T - I| %.3e (tol 1e-8); the "
+        "LAGO Gxpi2:0: leakage rate %.6g (the truth's %.6g), seepage %.6g (the truth's %.6g), "
+        "subspace entanglement fidelity to the target %.6f, subspace jtracedist %.3e"
+        % (suite['gauge_group'].num_params, lago_s, len(final), dp, orth, rate_lago,
+           rate_true, seep_lago, seep_true,
+           leakage.subspace_entanglement_fidelity(lago.operations[gx].dense(), tgt_gx, 'gm'),
+           leakage.subspace_jtracedist(lago.operations[gx].dense(), tgt_gx, 'gm')))
+    if not (dp < 1e-9 and orth < 1e-8):
+        raise SystemExit("leakage: LAGO changed the probabilities or left the direct-sum group")
+
+    # The leakage rate is a property of a frame, and U(2)+U(1) fixes only
+    # the unitary part of it: the fit keeps whatever non-unitary TP gauge
+    # the optimizer left it in.  So the rate is compared in one frame for
+    # both: the fit and the truth each gauge-optimized to the target over
+    # the TP group, then through the LAGO suite.
+    def framed(m):
+        m = gaugeopt_to_target(m, est.models['target'], gauge_group=TPGaugeGroup(m.dim),
+                               device=device)
+        return gaugeopt_to_target(m, est.models['target'], item_weights=suite['item_weights'],
+                                  gauge_group=suite['gauge_group'], device=device)
+    t0 = time.time()
+    fit_framed, truth_framed = framed(fitted), framed(truth)
+    frame_s = time.time() - t0
+    rate_fit = leakage.gate_leakage_rate(fit_framed.operations[gx].dense())
+    rate_ref = leakage.gate_leakage_rate(truth_framed.operations[gx].dense())
+    # the rate's spread in that frame: parametric bootstrap refits from
+    # the target (create_bootstrap_models), each framed alike
+    from pygsti_tpu_torch.drivers.bootstrap import create_bootstrap_models
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    boot_stats = []
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    t0 = time.time()
+    boots = create_bootstrap_models(
+        LEAK_BOOTSTRAPS, ds, 'parametric', mp1.prep_fiducials(), mp1.meas_fiducials(),
+        mp1.germs(lite=True), [1, 2, 4, 8, 16, 32, 64], input_model=fitted,
+        target_model=target, start_seed=2030, verbosity=0, device=device, stats=boot_stats)
+    boot_rates = [leakage.gate_leakage_rate(framed(m).operations[gx].dense()) for m in boots]
+    torch.cuda.synchronize()
+    boot_launches = bwd_jacobian_accumulate.launches
+    sigma_rate = float(np.std(boot_rates, ddof=1))
+    log("leakage: in one frame (TP gauge-optimization to the target, then the LAGO suite; "
+        "%.3f s for both): the fit's leakage rate %.6g, the truth's %.6g (%.1f%% off; margin "
+        "%d%%); %d parametric bootstrap refits from the target (%.1f s, %s LM iterations, "
+        "%d kernel launches), framed alike: rates %s, spread %.3e, so the margin is %.1f of it"
+        % (frame_s, rate_fit, rate_ref, 100 * abs(rate_fit / rate_ref - 1), 100 * LEAK_MARGIN,
+           LEAK_BOOTSTRAPS, time.time() - t0,
+           [sum(r.optimizer_specific_qtys['iterations'] for st in b['optimizer_results']
+                for r in st) for b in boot_stats],
+           boot_launches, ['%.6g' % r for r in boot_rates], sigma_rate,
+           LEAK_MARGIN * rate_ref / sigma_rate))
+    if not abs(rate_fit - rate_ref) <= LEAK_MARGIN * rate_ref:
+        raise SystemExit("leakage: the fitted leakage rate is not within %d%% of the truth's"
+                         % (100 * LEAK_MARGIN))
+    log("leakage: phase %.1f s" % (time.time() - t_phase))
+    return {'leakage fit': launches, 'leakage bootstrap': boot_launches}
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -3388,8 +3758,16 @@ def main():
     td_launches = phase_time_resolved_fit(mp, lists, device)
     t11 = time.time()
     phase_drift_detection(mp, lists, device)
+    t12 = time.time()
     log("phases 27 and 28: %.1f s and %.1f s of the script's wall time"
-        % (t11 - t10, time.time() - t11))
+        % (t11 - t10, t12 - t11))
+
+    # -- FOGI at 2 qubits, then leakage GST of one qubit ---------------------
+    fogi_launches = phase_fogi_fit(mp, lists, builders, device)
+    t13 = time.time()
+    leak_launches = phase_leakage_fit(builders, device)
+    log("phases 29 and 30: %.1f s and %.1f s of the script's wall time"
+        % (t13 - t12, time.time() - t13))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -3399,7 +3777,8 @@ def main():
         "launches": launches['bwd_jacobian'] + cptp_launches + inst_launches + par_launches
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
         + cloud3_launches + stat_launches + driver_launches + boot_launches
-        + selection_launches + td_launches,
+        + selection_launches + td_launches + sum(fogi_launches.values())
+        + sum(leak_launches.values()),
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -3410,7 +3789,8 @@ def main():
                                     "driver fit": driver_launches,
                                     "bootstrap": boot_launches,
                                     "design-selection fit": selection_launches,
-                                    "time-resolved fit": td_launches}),
+                                    "time-resolved fit": td_launches}, **fogi_launches,
+                                 **leak_launches),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -1,186 +1,345 @@
-"""Operator bases: 'std' (matrix units), 'pp' (Pauli products), 'gm'
-(generalized Gell-Mann) and 'qt' (the qutrit basis), host numpy
-(counterpart of pygsti_tpu/baseobjs/basis.py and basisconstructors.py).
+"""Operator bases, host numpy (counterpart of pygsti_tpu/baseobjs/basis.py):
+the builtin bases ('std', 'pp', 'PP', 'gm', 'qt', 'l2p1'), bases given by
+explicit elements, tensor-product and direct-sum bases, and lazily built
+ones.  The builtin elements come from basisconstructors.py.
 
 A vector in basis B has components x_i = Tr(B_i^dag rho); the 'std' basis
-vectorization is the row-major flattening of rho.
+vectorization is the row-major flattening of rho.  A superoperator in basis
+B is S[i,j] = Tr(B_i^dag Lambda(B_j)).
 """
 
 from __future__ import annotations
 
-import functools
 import itertools
+import re
 
 import numpy as np
 
-_PAULIS = (np.eye(2, dtype=complex),
-           np.array([[0, 1], [1, 0]], dtype=complex),
-           np.array([[0, -1j], [1j, 0]], dtype=complex),
-           np.array([[1, 0], [0, -1]], dtype=complex))
+from pygsti_tpu_torch.baseobjs import basisconstructors as _bc
 
 
-@functools.lru_cache(maxsize=None)
-def std_matrices(matrix_dim):
-    """Matrix-unit basis E_ij of d x d matrices, ordered row-major."""
-    d = matrix_dim
-    mxs = np.zeros((d * d, d, d), dtype=complex)
-    for k, (i, j) in enumerate(itertools.product(range(d), range(d))):
-        mxs[k, i, j] = 1.0
-    mxs.flags.writeable = False
-    return mxs
+def _superop_dim(dim_or_space):
+    """A superoperator dimension given as an int or as anything with a
+    ``dim`` (a state space, a model)."""
+    return int(getattr(dim_or_space, 'dim', dim_or_space))
 
 
-@functools.lru_cache(maxsize=None)
-def pp_matrices(matrix_dim):
-    """Normalized Pauli-product basis for d = 2**n: tensor products of
-    {I,X,Y,Z}/sqrt(2) with the first qubit's factor varying slowest."""
-    d = matrix_dim
-    nq = int(round(np.log2(d)))
-    if 2 ** nq != d:
-        raise ValueError("Pauli-product basis requires a power-of-2 dimension, "
-                         "got %d" % d)
-    basis1q = [p / np.sqrt(2.0) for p in _PAULIS]
-    mxs = np.empty((4 ** nq, d, d), dtype=complex)
-    for k, factors in enumerate(itertools.product(basis1q, repeat=nq)):
-        m = np.ones((1, 1), dtype=complex)
-        for f in factors:
-            m = np.kron(m, f)
-        mxs[k] = m
-    mxs.flags.writeable = False
-    return mxs
-
-
-def std_labels(matrix_dim):
-    """Labels "(i,j)" of the matrix units, row-major."""
-    d = matrix_dim
-    return ["(%d,%d)" % (i, j) for i in range(d) for j in range(d)]
-
-
-def pp_labels(matrix_dim):
-    """Pauli strings over 'IXYZ', the first qubit's letter varying slowest."""
-    nq = int(round(np.log2(matrix_dim)))
-    if nq == 0:
-        return [""]
-    return ["".join(t) for t in itertools.product('IXYZ', repeat=nq)]
-
-
-@functools.lru_cache(maxsize=None)
-def gm_matrices(matrix_dim):
-    """Normalized generalized Gell-Mann basis of d x d matrices: the
-    identity, then the symmetric (X-like) off-diagonal elements in
-    row-major upper-triangle order, the antisymmetric (Y-like) ones in the
-    same order, then the diagonal (Z-like) ones; each of unit Frobenius
-    norm."""
-    d = matrix_dim
-    mxs = [np.identity(d, dtype=complex)]
-    pairs = [(i, j) for i in range(d) for j in range(i + 1, d)]
-    for i, j in pairs:
-        xm = np.zeros((d, d), dtype=complex)
-        xm[i, j] = xm[j, i] = 1.0
-        mxs.append(xm)
-    for i, j in pairs:
-        ym = np.zeros((d, d), dtype=complex)
-        ym[i, j], ym[j, i] = -1j, 1j
-        mxs.append(ym)
-    for k in range(1, d):
-        zm = np.zeros((d, d), dtype=complex)
-        zm[np.arange(k), np.arange(k)] = 1.0
-        zm[k, k] = -k
-        mxs.append(zm * np.sqrt(2.0 / (k * (k + 1))))
-    arr = np.stack(mxs)
-    for k in range(arr.shape[0]):
-        nrm = np.sqrt(np.real(np.trace(arr[k].conj().T @ arr[k])))
-        if nrm > 1e-12:
-            arr[k] /= nrm
-    arr.flags.writeable = False
-    return arr
-
-
-def gm_labels(matrix_dim):
-    d = matrix_dim
-    pairs = [(i, j) for i in range(d) for j in range(i + 1, d)]
-    return (["I"] + ["X_{%d,%d}" % p for p in pairs] + ["Y_{%d,%d}" % p for p in pairs]
-            + ["Z_{%d}" % k for k in range(1, d)])
-
-
-@functools.lru_cache(maxsize=None)
-def qt_matrices(matrix_dim):
-    """The qutrit basis (d = 3): two-qubit Pauli products projected onto the
-    symmetric (triplet) subspace |00>, (|01>+|10>)/sqrt2, |11>, then
-    orthonormalized so that Tr(B_i B_j) = delta_ij."""
-    if matrix_dim == 1:
-        return np.identity(1, 'd')[None, :, :]
-    if matrix_dim != 3:
-        raise ValueError("qt basis requires dimension 3")
-    s2 = np.sqrt(2.0)
-    proj = np.array([[1, 0, 0, 0], [0, 1 / s2, 1 / s2, 0], [0, 0, 0, 1]], 'd')
-    pp = pp_matrices(4)
-    # pp indices of II, XX, YY, YZ, IX, IY, IZ, XY, XZ
-    mxs = [proj @ pp[i] @ proj.T for i in (0, 5, 10, 11, 1, 2, 3, 6, 7)]
-    mxs[0] = mxs[0] / np.sqrt(0.75)
-    q1 = mxs[1] - mxs[0] * np.sqrt(0.75) / 3
-    q2 = mxs[2] - mxs[0] * np.sqrt(0.75) / 3
-    mxs[1] = (q1 + q2) / np.sqrt(2.0 / 3.0)
-    mxs[2] = (q1 - q2) / s2
-    for i in range(3, 9):
-        mxs[i] = mxs[i] / np.sqrt(0.5)
-    out = np.array(mxs)
-    out.flags.writeable = False
-    return out
-
-
-def qt_labels(matrix_dim):
-    if matrix_dim == 1:
-        return ['']
-    return ['II', 'X+Y', 'X-Y', 'YZ', 'IX', 'IY', 'IZ', 'XY', 'XZ']
-
-
-_BUILTIN = {'std': std_matrices, 'pp': pp_matrices, 'gm': gm_matrices, 'qt': qt_matrices}
-_LABELS = {'std': std_labels, 'pp': pp_labels, 'gm': gm_labels, 'qt': qt_labels}
+# name -> (matrices of d, labels of d)
+_BUILTIN = {
+    'std': (_bc.std_matrices, _bc.std_labels),
+    'pp': (lambda d: _bc.pp_matrices(d, normalize=True), _bc.pp_labels),
+    'PP': (lambda d: _bc.pp_matrices(d, normalize=False), _bc.pp_labels),
+    'gm': (lambda d: _bc.gm_matrices(d, normalize=True), _bc.gm_labels),
+    'qt': (_bc.qt_matrices, _bc.qt_labels),
+    'l2p1': (_bc.lf_matrices, _bc.lf_labels),
+}
 
 
 class Basis(object):
-    """A builtin basis ('std', 'pp', 'gm' or 'qt') of d x d matrices;
-    ``dim`` = d**2."""
+    """A basis of d x d matrices spanning (a subspace of) matrix space.
+    ``Basis(name, dim)`` itself gives the builtin basis, as Basis.cast
+    does."""
+
+    def __new__(cls, *args, **kwargs):
+        if cls is Basis:
+            return BuiltinBasis(*args, **kwargs)
+        return super().__new__(cls)
+
+    def implies_leakage_modeling(self):
+        """True when this basis designates a proper computational subspace
+        (labels use the C[...]/L[...] leakage convention; reference:
+        basis.implies_leakage_modeling:374)."""
+        labels = [str(l) for l in self.labels]
+        has_eye = any(re.match(r'^(?:I|C\[I+\])+$', l) for l in labels)
+        has_leak = any(l.startswith('L[') for l in labels)
+        return bool(has_eye and has_leak)
 
     @classmethod
-    def cast(cls, name_or_basis, dim):
+    def cast(cls, name_or_basis, dim=None):
+        """`name_or_basis` as a Basis: a Basis is returned as it is, a name
+        becomes the builtin basis of superoperator dimension `dim` (d**2,
+        or anything with a ``dim``)."""
         if isinstance(name_or_basis, Basis):
             return name_or_basis
-        return cls(name_or_basis, dim)
+        return BuiltinBasis(name_or_basis, _superop_dim(dim))
 
-    def __init__(self, name, dim):
-        if name not in _BUILTIN:
-            raise ValueError("Unknown basis %r (known: %s)" % (name, list(_BUILTIN)))
-        d = int(round(np.sqrt(dim)))
-        if d * d != dim:
-            raise ValueError("Basis dim must be a perfect square, got %d" % dim)
-        self.name = name
-        self.dim = int(dim)
-        self.matrix_dim = d
-
+    # -- subclass responsibilities ------------------------------------------
     @property
     def elements(self):
-        """ndarray [d**2, d, d] of basis elements."""
-        return _BUILTIN[self.name](self.matrix_dim)
+        """ndarray [size, d, d] of basis elements."""
+        raise NotImplementedError()
 
     @property
     def labels(self):
-        """One string per basis element, in the order of ``elements``."""
-        return _LABELS[self.name](self.matrix_dim)
+        raise NotImplementedError()
+
+    @property
+    def name(self):
+        raise NotImplementedError()
+
+    @property
+    def dim(self):
+        """Dimension of the spanned vector space (d**2 for a complete basis)."""
+        raise NotImplementedError()
+
+    # -- common -------------------------------------------------------------
+    @property
+    def size(self):
+        return self.elements.shape[0]
+
+    @property
+    def elshape(self):
+        return self.elements.shape[1:]
+
+    @property
+    def matrix_dim(self):
+        return self.elements.shape[1]
 
     @property
     def real(self):
+        """Whether vectors expanded in this basis of Hermitian-matrix
+        combinations have real coefficients for Hermitian matrices."""
         els = self.elements
         return bool(np.allclose(els, els.conj().transpose(0, 2, 1)))
 
+    @property
+    def first_element_is_identity(self):
+        el0 = self.elements[0]
+        d = el0.shape[0]
+        return np.allclose(el0, el0[0, 0] * np.identity(d))
+
+    def is_normalized(self):
+        els = self.elements
+        g = np.einsum('aij,bij->ab', els.conj(), els)
+        return np.allclose(g, np.identity(els.shape[0]))
+
+    def to_elementstd_transform_matrix(self):
+        """Matrix T with columns vec_std(B_i): x_std = T @ x_thisbasis."""
+        els = self.elements
+        n, d, _ = els.shape
+        return els.reshape(n, d * d).T.copy()
+
     def create_transform_matrix(self, to_basis):
-        """Matrix M such that x_to = M @ x_from (this basis)."""
+        """Matrix M such that x_to = M @ x_from(this basis)."""
         to_basis = Basis.cast(to_basis, self.dim)
-        n, d, _ = self.elements.shape
-        fro = self.elements.reshape(n, d * d).T          # std <- self
-        to_dual = to_basis.elements.reshape(n, d * d).conj()
+        fro = self.to_elementstd_transform_matrix()       # std <- self
+        to_els = to_basis.elements
+        n, d, _ = to_els.shape
+        # x_to[i] = Tr(Bto_i^dag rho) = vec(Bto_i)^dag vec_std(rho)
+        to_dual = to_els.reshape(n, d * d).conj()
         return to_dual @ fro
 
-    def __repr__(self):
+    def is_equivalent(self, other):
+        other = Basis.cast(other, self.dim)
+        return np.allclose(self.elements, other.elements)
+
+    def __eq__(self, other):
+        if isinstance(other, str):
+            return self.name == other
+        if isinstance(other, Basis):
+            return (self.name == other.name and self.dim == other.dim
+                    and np.array_equal(self.elements, other.elements))
+        return NotImplemented
+
+    def __hash__(self):
+        return hash((self.name, self.dim))
+
+    def __str__(self):
         return "%s basis (dim=%d)" % (self.name, self.dim)
+
+    __repr__ = __str__
+
+
+class BuiltinBasis(Basis):
+    """One of the builtin bases: 'std', 'pp', 'PP', 'gm', 'qt'."""
+
+    def __init__(self, name, dim):
+        if name not in _BUILTIN:
+            raise ValueError("Unknown builtin basis %r (known: %s)" % (name, list(_BUILTIN)))
+        dim = _superop_dim(dim)
+        d = int(round(np.sqrt(dim)))
+        if d * d != dim:
+            raise ValueError("Basis dim must be a perfect square (superop dim), got %d" % dim)
+        self._name = name
+        self._dim = dim
+        self._matrix_dim = d
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def dim(self):
+        return self._dim
+
+    @property
+    def elements(self):
+        return _BUILTIN[self._name][0](self._matrix_dim)
+
+    @property
+    def labels(self):
+        return _BUILTIN[self._name][1](self._matrix_dim)
+
+    def __reduce__(self):
+        return (BuiltinBasis, (self._name, self._dim))
+
+
+class ExplicitBasis(Basis):
+    """A basis given by explicit element matrices."""
+
+    def __init__(self, elements, labels=None, name="ExplicitBasis"):
+        self._elements = np.asarray(elements, dtype=complex)
+        self._labels = list(labels) if labels is not None else \
+            ["E%d" % i for i in range(self._elements.shape[0])]
+        self._name = name
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def dim(self):
+        d = self._elements.shape[1]
+        return d * d
+
+    @property
+    def elements(self):
+        return self._elements
+
+    @property
+    def labels(self):
+        return self._labels
+
+
+class TensorProdBasis(Basis):
+    """Tensor product of component bases: elements are kron products, with the
+    first component's index varying slowest (reference: basis.py:1673)."""
+
+    def __init__(self, component_bases):
+        self.component_bases = [b for b in component_bases]
+        self._elements = None
+
+    @property
+    def name(self):
+        return "*".join(b.name for b in self.component_bases)
+
+    @property
+    def dim(self):
+        return int(np.prod([b.dim for b in self.component_bases]))
+
+    @property
+    def elements(self):
+        if self._elements is None:
+            comps = [b.elements for b in self.component_bases]
+            shapes = [c.shape[1] for c in comps]
+            total = int(np.prod([c.shape[0] for c in comps]))
+            d = int(np.prod(shapes))
+            out = np.empty((total, d, d), dtype=complex)
+            for k, idx in enumerate(itertools.product(*[range(c.shape[0]) for c in comps])):
+                m = np.ones((1, 1), dtype=complex)
+                for c, i in zip(comps, idx):
+                    m = np.kron(m, c[i])
+                out[k] = m
+            out.flags.writeable = False
+            self._elements = out
+        return self._elements
+
+    @property
+    def labels(self):
+        return ["".join(t) for t in
+                itertools.product(*[b.labels for b in self.component_bases])]
+
+
+class DirectSumBasis(Basis):
+    """Direct sum of component bases: block-diagonal embedding of components."""
+
+    def __init__(self, component_bases):
+        self.component_bases = list(component_bases)
+        self._elements = None
+
+    @property
+    def name(self):
+        return "+".join(b.name for b in self.component_bases)
+
+    @property
+    def dim(self):
+        return sum(b.dim for b in self.component_bases)
+
+    @property
+    def elements(self):
+        if self._elements is None:
+            comps = [b.elements for b in self.component_bases]
+            block_dims = [c.shape[1] for c in comps]
+            D = sum(block_dims)
+            total = sum(c.shape[0] for c in comps)
+            out = np.zeros((total, D, D), dtype=complex)
+            k = 0
+            off = 0
+            for c, bd in zip(comps, block_dims):
+                for e in c:
+                    out[k, off:off + bd, off:off + bd] = e
+                    k += 1
+                off += bd
+            out.flags.writeable = False
+            self._elements = out
+        return self._elements
+
+    @property
+    def labels(self):
+        lbls = []
+        for b in self.component_bases:
+            lbls.extend(b.labels)
+        return lbls
+
+
+class LazyBasis(Basis):
+    """Basis whose labels and elements are constructed only on first access
+    (reference: basis.LazyBasis:845).  Subclasses implement
+    _lazy_build_labels / _lazy_build_elements; here deferral is provided by
+    wrapping builder callables."""
+
+    def __init__(self, name, labels_builder=None, elements_builder=None):
+        self._name = name
+        self._labels_builder = labels_builder
+        self._elements_builder = elements_builder
+        self._lazy_labels = None
+        self._lazy_elements = None
+
+    def _lazy_build_labels(self):
+        return list(self._labels_builder())
+
+    def _lazy_build_elements(self):
+        return np.asarray(self._elements_builder())
+
+    @property
+    def name(self):
+        return self._name
+
+    @property
+    def labels(self):
+        if self._lazy_labels is None:
+            self._lazy_labels = self._lazy_build_labels()
+        return self._lazy_labels
+
+    @property
+    def elements(self):
+        if self._lazy_elements is None:
+            self._lazy_elements = self._lazy_build_elements()
+        return self._lazy_elements
+
+    @property
+    def dim(self):
+        e = self.elements
+        return e.shape[1] * e.shape[2] if e.ndim == 3 else e.shape[1]
+
+
+def default_basis_for_udims(udims):
+    """Default basis spec for per-qudit Hilbert dimensions `udims`: 'pp'
+    for qubits, 'gm' otherwise; a TensorProdBasis only for genuinely
+    mixed-dimension systems (reference:
+    basis.default_basis_for_udims:61)."""
+    udim_to_name = {2: 'pp'}
+    if all(u == udims[0] for u in udims):
+        return udim_to_name.get(udims[0], 'gm')
+    return TensorProdBasis([Basis.cast(udim_to_name.get(u, 'gm'), u * u)
+                            for u in udims])

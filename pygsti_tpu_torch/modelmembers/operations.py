@@ -7,7 +7,9 @@ LindbladErrorgen and its coefficient blocks, ExpErrorgenOp, FullCPTPOp) do
 not: as in the JAX package, transforming one raises NotImplementedError.
 The members implicit models are built from -- RepeatedOp, EmbeddedOp,
 DepolarizeOp, StochasticNoiseOp, IdentityPlusErrorgenOp, CPTRop -- have no
-gauge transform in the JAX package either.  The unitary members (static and
+gauge transform in the JAX package either, nor do the eigenvalue-, linearly
+and affinely parameterized EigenvalueParamDenseOp, LinearlyParamArbitraryOp
+and AffineShiftOp.  The unitary members (static and
 full unitary, and an EmbeddedOp of one) also give ``to_unitary(v)``, the
 state-vector simulator's input.
 Every member serializes; a Lindblad member writes its structure (basis,
@@ -755,6 +757,177 @@ class LinearTimeDriftOp(LinearOperator):
     def _from_nice_serialization(cls, state):
         return cls(NicelySerializable.from_nice_serialization(state['base_op']),
                    NicelySerializable.from_nice_serialization(state['drift_errorgen']))
+
+
+class EigenvalueParamDenseOp(_TensorConstants, LinearOperator):
+    """A real operation parameterized by its eigenvalues only: the matrix is
+    eigendecomposed once, its eigenvector frame B frozen, and dense =
+    Re(B diag(evals) B^-1).  One parameter per real eigenvalue, (re, im)
+    per complex-conjugate pair, in the order numpy's eig gives them; with
+    tp_constrained_and_unital=True the unit eigenvalue whose eigenvector is
+    closest to [1, 0, ...] is held fixed (its eigenvector set to that unit
+    vector)."""
+
+    def __init__(self, matrix, include_off_diags_in_degen_blocks=False,
+                 tp_constrained_and_unital=False):
+        mx = np.asarray(matrix)
+        if np.linalg.norm(np.imag(mx)) >= 1e-7:
+            raise ValueError("EigenvalueParamDenseOp needs a real matrix")
+        mx = np.real(mx).astype(float)
+        d = mx.shape[0]
+        evals, B = np.linalg.eig(mx)
+        used = np.zeros(len(evals), bool)
+        real_idx, pair_idx = [], []
+        for i, ev in enumerate(evals):
+            if used[i]:
+                continue
+            if abs(ev.imag) < 1e-10:
+                real_idx.append(i)
+                used[i] = True
+                continue
+            partner = [k for k in range(i + 1, len(evals))
+                       if not used[k] and abs(evals[k] - np.conj(ev)) < 1e-8]
+            if not partner:
+                raise ValueError("complex eigenvalue without its conjugate")
+            pair_idx.append((i, partner[0]))
+            used[i] = used[partner[0]] = True
+        fixed_idx = None
+        if tp_constrained_and_unital:
+            unit_row = np.zeros(d)
+            unit_row[0] = 1.0
+            if not (np.allclose(mx[0, :], unit_row) and np.allclose(mx[:, 0], unit_row)):
+                raise ValueError("matrix must be TP and unital")
+            cands = [i for i in real_idx if abs(evals[i] - 1.0) < 1e-8]
+            if not cands:
+                raise ValueError("a TP-constrained matrix must have a unit eigenvalue")
+            fixed_idx = max(cands, key=lambda i: abs(B[0, i]))
+            B[:, fixed_idx] = unit_row
+            real_idx = [i for i in real_idx if i != fixed_idx]
+        params = [evals[i].real for i in real_idx]
+        for i, _ in pair_idx:
+            params.extend([evals[i].real, evals[i].imag])
+        super().__init__(d, np.asarray(params, float))
+        self._B = B.astype(complex)
+        self._Binv = np.linalg.inv(B).astype(complex)
+        self._real_idx = list(real_idx)
+        self._pair_idx = [tuple(p) for p in pair_idx]
+        self._fixed_idx = fixed_idx
+        self._fixed_val = complex(evals[fixed_idx]) if fixed_idx is not None else None
+
+    def to_dense(self, v):
+        cdt = _complex_dtype(v.dtype)
+        evals = [None] * self._dim
+        if self._fixed_idx is not None:
+            evals[self._fixed_idx] = torch.tensor(self._fixed_val, dtype=cdt, device=v.device)
+        nr = len(self._real_idx)
+        for k, i in enumerate(self._real_idx):
+            evals[i] = v[k].to(cdt)
+        for k, (i, j) in enumerate(self._pair_idx):
+            lam = torch.complex(v[nr + 2 * k], v[nr + 2 * k + 1])
+            evals[i], evals[j] = lam, lam.conj()
+        B, Binv = self._const('_B', v.device, cdt), self._const('_Binv', v.device, cdt)
+        return torch.real(B @ (torch.stack(evals)[:, None] * Binv))
+
+    def _to_nice_serialization(self):
+        return {'B': self._B, 'real_idx': self._real_idx,
+                'pair_idx': [list(p) for p in self._pair_idx], 'fixed_idx': self._fixed_idx,
+                'fixed_val': None if self._fixed_val is None
+                else [self._fixed_val.real, self._fixed_val.imag],
+                'paramvals': self._paramvals}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        op = cls.__new__(cls)
+        LinearOperator.__init__(op, len(state['B']), np.asarray(state['paramvals'], float))
+        op._B = np.asarray(state['B'], complex)
+        op._Binv = np.linalg.inv(op._B)
+        op._real_idx = [int(i) for i in state['real_idx']]
+        op._pair_idx = [tuple(int(i) for i in p) for p in state['pair_idx']]
+        op._fixed_idx = state['fixed_idx']
+        fv = state['fixed_val']
+        op._fixed_val = None if fv is None else complex(fv[0], fv[1])
+        return op
+
+
+class LinearlyParamArbitraryOp(_TensorConstants, LinearOperator):
+    """A matrix whose elements are linear in the parameters:
+    dense = left @ (base + sum_p v[p] M_p) @ right, M_p holding ones at the
+    coordinates `parameter_to_base_indices_map[p]`; the real part when
+    real=True."""
+
+    def __init__(self, base_matrix, parameter_array, parameter_to_base_indices_map,
+                 left_transform=None, right_transform=None, real=True):
+        base = np.asarray(base_matrix, complex)
+        d = base.shape[0]
+        masks = np.zeros((len(parameter_array), d, d), complex)
+        for p, ij_tuples in parameter_to_base_indices_map.items():
+            for (i, j) in ij_tuples:
+                masks[p, i, j] = 1.0
+        super().__init__(d, np.asarray(parameter_array, float))
+        self._base = base
+        self._masks = masks
+        self._left = np.asarray(left_transform if left_transform is not None else np.eye(d),
+                                complex)
+        self._right = np.asarray(right_transform if right_transform is not None else np.eye(d),
+                                 complex)
+        self._real = bool(real)
+
+    def to_dense(self, v):
+        cdt = _complex_dtype(v.dtype)
+        c = lambda name: self._const(name, v.device, cdt)  # noqa: E731
+        mx = c('_base') + torch.tensordot(v.to(cdt), c('_masks'), dims=1)
+        out = c('_left') @ mx @ c('_right')
+        return torch.real(out) if self._real else out
+
+    def _to_nice_serialization(self):
+        index_map = {str(p): [[int(i), int(j)] for i, j in zip(*np.nonzero(self._masks[p]))]
+                     for p in range(len(self._masks))}
+        return {'base': self._base, 'paramvals': self._paramvals, 'index_map': index_map,
+                'left': self._left, 'right': self._right, 'real': self._real}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        index_map = {int(p): [tuple(ij) for ij in ijs] for p, ijs in state['index_map'].items()}
+        return cls(np.asarray(state['base']), np.asarray(state['paramvals']), index_map,
+                   np.asarray(state['left']), np.asarray(state['right']), state['real'])
+
+
+class AffineShiftOp(LinearOperator):
+    """The identity plus an affine shift: ones on the diagonal, the
+    parameters in column 0 below the diagonal (rows 1..d-1), zeros
+    elsewhere."""
+
+    def __init__(self, m):
+        mx = np.asarray(m, float)
+        self._check_arrowhead(mx)
+        super().__init__(mx.shape[0], mx[1:, 0].copy())
+
+    @staticmethod
+    def _check_arrowhead(mx):
+        d = mx.shape[0]
+        if not (np.allclose(np.diag(mx), 1) and np.allclose((mx - np.eye(d))[:, 1:], 0.0)):
+            raise ValueError("AffineShiftOp requires arrowhead structure "
+                             "(unit diagonal, off-diagonals only in column 0)")
+
+    def to_dense(self, v):
+        d = self._dim
+        eye = torch.eye(d, dtype=v.dtype, device=v.device)
+        col = torch.cat([torch.zeros(1, dtype=v.dtype, device=v.device), v])
+        first = torch.zeros(d, dtype=v.dtype, device=v.device)
+        first[0] = 1.0
+        return eye + col[:, None] * first[None, :]
+
+    def set_dense(self, m):
+        mx = np.asarray(m, float)
+        self._check_arrowhead(mx)
+        self._paramvals = mx[1:, 0].copy()
+
+    def _to_nice_serialization(self):
+        return {'mx': self.dense()}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(np.asarray(state['mx']))
 
 
 class FullCPTPOp(_TensorConstants, LinearOperator):

@@ -1,7 +1,8 @@
 """POVMs as pure torch functions (counterpart of
 pygsti_tpu/modelmembers/povms.py: UnconstrainedPOVM, TPPOVM, each with its
-gauge transform and serialization; ComputationalBasisPOVM and ComposedPOVM,
-which serialize and, as in the JAX package, have no gauge transform).  A
+gauge transform and serialization; ComputationalBasisPOVM, ComposedPOVM and
+MarginalizedPOVM, which serialize and, as in the JAX package, have no gauge
+transform).  A
 POVM's dense rep is the stack of its effect vectors [n_outcomes, dim]."""
 
 from __future__ import annotations
@@ -161,3 +162,48 @@ class ComposedPOVM(_WrapsOneMember, POVM):
     def _from_nice_serialization(cls, state):
         return cls(NicelySerializable.from_nice_serialization(state['error_map']),
                    NicelySerializable.from_nice_serialization(state['base_povm']))
+
+
+class MarginalizedPOVM(POVM):
+    """A POVM marginalized onto some of its qubits: each kept outcome's
+    effect is the sum of the base effects whose bits on the kept qubits
+    match it.  Its parameters are the base POVM's."""
+
+    def __init__(self, povm_to_marginalize, all_sslbls, sslbls_after_marginalizing):
+        self.base_povm = povm_to_marginalize
+        self.all_sslbls = tuple(all_sslbls)
+        self.kept = tuple(sslbls_after_marginalizing)
+        kept_pos = [self.all_sslbls.index(s) for s in self.kept]
+        out_labels = [format(i, '0%db' % len(self.kept)) for i in range(2 ** len(self.kept))]
+        groups = collections.defaultdict(list)
+        for i, ol in enumerate(self.base_povm.outcome_labels):
+            groups["".join(ol[p] for p in kept_pos)].append(i)
+        self._groups = [groups[ol] for ol in out_labels]
+        super().__init__(self.base_povm.dim, out_labels, np.empty(0))
+        # sum[k, i] = 1 where base outcome i is marginalized into outcome k
+        self._sum = np.zeros((len(out_labels), self.base_povm.num_outcomes))
+        for k, g in enumerate(self._groups):
+            self._sum[k, g] = 1.0
+
+    @property
+    def num_params(self):
+        return self.base_povm.num_params
+
+    def to_vector(self):
+        return self.base_povm.to_vector()
+
+    def from_vector(self, v):
+        self.base_povm.from_vector(v)
+
+    def to_dense(self, v):
+        S = torch.as_tensor(self._sum, dtype=v.dtype, device=v.device)
+        return S @ self.base_povm.to_dense(v)
+
+    def _to_nice_serialization(self):
+        return {'base_povm': self.base_povm.to_nice_serialization(),
+                'all_sslbls': list(self.all_sslbls), 'kept': list(self.kept)}
+
+    @classmethod
+    def _from_nice_serialization(cls, state):
+        return cls(NicelySerializable.from_nice_serialization(state['base_povm']),
+                   state['all_sslbls'], state['kept'])

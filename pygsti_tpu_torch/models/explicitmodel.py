@@ -12,7 +12,10 @@ parameter vector is laid out preps, POVMs, operations, instruments, each in
 insertion order, exactly as in the JAX package, so one vector means one
 model in both.  A model is gauge-transformed in place by a
 GaugeGroupElement (host numpy) and serializes to the JAX package's state
-layout, so either package's checkpoint reads here.
+layout, so either package's checkpoint reads here.  ``setup_fogi`` splits
+the members' error generators into first-order gauge-invariant (FOGI)
+components and can reparameterize the model by them, through a parameter
+interposer that tensors_fn and Tv apply (see OpModel).
 """
 
 from __future__ import annotations
@@ -210,6 +213,11 @@ class ExplicitOpModel(OpModel):
                          (self.instruments, m.instruments)):
             for lbl, obj in src.items():
                 dst[lbl] = obj.copy()
+        # a FOGI reparameterization goes with the copy (the JAX package's
+        # copy drops it: ROADMAP.md section 3)
+        m.param_interposer = self.param_interposer
+        if hasattr(self, 'fogi_store'):
+            m.fogi_store = self.fogi_store
         return m
 
     def probabilities(self, circuit, outcomes=None, device="cuda"):
@@ -232,7 +240,12 @@ class ExplicitOpModel(OpModel):
         The function also takes a time, compute(v, t): a member with a time
         form (``to_dense_t``, e.g. LinearTimeDriftOp) is then taken at t,
         every other member in its static form; t None is time 0's static
-        form, the function of v alone.
+        form, the function of v alone.  With a parameter interposer the
+        members are evaluated at M v (see OpModel)."""
+        return self._interposed(self._member_tensors_fn(composite_layers))
+
+    def _member_tensors_fn(self, composite_layers=True):
+        """tensors_fn's function of the members' own parameter vector.
 
         Members whose dense form is ``post @ E @ pre`` around an error map E
         (ModelMember.error_map_form) are grouped by their error map's
@@ -360,10 +373,13 @@ class ExplicitOpModel(OpModel):
         """A pure function v -> every tensor entry as one vector [NT]:
         the op stack, then preps, then effects, each row-major.  It also
         takes a time, flat(v, t), as tensors_fn's function does."""
-        compute = self.tensors_fn(composite_layers)
+        return self._interposed(self._member_flat_tensors_fn(composite_layers))
 
-        def flat(v, t=None):
-            ten = compute(v, t)
+    def _member_flat_tensors_fn(self, composite_layers=True):
+        compute = self._member_tensors_fn(composite_layers)
+
+        def flat(w, t=None):
+            ten = compute(w, t)
             return torch.cat([ten.ops.reshape(-1), ten.preps.reshape(-1),
                               ten.effects.reshape(-1)])
 
@@ -396,10 +412,22 @@ class ExplicitOpModel(OpModel):
         components' rows by the product rule, d(G_b G_a) = dG_b G_a +
         G_b dG_a, and are put in place between the operations' rows and the
         instruments'.  The function also takes a time, jacobian(v, t): Tv
-        of the tensors at time t."""
+        of the tensors at time t.
+
+        With a parameter interposer, Tv = Tv_members(M v) @ M: one
+        [NT, P_members] x [P_members, P] product per Jacobian."""
+        member_jacobian = self._member_flat_tensors_jacobian_fn()
+        M = self._interposer_matrix()
+        if M is None:
+            return member_jacobian
+        return lambda v, t=None: member_jacobian(M(v) @ v, t) @ M(v)
+
+    def _member_flat_tensors_jacobian_fn(self):
+        """flat_tensors_jacobian_fn's function of the members' own
+        parameter vector."""
         self._rebuild_paramvec_if_needed()
-        flat = self.flat_tensors_fn(composite_layers=False)
-        P = len(self._paramvec)
+        flat = self._member_flat_tensors_fn(composite_layers=False)
+        P = self.num_member_params
         d = self.dim
         n_gate_rows = len(self.operations) * d * d
         gate_pos = {k: i for i, k in enumerate(self.operations.keys())}
@@ -514,6 +542,264 @@ class ExplicitOpModel(OpModel):
                 out[lbl] = coeffs
         return out
 
+    # -- FOGI: first-order gauge-invariant error generators --------------------
+    def _fogi_sslbls(self):
+        return tuple(range(self.num_qubits or 1))
+
+    @staticmethod
+    def _extract_ideal_superop(op):
+        """The ideal (target) superoperator of an op: the product of its
+        factors that carry no error generator, the identity for a bare
+        error-generator op, the dense value of any other op."""
+        if isinstance(op, (_op.ExpErrorgenOp, _op.IdentityPlusErrorgenOp)):
+            return np.identity(op.dim)
+        if isinstance(op, _op.ComposedOp):
+            ideal = None
+            for f in op.factors:
+                if not hasattr(f, 'errorgen_coefficient_labels'):
+                    fm = f.dense()
+                    ideal = fm if ideal is None else fm @ ideal
+            return ideal if ideal is not None else np.identity(op.dim)
+        return op.dense()
+
+    @staticmethod
+    def _extract_ideal_spam(member):
+        """The ideal dense value of a prep or POVM: the static base of one
+        composed with an error map (a ComposedState's state, a
+        ComposedPOVM's base effects), else the member's dense value; the
+        SPAM gauge action is taken there as the ops' is at the ideal ops.
+        The JAX package takes the member's current dense value, so its
+        store moves with the errors (ROADMAP.md section 3); at the target
+        the two agree in float64 (its exp(0) is exactly the identity, the
+        port's exp(I) / e 1 ulp off, enough at 2 qubits for near-ties among
+        the relational pivots to choose other columns)."""
+        if isinstance(member, _st.ComposedState):
+            return member.state_vec.dense()
+        if isinstance(member, _pv.ComposedPOVM):
+            return member.base_povm.dense()
+        return member.dense()
+
+    def setup_fogi(self, initial_gauge_basis=None, create_complete_basis_fn=None,
+                   op_label_abbrevs=None, reparameterize=False,
+                   reduce_to_model_space=True, dependent_fogi_action='drop',
+                   include_spam=True, primitive_op_labels=None):
+        """Set up the first-order gauge-invariant (FOGI) decomposition of the
+        model's error generators and return its FirstOrderGaugeInvariantStore
+        (also kept as ``self.fogi_store``).
+
+        Each member's first-order gauge action over `initial_gauge_basis`
+        (default: the complete H+S elementary-errorgen basis) is restricted
+        to the errorgen coefficients the member has, and the FOGI directions
+        are the intrinsic and relational combinations that no gauge moves.
+        With reparameterize=True the model's parameters become [the
+        untouched parameters..., the FOGI components] through a
+        LinearInterposer; that needs members whose parameters are their
+        errorgen coefficients (as 'H+s' members' are).  Host numpy in
+        float64, step for step the JAX package's construction.
+        `create_complete_basis_fn` is taken for the JAX package's signature
+        and not used, as there."""
+        from pygsti_tpu_torch.baseobjs.errorgenbasis import (
+            CompleteElementaryErrorgenBasis, ExplicitElementaryErrorgenBasis)
+        from pygsti_tpu_torch.baseobjs.errorgenspace import ErrorgenSpace
+        from pygsti_tpu_torch.models.fogistore import FirstOrderGaugeInvariantStore
+        from pygsti_tpu_torch.tools import fogitools as _fogit
+        from pygsti_tpu_torch.tools import matrixtools as _mt
+
+        self._rebuild_paramvec_if_needed()
+        sslbls = self._fogi_sslbls()
+        if initial_gauge_basis is None:
+            initial_gauge_basis = CompleteElementaryErrorgenBasis(
+                'PP', None, elementary_errorgen_types=('H', 'S'), num_qubits=len(sslbls))
+        if primitive_op_labels is None:
+            primitive_op_labels = list(self.operations.keys())
+        primitive_prep_labels = list(self.preps.keys()) if include_spam else []
+        primitive_povm_labels = list(self.povms.keys()) if include_spam else []
+
+        gauge_global = [GlobalElementaryErrorgenLabel.cast(l, sslbls)
+                        for l in initial_gauge_basis.labels]
+        gauge_basis_global = ExplicitElementaryErrorgenBasis(None, gauge_global)
+        gens = initial_gauge_basis.elemgen_matrices(self.basis)
+        duals = initial_gauge_basis.elemgen_dual_matrices(self.basis)
+
+        def reduce(mx, row_global_labels, member):
+            """Rows restricted to the member's errorgen coefficients, in its
+            order, and the gauge space shrunk so that the rows it lacks
+            vanish."""
+            allowed_local = member.errorgen_coefficient_labels() \
+                if hasattr(member, 'errorgen_coefficient_labels') else None
+            whole = ErrorgenSpace(np.identity(len(gauge_global)), gauge_basis_global)
+            if allowed_local is None or not reduce_to_model_space:
+                return mx, row_global_labels, whole
+            allowed_global = [GlobalElementaryErrorgenLabel.cast(l, sslbls)
+                              for l in allowed_local]
+            allowed_set = set(allowed_global)
+            disallowed = [i for i, l in enumerate(row_global_labels) if l not in allowed_set]
+            op_gauge_space = whole
+            if disallowed:
+                combos = _mt.nice_nullspace(mx[disallowed, :], tol=1e-4)
+                mx = mx @ combos
+                op_gauge_space = ErrorgenSpace(combos, gauge_basis_global)
+            row_index = {l: i for i, l in enumerate(row_global_labels)}
+            out = np.zeros((len(allowed_global), mx.shape[1]), mx.dtype)
+            for new_i, lbl in enumerate(allowed_global):
+                if lbl in row_index:
+                    out[new_i, :] = mx[row_index[lbl], :]
+            return out, allowed_global, op_gauge_space
+
+        gauge_action_matrices = collections.OrderedDict()
+        gauge_action_gauge_spaces = collections.OrderedDict()
+        errorgen_coefficient_labels = collections.OrderedDict()
+
+        def add(label, member, mx, tol):
+            keep = [i for i in range(mx.shape[0]) if np.linalg.norm(mx[i, :]) > tol]
+            mx2, allowed, space = reduce(mx[keep, :], [gauge_global[i] for i in keep], member)
+            errorgen_coefficient_labels[label] = allowed
+            gauge_action_matrices[label] = mx2
+            gauge_action_gauge_spaces[label] = space
+
+        for lbl in primitive_op_labels:
+            op = self.operations[lbl]
+            add(lbl, op, _fogit.first_order_gauge_action_matrix(
+                self._extract_ideal_superop(op), gens, duals), 1e-12)
+        for lbl in primitive_prep_labels:
+            prep = self.preps[lbl]
+            add(lbl, prep, _fogit.first_order_gauge_action_matrix_for_prep(
+                self._extract_ideal_spam(prep), gens), 1e-8)
+        for lbl in primitive_povm_labels:
+            povm = self.povms[lbl]
+            add(lbl, povm, _fogit.first_order_gauge_action_matrix_for_povm(
+                list(self._extract_ideal_spam(povm)), gens), 1e-8)
+
+        self.fogi_store = FirstOrderGaugeInvariantStore.from_gauge_action_matrices(
+            gauge_action_matrices, gauge_action_gauge_spaces,
+            errorgen_coefficient_labels, op_label_abbrevs,
+            dependent_fogi_action, norm_order='auto')
+
+        if reparameterize:
+            self.param_interposer = self._add_reparameterization(
+                list(primitive_op_labels) + primitive_prep_labels + primitive_povm_labels,
+                self.fogi_store.fogi_directions,
+                self.fogi_store.errorgen_space_op_elem_labels)
+            self._mark_for_rebuild()
+        return self.fogi_store
+
+    def _add_reparameterization(self, primitive_op_labels, fogi_dirs,
+                                errgenset_space_labels):
+        """The LinearInterposer from [the untouched parameters..., the FOGI
+        components] to the members' parameters.  Each member named must
+        have its errorgen coefficients as its parameters, one for one."""
+        from pygsti_tpu_torch.models.modelparaminterposer import LinearInterposer
+        sslbls = self._fogi_sslbls()
+        n_op_params = self.num_params
+        idx_of = {pair: i for i, pair in enumerate(errgenset_space_labels)}
+        inv_deriv = np.zeros((n_op_params, len(errgenset_space_labels)))
+        used = set()
+        for op_label in primitive_op_labels:
+            member = self[op_label]
+            lbls = [GlobalElementaryErrorgenLabel.cast(l, sslbls)
+                    for l in member.errorgen_coefficient_labels()]
+            param_indices = list(range(member.gpindices.start, member.gpindices.stop))
+            if len(param_indices) != len(lbls):
+                raise ValueError("FOGI reparameterization requires op params == errorgen "
+                                 "coefficients (op %s has %d params, %d coefficients)"
+                                 % (op_label, len(param_indices), len(lbls)))
+            used.update(param_indices)
+            for i, lbl in enumerate(lbls):
+                inv_deriv[param_indices[i], idx_of[(op_label, lbl)]] = 1.0
+        unused = sorted(set(range(n_op_params)) - used)
+        prefix_mx = np.zeros((n_op_params, len(unused)))
+        for j, indx in enumerate(unused):
+            prefix_mx[indx, j] = 1.0
+        F = inv_deriv @ np.linalg.pinv(np.asarray(fogi_dirs).T)
+        return LinearInterposer(np.concatenate([prefix_mx, F], axis=1))
+
+    def _require_fogi(self):
+        store = getattr(self, 'fogi_store', None)
+        if store is None:
+            raise ValueError("Call setup_fogi(...) first")
+        return store
+
+    def fogi_errorgen_component_labels(self, include_fogv=False, typ='normal'):
+        """Names of the FOGI components ('normal', 'raw' or 'abbrev'), then
+        the FOGV ones with include_fogv."""
+        store = self._require_fogi()
+        labels = store.fogi_errorgen_direction_labels(typ)
+        if include_fogv:
+            labels += store.fogv_errorgen_direction_labels(typ)
+        return labels
+
+    def fogi_errorgen_components_array(self, include_fogv=False, normalized_elem_gens=True):
+        """The model's FOGI components (then its FOGV ones with
+        include_fogv), from its errorgen coefficients."""
+        store = self._require_fogi()
+        op_coeffs = self.errorgen_coefficients(normalized_elem_gens)
+        if include_fogv:
+            fogi, fogv = store.opcoeffs_to_fogiv_components_array(op_coeffs)
+            return np.concatenate([fogi, fogv])
+        return store.opcoeffs_to_fogi_components_array(op_coeffs)
+
+    def set_fogi_errorgen_components_array(self, components, include_fogv=False,
+                                           normalized_elem_gens=True, truncate=False):
+        """Set the members' errorgen coefficients from FOGI (and FOGV)
+        components; without include_fogv the FOGV components become 0."""
+        from pygsti_tpu_torch.baseobjs.errorgenlabel import LocalElementaryErrorgenLabel
+        store = self._require_fogi()
+        fogi, fogv = store.num_fogi_directions, store.num_fogv_directions
+        components = np.asarray(components)
+        if include_fogv:
+            op_coeffs = store.fogiv_components_array_to_opcoeffs(
+                components[0:fogi], components[fogi:fogi + fogv])
+        else:
+            op_coeffs = store.fogi_components_array_to_opcoeffs(components[0:fogi])
+        sslbls = self._fogi_sslbls()
+        d = np.sqrt(np.sqrt(self.dim))
+        for op_label, coeff_dict in op_coeffs.items():
+            local = {}
+            for l, v in coeff_dict.items():
+                if isinstance(l, GlobalElementaryErrorgenLabel):
+                    l = LocalElementaryErrorgenLabel.cast(l, sslbls)
+                local[l] = v * d if (not normalized_elem_gens and l.errorgen_type == 'H') else v
+            self[op_label].set_errorgen_coefficients(local, truncate=truncate)
+        self._mark_for_rebuild()
+
+    def fogi_errorgen_vector(self, normalized_elem_gens=False):
+        """The errorgen coefficients stacked in the FOGI store's row order."""
+        store = self._require_fogi()
+        d = self.errorgen_coefficients(normalized_elem_gens=normalized_elem_gens)
+        errvec = np.zeros(store.fogi_directions.shape[0], 'd')
+        for op_lbl in store.primitive_op_labels:
+            lbls = store.elem_errorgen_labels_by_op[op_lbl]
+            sl = store.op_errorgen_indices[op_lbl]
+            for lbl, i in zip(lbls, range(sl.start, sl.stop)):
+                errvec[i] = d[op_lbl].get(lbl, 0.0)
+        return errvec
+
+    def _fogi_errorgen_vector_projection(self, space, normalized_elem_gens=False):
+        errvec = self.fogi_errorgen_vector(normalized_elem_gens)
+        return space @ np.linalg.pinv(space) @ errvec
+
+    def fogi_contribution(self, op_label, error_type='H',
+                          intrinsic_or_relational='intrinsic', target='all'):
+        """One op's aggregate FOGI error: the errorgen vector projected on
+        the op's intrinsic or relational FOGI space of the type; H errors
+        add in quadrature, S errors linearly ('fogi_total_error' is
+        2 H + S, 'fogi_infidelity' H^2 + S)."""
+        store = self._require_fogi()
+
+        def part(typ):
+            space = store.create_fogi_aggregate_single_op_space(
+                op_label, typ, intrinsic_or_relational, target)
+            proj = self._fogi_errorgen_vector_projection(space)
+            return np.linalg.norm(proj) if typ == 'H' else np.sum(np.abs(proj))
+
+        if error_type in ('H', 'S'):
+            return float(part(error_type))
+        if error_type == 'fogi_total_error':
+            return float(2 * part('H') + part('S'))
+        if error_type == 'fogi_infidelity':
+            return float(part('H') ** 2 + part('S'))
+        raise ValueError("Invalid error_type: %s" % str(error_type))
+
     def depolarize(self, op_noise=None, spam_noise=None, max_op_noise=None,
                    max_spam_noise=None, seed=None):
         """A depolarized copy: each op's non-identity block scaled by
@@ -607,7 +893,7 @@ class ExplicitOpModel(OpModel):
         checkpoints of an instrument model read back without them)."""
         def ser(obj):
             return obj.to_nice_serialization()
-        return {
+        state = {
             'module': type(self).__module__, 'class': type(self).__name__,
             'dim': self.dim,
             'basis': self.basis.name,
@@ -621,6 +907,11 @@ class ExplicitOpModel(OpModel):
             'instruments': [[list(lbl) if isinstance(lbl, tuple) else str(lbl), ser(o)]
                             for lbl, o in self.instruments.items()],
         }
+        if self.param_interposer is not None:
+            # a FOGI reparameterization's transform (not in the JAX package's
+            # layout, which has no place for one)
+            state['param_interposer'] = self.param_interposer.transform_matrix
+        return state
 
     @classmethod
     def from_nice_serialization(cls, state):
@@ -637,4 +928,8 @@ class ExplicitOpModel(OpModel):
             for lbl, s in state.get(kind, []):
                 key = Label(tuple(lbl)) if isinstance(lbl, list) else Label(lbl)
                 members[key] = NicelySerializable.from_nice_serialization(s)
+        if state.get('param_interposer') is not None:
+            from pygsti_tpu_torch.models.modelparaminterposer import LinearInterposer
+            m.param_interposer = LinearInterposer(np.asarray(state['param_interposer']))
+            m._mark_for_rebuild()
         return m

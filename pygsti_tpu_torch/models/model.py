@@ -5,6 +5,7 @@ a pure function ``tensors_fn()(v)`` from that vector to stacked tensors."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from pygsti_tpu_torch.baseobjs.basis import Basis
 from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
@@ -48,9 +49,22 @@ class Model(NicelySerializable):
     def _mark_for_rebuild(self):
         self._need_rebuild = True
 
+    def create_modelmember_graph(self):
+        """The dependency graph of this model's members, for structural
+        comparison by is_similar / is_equivalent."""
+        from pygsti_tpu_torch.modelmembers.modelmembergraph import ModelMemberGraph
+        return ModelMemberGraph.from_model(self)
+
 
 class OpModel(Model):
-    """A model whose members are iterated in parameter-vector order."""
+    """A model whose members are iterated in parameter-vector order.
+
+    With a ``param_interposer`` (a LinearInterposer, set by a FOGI
+    reparameterization) the model's parameters v are not its members': the
+    members hold w = M v, and the model vector of member values w is
+    pinv(M) w."""
+
+    param_interposer = None
 
     def __init__(self, dim, basis='pp'):
         super().__init__(dim)
@@ -67,8 +81,44 @@ class OpModel(Model):
             obj.gpindices = slice(off, off + n)
             vecs.append(obj.to_vector())
             off += n
-        self._paramvec = np.concatenate(vecs) if vecs else np.empty(0)
+        w = np.concatenate(vecs) if vecs else np.empty(0)
+        ip = self.param_interposer
+        self._paramvec = w if ip is None else ip.ops_paramvec_to_model_paramvec(w)
 
     def _push_paramvec_to_members(self):
+        ip = self.param_interposer
+        w = self._paramvec if ip is None else ip.model_paramvec_to_ops_paramvec(self._paramvec)
         for _, obj in self._iter_parameterized_objs():
-            obj.from_vector(self._paramvec[obj.gpindices])
+            obj.from_vector(w[obj.gpindices])
+
+    @property
+    def num_member_params(self):
+        """The members' parameter count: num_params unless an interposer
+        maps the model's parameters to theirs."""
+        self._rebuild_paramvec_if_needed()
+        ip = self.param_interposer
+        return len(self._paramvec) if ip is None else ip.num_op_params
+
+    def _interposer_matrix(self):
+        """None without an interposer; else a function v -> M as a tensor
+        on v's device and dtype (made once per device and dtype)."""
+        ip = self.param_interposer
+        if ip is None:
+            return None
+        consts = {}
+
+        def matrix(v):
+            key = (str(v.device), v.dtype)
+            if key not in consts:
+                consts[key] = torch.as_tensor(ip.transform_matrix, dtype=v.dtype, device=v.device)
+            return consts[key]
+
+        return matrix
+
+    def _interposed(self, member_fn):
+        """member_fn(w, t) as a function of the model vector v, w = M v;
+        member_fn itself without an interposer."""
+        M = self._interposer_matrix()
+        if M is None:
+            return member_fn
+        return lambda v, t=None: member_fn(M(v) @ v, t)

@@ -71,6 +71,18 @@ def create_elementary_errorgen_dual(typ, p, q=None):
     raise ValueError("Invalid elementary errorgen type %r" % typ)
 
 
+def create_pairing_normalized_errorgen_dual(typ, p, q=None):
+    """A dual scaled so <dual, elementary_errorgen(typ, p, q)> = 1 EXACTLY
+    at any Hilbert dimension (the fixed-scale duals above match the
+    reference's convention, which pairs to 1 only at d = 2; coefficient
+    extraction needs the exact pairing)."""
+    out = create_elementary_errorgen_dual(typ, p, q)
+    prim = create_elementary_errorgen(typ, p, q)
+    scale = np.real(np.vdot(out, prim))
+    assert abs(scale) > 1e-300, "degenerate elementary errorgen"
+    return out / scale
+
+
 def create_lindbladian_term_errorgen(typ, lindblad_term_basis_mx, other_mx=None):
     """Lindblad-term generators in the std basis: 'H' is the elementary H
     generator; 'O' is the general term
@@ -83,3 +95,72 @@ def create_lindbladian_term_errorgen(typ, lindblad_term_basis_mx, other_mx=None)
         bda = b.conj().T @ a
         return _sandwich(a, b) - 0.5 * (_left(bda) + _right(bda))
     raise ValueError("Invalid lindblad term type %r" % typ)
+
+
+def random_CPTP_error_generator_rates(num_qubits, errorgen_types=('H', 'S', 'C', 'A'),
+                                      max_weights=None, H_params=(0., .01),
+                                      SCA_params=(0., .01), error_metric=None,
+                                      error_metric_value=None, seed=None):
+    """Sample random error-generator rates whose exponential is CPTP
+    (reference: lindbladtools.random_CPTP_error_generator_rates:767).
+
+    H rates are normal(H_params); the S/C/A rates come from a randomly
+    sampled positive-semidefinite Pauli-pair matrix M = A A^dag (scaled by
+    SCA_params[1]), whose diagonal gives S rates and off-diagonals give
+    C (real part) and A (imaginary part) rates -- PSD M guarantees the
+    Lindbladian is completely positive.  `max_weights` restricts the Pauli
+    weight per type; `error_metric='total_generator_error'` rescales so
+    sum(S) + sum(H^2) equals `error_metric_value`.  Returns
+    {ElementaryErrorgenLabel: rate}.
+    """
+    from pygsti_tpu_torch.tools.errgenproptools import _all_pauli_labels
+    from pygsti_tpu_torch.errorgenpropagation.errorpropagator import (
+        ElementaryErrorgenLabel)
+    rng = np.random.default_rng(seed)
+    max_weights = max_weights or {}
+    paulis = _all_pauli_labels(num_qubits)
+
+    def wt(pl):
+        x, z = pl.x_bits, pl.z_bits
+        return bin(x | z).count('1')
+
+    out = {}
+    if 'H' in errorgen_types:
+        wH = max_weights.get('H')
+        for pl in paulis:
+            if wH is not None and wt(pl) > wH:
+                continue
+            out[ElementaryErrorgenLabel('H', pl)] = float(
+                rng.normal(H_params[0], H_params[1]))
+    sca = [t for t in errorgen_types if t in ('S', 'C', 'A')]
+    if sca:
+        wS = max_weights.get('S')
+        allowed = [pl for pl in paulis if wS is None or wt(pl) <= wS]
+        K = len(allowed)
+        A = rng.normal(0, 1, (K, K)) + 1j * rng.normal(0, 1, (K, K))
+        M = (A @ A.conj().T) * (SCA_params[1] ** 2 / (2 * K))
+        if 'C' not in errorgen_types and 'A' not in errorgen_types:
+            M = np.diag(np.diag(M))  # diagonal-only stays PSD
+        for i, pi in enumerate(allowed):
+            if 'S' in errorgen_types:
+                out[ElementaryErrorgenLabel('S', pi)] = float(np.real(M[i, i]))
+            for j in range(i + 1, K):
+                pj = allowed[j]
+                if 'C' in errorgen_types:
+                    out[ElementaryErrorgenLabel('C', pi, pj)] = \
+                        float(np.real(M[i, j]))
+                if 'A' in errorgen_types:
+                    out[ElementaryErrorgenLabel('A', pi, pj)] = \
+                        float(np.imag(M[i, j]))
+    if error_metric is not None:
+        if error_metric not in ('total_generator_error', 'generator_infidelity'):
+            raise ValueError("Invalid error_metric %r" % (error_metric,))
+        s_total = sum(v for k, v in out.items() if k.errorgen_type == 'S')
+        h_total = sum(v ** 2 for k, v in out.items() if k.errorgen_type == 'H')
+        cur = s_total + h_total
+        if cur > 0:
+            t = error_metric_value / cur
+            for k in out:
+                out[k] = out[k] * (t if k.errorgen_type != 'H'
+                                   else np.sqrt(t))
+    return out

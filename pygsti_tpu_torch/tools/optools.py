@@ -157,3 +157,274 @@ def diamonddist(a, b, mx_basis='pp', return_x=False):
     (tools/sdptools.diamond_norm_distance)."""
     from pygsti_tpu_torch.tools import sdptools
     return sdptools.diamond_norm_distance(a, b, mx_basis)
+
+
+# -- error generators: elementary generators, their duals, projections ----
+
+def is_cptp(superop, mx_basis='pp', tol=1e-7):
+    """Check complete positivity (Choi PSD) and trace preservation."""
+    from pygsti_tpu_torch.tools.jamiolkowski import jamiolkowski_iso
+    choi = jamiolkowski_iso(superop, mx_basis)
+    cp = bool(np.all(np.linalg.eigvalsh((choi + choi.conj().T) / 2) > -tol))
+    std = change_basis(np.asarray(superop), mx_basis, 'std')
+    d2 = std.shape[0]
+    d = int(round(np.sqrt(d2)))
+    # TP: identity left-eigenvector: vec(I)^T S = vec(I)^T
+    vec_id = np.identity(d).flatten()
+    tp = bool(np.allclose(vec_id @ std, vec_id, atol=tol))
+    return cp and tp
+
+
+def error_generator(gate, target_op, mx_basis='pp', typ='logGTi'):
+    """Error generator L with gate = target_op * exp(L) ('logGTi' type,
+    the reference default; optools.error_generator)."""
+    gate = np.asarray(gate)
+    target = np.asarray(target_op)
+    if typ == 'logGTi':
+        rel = np.linalg.inv(target) @ gate
+        L = spl.logm(rel)
+        if np.linalg.norm(L.imag) > 1e-8:
+            import warnings
+            warnings.warn("Error generator has imaginary part; taking real part")
+        return L.real
+    elif typ == 'logTiG':
+        rel = gate @ np.linalg.inv(target)
+        return spl.logm(rel).real
+    elif typ == 'logG-logT':
+        return (spl.logm(gate) - spl.logm(target)).real
+    raise ValueError("Unknown error generator type %r" % typ)
+
+
+def operation_from_error_generator(error_gen, target_op, typ='logGTi'):
+    """Inverse of error_generator."""
+    if typ == 'logGTi':
+        return np.asarray(target_op) @ spl.expm(np.asarray(error_gen))
+    elif typ == 'logTiG':
+        return spl.expm(np.asarray(error_gen)) @ np.asarray(target_op)
+    raise ValueError("Unknown error generator type %r" % typ)
+
+
+def is_trace_preserving(a, mx_basis='pp', tol=1e-8):
+    """Whether superoperator `a` is trace preserving (reference:
+    optools.is_trace_preserving:480)."""
+    from pygsti_tpu_torch.baseobjs.basis import Basis
+    from pygsti_tpu_torch.tools.basistools import stdmx_to_vec
+    a = np.asarray(a)
+    dim = a.shape[0]
+    basis = Basis.cast(mx_basis, dim) if isinstance(mx_basis, str) else mx_basis
+    if getattr(basis, 'first_element_is_identity', True):
+        return bool(np.isclose(a[0, 0], 1.0, atol=tol)
+                    and np.allclose(a[0, 1:], 0.0, atol=tol))
+    udim = int(round(np.sqrt(dim)))
+    i_vec = np.asarray(stdmx_to_vec(np.eye(udim).astype(complex),
+                                    basis)).ravel()
+    expect = (a.T.conj() if np.iscomplexobj(a) else a.T) @ i_vec
+    return bool(np.linalg.norm(i_vec - expect) <= tol * udim)
+
+
+def elementary_errorgens(dim, typ, basis):
+    """Dict of {LocalElementaryErrorgenLabel: dense generator (std basis)}
+    for all elementary generators of `typ` built from non-identity `basis`
+    elements (reference: optools.elementary_errorgens:1859)."""
+    from pygsti_tpu_torch.baseobjs.basis import Basis
+    from pygsti_tpu_torch.baseobjs.errorgenlabel import LocalElementaryErrorgenLabel
+    from pygsti_tpu_torch.tools import lindbladtools as _lt
+    if typ not in ('H', 'S', 'C', 'A'):
+        raise ValueError("Invalid elementary errorgen type %r" % (typ,))
+    b = Basis.cast(basis, dim) if isinstance(basis, str) else basis
+    lbls = list(b.labels[1:])
+    mxs = [np.asarray(e) for e in b.elements[1:]]
+    out = {}
+    if typ in 'HS':
+        for lbl, mx in zip(lbls, mxs):
+            out[LocalElementaryErrorgenLabel(typ, (str(lbl),))] = \
+                _lt.create_elementary_errorgen(typ, mx)
+    else:
+        for i, (la, ma) in enumerate(zip(lbls, mxs)):
+            for lb, mb in zip(lbls[i + 1:], mxs[i + 1:]):
+                out[LocalElementaryErrorgenLabel(typ, (str(la), str(lb)))] = \
+                    _lt.create_elementary_errorgen(typ, ma, mb)
+    return out
+
+
+def elementary_errorgens_dual(dim, typ, basis):
+    """Duals of elementary_errorgens, normalized so
+    <dual_i, errgen_j> = delta_ij (reference:
+    optools.elementary_errorgens_dual:1914)."""
+    from pygsti_tpu_torch.baseobjs.basis import Basis
+    from pygsti_tpu_torch.baseobjs.errorgenlabel import LocalElementaryErrorgenLabel
+    from pygsti_tpu_torch.tools import lindbladtools as _lt
+    if typ not in ('H', 'S', 'C', 'A'):
+        raise ValueError("Invalid elementary errorgen type %r" % (typ,))
+    b = Basis.cast(basis, dim) if isinstance(basis, str) else basis
+    lbls = list(b.labels[1:])
+    mxs = [np.asarray(e) for e in b.elements[1:]]
+    out = {}
+    if typ in 'HS':
+        for lbl, mx in zip(lbls, mxs):
+            out[LocalElementaryErrorgenLabel(typ, (str(lbl),))] = \
+                _lt.create_pairing_normalized_errorgen_dual(typ, mx)
+    else:
+        for i, (la, ma) in enumerate(zip(lbls, mxs)):
+            for lb, mb in zip(lbls[i + 1:], mxs[i + 1:]):
+                out[LocalElementaryErrorgenLabel(typ, (str(la), str(lb)))] = \
+                    _lt.create_pairing_normalized_errorgen_dual(typ, ma, mb)
+    return out
+
+
+def project_errorgen(errorgen, elementary_errorgen_type,
+                     elementary_errorgen_basis, errorgen_basis='pp',
+                     return_dual_elementary_errorgens=False,
+                     return_projected_errorgen=False):
+    """Project a dense error generator onto the elementary generators of one
+    type: rate_i = <dual_i, errorgen> (reference:
+    optools.project_errorgen:2055).  Returns {label: rate} plus optionally
+    the dual generators and/or the projected (reconstructed) generator, all
+    in `errorgen_basis`."""
+    eg_std = change_basis(np.asarray(errorgen), errorgen_basis, 'std')
+    dim = eg_std.shape[0]
+    duals = elementary_errorgens_dual(dim, elementary_errorgen_type,
+                                      elementary_errorgen_basis)
+    projections = {lbl: float(np.real(np.vdot(dual, eg_std)))
+                   for lbl, dual in duals.items()}
+    ret = [projections]
+    if return_dual_elementary_errorgens:
+        ret.append(duals)
+    if return_projected_errorgen:
+        prims = elementary_errorgens(dim, elementary_errorgen_type,
+                                     elementary_errorgen_basis)
+        proj_std = sum(projections[lbl] * prims[lbl] for lbl in prims)
+        ret.append(change_basis(proj_std, 'std', errorgen_basis))
+    return ret[0] if len(ret) == 1 else tuple(ret)
+
+
+def extract_elementary_errorgen_coefficients(errorgen,
+                                             elementary_errorgen_labels,
+                                             elementary_errorgen_basis='PP',
+                                             errorgen_basis='pp',
+                                             return_projected_errorgen=False):
+    """Rates of the specified elementary-errorgen labels within a dense
+    error generator (reference:
+    optools.extract_elementary_errorgen_coefficients:1972)."""
+    from pygsti_tpu_torch.baseobjs.errorgenlabel import LocalElementaryErrorgenLabel
+    eg_std = change_basis(np.asarray(errorgen), errorgen_basis, 'std')
+    dim = eg_std.shape[0]
+    basis_for_duals = 'pp' if str(elementary_errorgen_basis).upper() == 'PP' \
+        else elementary_errorgen_basis
+    by_type = {}
+    out = {}
+    proj_std = np.zeros_like(eg_std)
+    for lbl in elementary_errorgen_labels:
+        if not isinstance(lbl, LocalElementaryErrorgenLabel):
+            lbl = LocalElementaryErrorgenLabel(
+                lbl[0], tuple(str(b) for b in lbl[1:])) \
+                if not hasattr(lbl, 'errorgen_type') else lbl
+        typ = lbl.errorgen_type
+        if typ not in by_type:
+            by_type[typ] = (
+                elementary_errorgens_dual(dim, typ, basis_for_duals),
+                elementary_errorgens(dim, typ, basis_for_duals))
+        duals, prims = by_type[typ]
+        rate = float(np.real(np.vdot(duals[lbl], eg_std)))
+        out[lbl] = rate
+        if return_projected_errorgen:
+            proj_std = proj_std + rate * prims[lbl]
+    if return_projected_errorgen:
+        return out, change_basis(proj_std, 'std', errorgen_basis)
+    return out
+
+
+def create_elementary_errorgen_nqudit(typ, basis_element_labels, basis_1q,
+                                      normalize=False, sparse=False,
+                                      tensorprod_basis=False):
+    """An n-qudit elementary error generator (std basis, dense) built from
+    per-qudit basis-label strings, e.g. ('XY',) for a 2-qubit H generator
+    (reference: optools.create_elementary_errorgen_nqudit:2193)."""
+    from pygsti_tpu_torch.baseobjs.basis import Basis
+    from pygsti_tpu_torch.tools import lindbladtools as _lt
+    b1 = basis_1q if isinstance(basis_1q, Basis) else Basis.cast(basis_1q, 4)
+    lbl_to_el = {str(l): np.asarray(e)
+                 for l, e in zip(b1.labels, b1.elements)}
+
+    def kron_label(label_str):
+        m = np.ones((1, 1), complex)
+        for ch in label_str:
+            m = np.kron(m, lbl_to_el[ch])
+        return m
+
+    mats = [kron_label(s) for s in basis_element_labels]
+    if typ in ('H', 'S'):
+        if len(mats) != 1:
+            raise ValueError("%r generators take one basis element label" % typ)
+        out = _lt.create_elementary_errorgen(typ, mats[0])
+    else:
+        if len(mats) != 2:
+            raise ValueError("%r generators take two basis element labels" % typ)
+        out = _lt.create_elementary_errorgen(typ, mats[0], mats[1])
+    if normalize:
+        nrm = np.linalg.norm(out)
+        if nrm > 1e-300:
+            out = out / nrm
+    if sparse:
+        import scipy.sparse as _sps
+        return _sps.csr_matrix(out)
+    return out
+
+
+def create_elementary_errorgen_nqudit_dual(typ, basis_element_labels,
+                                           basis_1q, normalize=False,
+                                           sparse=False,
+                                           tensorprod_basis=False):
+    """Dual of create_elementary_errorgen_nqudit (reference:
+    optools.create_elementary_errorgen_nqudit_dual)."""
+    from pygsti_tpu_torch.baseobjs.basis import Basis
+    from pygsti_tpu_torch.tools import lindbladtools as _lt
+    b1 = basis_1q if isinstance(basis_1q, Basis) else Basis.cast(basis_1q, 4)
+    lbl_to_el = {str(l): np.asarray(e)
+                 for l, e in zip(b1.labels, b1.elements)}
+
+    def kron_label(label_str):
+        m = np.ones((1, 1), complex)
+        for ch in label_str:
+            m = np.kron(m, lbl_to_el[ch])
+        return m
+
+    mats = [kron_label(s) for s in basis_element_labels]
+    if typ in ('H', 'S'):
+        out = _lt.create_pairing_normalized_errorgen_dual(typ, mats[0])
+    else:
+        out = _lt.create_pairing_normalized_errorgen_dual(typ, mats[0],
+                                                          mats[1])
+    if normalize:
+        nrm = np.linalg.norm(out)
+        if nrm > 1e-300:
+            out = out / nrm
+    if sparse:
+        import scipy.sparse as _sps
+        return _sps.csr_matrix(out)
+    return out
+
+
+def bulk_create_elementary_errorgen_nqudit(typ, basis_element_labels,
+                                           basis_1q, normalize=False,
+                                           sparse=False,
+                                           tensorprod_basis=False):
+    """List of n-qudit elementary error generators, one per (typ, labels)
+    pair (reference: optools.bulk_create_elementary_errorgen_nqudit:2276)."""
+    typs = [typ] * len(basis_element_labels) if isinstance(typ, str) else typ
+    return [create_elementary_errorgen_nqudit(t, lbls, basis_1q, normalize,
+                                              sparse, tensorprod_basis)
+            for t, lbls in zip(typs, basis_element_labels)]
+
+
+def bulk_create_elementary_errorgen_nqudit_dual(typ, basis_element_labels,
+                                                basis_1q, normalize=False,
+                                                sparse=False,
+                                                tensorprod_basis=False):
+    """Duals of bulk_create_elementary_errorgen_nqudit (reference:
+    optools.bulk_create_elementary_errorgen_nqudit_dual)."""
+    typs = [typ] * len(basis_element_labels) if isinstance(typ, str) else typ
+    return [create_elementary_errorgen_nqudit_dual(t, lbls, basis_1q,
+                                                   normalize, sparse,
+                                                   tensorprod_basis)
+            for t, lbls in zip(typs, basis_element_labels)]

@@ -317,3 +317,206 @@ def test_drift_and_timedep_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def _tp_unital(seed, d=4):
+    """A real TP, unital d x d matrix near the identity (a TP-constrained,
+    unital member's input)."""
+    rs = np.random.RandomState(seed)
+    m = np.eye(d)
+    m[1:, 1:] += 0.05 * rs.randn(d - 1, d - 1)
+    return m
+
+
+@pytest.mark.parametrize("case", ['eig', 'eig-tp', 'linear', 'linear-complex', 'affine'])
+def test_new_operations_against_jax(case):
+    """EigenvalueParamDenseOp, LinearlyParamArbitraryOp and AffineShiftOp:
+    the same parameters and dense matrices as the JAX package's at the
+    initial and at a moved vector, to_dense against dense(), and a
+    serialization round trip."""
+    import jax.numpy as jnp
+    import pygsti_tpu.modelmembers.operations as jops
+    import pygsti_tpu_torch.modelmembers.operations as tops
+    from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
+    rs = np.random.RandomState(3)
+    if case.startswith('eig'):
+        mx = _tp_unital(5) if case == 'eig-tp' else rs.randn(4, 4)
+        kw = {'tp_constrained_and_unital': case == 'eig-tp'}
+        j, t = jops.EigenvalueParamDenseOp(mx, **kw), tops.EigenvalueParamDenseOp(mx, **kw)
+    elif case.startswith('linear'):
+        base = rs.randn(3, 3)
+        index_map = {0: [(0, 1), (2, 2)], 1: [(1, 0)]}
+        left, right = rs.randn(3, 3), rs.randn(3, 3)
+        real = case == 'linear'
+        j = jops.LinearlyParamArbitraryOp(base, [0.3, -0.2], index_map, left, right, real)
+        t = tops.LinearlyParamArbitraryOp(base, [0.3, -0.2], index_map, left, right, real)
+    else:
+        mx = np.eye(4)
+        mx[1:, 0] = [0.1, -0.2, 0.05]
+        j, t = jops.AffineShiftOp(mx), tops.AffineShiftOp(mx)
+        with pytest.raises(ValueError):
+            tops.AffineShiftOp(np.ones((4, 4)))
+    v0 = t.to_vector()
+    assert np.array_equal(v0, np.asarray(j.to_vector()))
+    for v in (v0, v0 + 0.01 * rs.randn(len(v0))):
+        a = t.to_dense(torch.as_tensor(v)).numpy()
+        b = np.asarray(j.to_dense_jax(jnp.asarray(v)))
+        assert a.shape == b.shape and np.max(np.abs(a - b)) < 1e-13
+    if case.startswith('eig'):
+        assert np.max(np.abs(t.to_dense(torch.as_tensor(v0)).numpy() - mx)) < 1e-12
+    t.from_vector(v0 + 0.01)
+    back = NicelySerializable.loads(t.dumps())
+    assert type(back) is type(t) and np.array_equal(back.to_vector(), t.to_vector())
+    assert np.max(np.abs(back.dense() - t.dense())) < 1e-14
+    if case == 'affine':
+        moved = np.eye(4)
+        moved[1:, 0] = 0.3
+        t.set_dense(moved)
+        assert np.array_equal(t.dense(), moved)
+
+
+def test_marginalized_povm_against_jax():
+    """MarginalizedPOVM of the 2-qubit 'full' target's POVM onto each qubit:
+    the JAX package's effects and labels, parameters passed through, and a
+    serialization round trip."""
+    import jax.numpy as jnp
+    import pygsti_tpu.modelmembers.povms as jpv
+    import pygsti_tpu_torch.modelmembers.povms as tpv
+    from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
+    jbase = list(jmp2.target_model('full').povms.values())[0]
+    tbase = list(tmp2.target_model('full').povms.values())[0]
+    for kept in ((0,), (1,), (1, 0)):
+        j = jpv.MarginalizedPOVM(jbase, (0, 1), kept)
+        t = tpv.MarginalizedPOVM(tbase, (0, 1), kept)
+        assert t.outcome_labels == list(j.outcome_labels) and t.num_params == j.num_params
+        v = t.to_vector() + 0.01 * np.random.RandomState(1).randn(t.num_params)
+        a = t.to_dense(torch.as_tensor(v)).numpy()
+        b = np.asarray(j.to_dense_jax(jnp.asarray(v)))
+        assert np.max(np.abs(a - b)) < 1e-14
+        back = NicelySerializable.loads(t.dumps())
+        assert np.max(np.abs(back.dense() - t.dense())) < 1e-15
+
+
+def test_new_gauge_groups_against_jax():
+    """tests/test_api_surface.py's gauge-group cases: U1, the direct sum of
+    U(2) and U(1) (contiguous and interleaved), the op-parameterized group;
+    element matrices in torch against the JAX package's elements, and
+    their autograd gradients finite."""
+    import jax.numpy as jnp
+    import pygsti_tpu.models.gaugegroup as jgg
+    import pygsti_tpu_torch.models.gaugegroup as tgg
+    import pygsti_tpu.modelmembers.operations as jops
+    import pygsti_tpu_torch.modelmembers.operations as tops
+    from pygsti_tpu.baseobjs.statespace import QubitSpace
+    ju, tu = jgg.UnitaryGaugeGroup(QubitSpace(1), 'pp'), tgg.UnitaryGaugeGroup(4, 'pp')
+    ue = tu.compute_element(np.array([0.1, -0.2, 0.05, 0.3]))
+    assert np.allclose(ue.unitary @ ue.unitary.conj().T, np.eye(2))
+    e1 = tgg.U1Group().compute_element([0.4])
+    assert np.allclose(e1.transform_matrix, jgg.U1Group().compute_element(0.4).transform_matrix)
+    assert np.allclose(e1.transform_matrix @ e1.transform_matrix_inverse, 1)
+    assert abs(tgg.U1Group().element_matrix(torch.tensor([0.4], dtype=torch.float64))[0, 0]
+               - np.exp(0.4j)) < 1e-15
+    for partition in (None, [(0, 2), (1,)]):
+        jd = jgg.DirectSumUnitaryGroup((ju, jgg.U1Group()), 'gm', level_partition=partition)
+        td = tgg.DirectSumUnitaryGroup((tu, tgg.U1Group()), 'gm', level_partition=partition)
+        assert td.num_params == jd.num_params == 5
+        v = np.array([0.1, 0.2, -0.1, 0.05, 0.4])
+        S = td.element_matrix(torch.as_tensor(v)).numpy()
+        jel, tel = jd.compute_element(v), td.compute_element(v)
+        assert np.max(np.abs(S - jel.transform_matrix)) < 1e-14
+        assert np.max(np.abs(tel.transform_matrix - jel.transform_matrix)) < 1e-14
+        assert np.max(np.abs(tel._unitary_total - jel._unitary_total)) < 1e-15
+        u = tel._unitary_total
+        if partition is None:
+            assert abs(u[0, 2]) < 1e-12
+        else:
+            assert abs(u[0, 1]) < 1e-12 and abs(u[0, 2]) > 1e-6
+        x = torch.zeros(5, dtype=torch.float64, requires_grad=True)
+        (td.element_matrix(x) ** 2).sum().backward()
+        assert torch.all(torch.isfinite(x.grad))
+    with pytest.raises(ValueError):
+        tgg.DirectSumUnitaryGroup((tu, tgg.U1Group()), 'gm', level_partition=[(0, 1), (1,)])
+    mx = _tp_unital(7)
+    jg = jgg.OpGaugeGroupWithBasis(jops.FullTPOp(mx), basis='pp')
+    tg = tgg.OpGaugeGroupWithBasis(tops.FullTPOp(mx), basis='pp')
+    assert tg.num_params == jg.num_params == 12 and np.array_equal(tg.initial_params(),
+                                                                   jg.initial_params())
+    v = tg.initial_params() + 0.01
+    assert np.max(np.abs(tg.element_matrix(torch.as_tensor(v)).numpy()
+                         - np.asarray(jg.element_matrix_jax(jnp.asarray(v))))) < 1e-15
+    el = tg.compute_element(v)
+    assert np.max(np.abs(el.transform_matrix - jg.compute_element(v).transform_matrix)) < 1e-15
+    assert el.num_params == 12 and np.array_equal(el.to_vector(), v)
+
+
+def test_gaugeopt_over_the_new_groups():
+    """gaugeopt_to_target differentiates the new groups' element matrices:
+    a 3-level target moved by a direct-sum unitary comes back to it."""
+    from pygsti_tpu_torch import leakage
+    from pygsti_tpu_torch.algorithms.gaugeopt import gaugeopt_to_target
+    import pygsti_tpu_torch.models.gaugegroup as tgg
+    target = leakage.create_3level_model(tmp1.target_model('full TP'))
+    group = tgg.DirectSumUnitaryGroup((tgg.UnitaryGaugeGroup(4, 'pp'), tgg.U1Group()), 'gm')
+    moved = target.copy()
+    moved.transform_inplace(group.compute_element([0.05, -0.1, 0.08, 0.02, 0.3]))
+    assert moved.frobeniusdist(target) > 1e-2
+    back = gaugeopt_to_target(moved, target, gauge_group=group, device='cpu')
+    assert back.frobeniusdist(target) < 1e-6
+
+
+@pytest.mark.parametrize("kind", ['explicit', 'perturbed', 'dissimilar', 'fogi'])
+def test_modelmember_graph(kind):
+    """tests/test_implicit_models.py:179: equal models similar and
+    equivalent; a moved parameter similar only; other ops or another
+    parameterization neither; the port's answers are the JAX package's."""
+    import pygsti_tpu.modelpacks.smq1Q_XY as jxy
+    import pygsti_tpu_torch.modelpacks.smq1Q_XY as txy
+    pairs = {'explicit': (lambda p: p.target_model('full TP'), lambda p: p.target_model('full TP')),
+             'dissimilar': (lambda p: p.target_model('full TP'), lambda p: p.target_model('H+s'))}
+    answers = []
+    for pkg, xy in ((jmp1, jxy), (tmp1, txy)):
+        if kind == 'perturbed':
+            m1, m2 = pkg.target_model('full TP'), pkg.target_model('full TP')
+            v = np.array(m2.to_vector())
+            v[0] += 0.05
+            m2.from_vector(v)
+        elif kind == 'fogi':
+            m1, m2 = pkg.target_model('H+s'), pkg.target_model('H+s')
+            m2.setup_fogi(include_spam=True)
+        else:
+            m1, m2 = (f(pkg) for f in pairs[kind])
+        g1, g2 = m1.create_modelmember_graph(), m2.create_modelmember_graph()
+        answers.append((g1.is_similar(g2), g1.is_equivalent(g2),
+                        g1.is_similar(xy.target_model('full TP').create_modelmember_graph())))
+    assert answers[0] == answers[1]
+    assert answers[1] == {'explicit': (True, True, False), 'perturbed': (True, False, False),
+                          'dissimilar': (False, False, False), 'fogi': (True, True, False)}[kind]
+
+
+def test_gauge_structure_modules_import_no_jax():
+    """The modules of the gauge-structure slice load, and a FOGI setup and
+    a LAGO element run, in a process that ends with neither JAX nor
+    pygsti_tpu imported."""
+    new = ('tools.matrixtools', 'baseobjs.basisconstructors', 'baseobjs.basis',
+           'baseobjs.errorgenbasis', 'baseobjs.errorgenspace', 'tools.fogitools',
+           'models.fogistore', 'models.modelparaminterposer', 'modelmembers.errorgencontainer',
+           'modelmembers.modelmembergraph', 'tools.lindbladtools', 'tools.optools',
+           'models.gaugegroup', 'leakage', 'leakage.core', 'leakage.metrics', 'leakage.models',
+           'leakage.gaugeopt')
+    code = ("import sys, importlib\n"
+            "import torch\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.modelpacks import smq1Q_XYI as mp\n"
+            "from pygsti_tpu_torch import leakage\n"
+            "m = mp.target_model('H+s')\n"
+            "m.setup_fogi(include_spam=True, reparameterize=True)\n"
+            "assert m.num_params == 18, m.num_params\n"
+            "g = leakage.DirectSumUnitaryGaugeGroup(9, 'gm')\n"
+            "assert g.element_matrix(torch.zeros(5, dtype=torch.float64)).shape == (9, 9)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'
