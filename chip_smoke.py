@@ -181,6 +181,21 @@ Phases, each fatal on failure:
                 kept, the element in U(2)+U(1), the leakage rate against the
                 truth's in one frame; the kernel at this layout's buckets
                 (d 9, NOUT 2); its own launch count
+ 31. report  -- phase 3's estimate, not refitted: per operation the
+                entanglement, eigenvalue-entanglement, eigenvalue (Choi) and
+                generator infidelities of the fitted, gauge-optimized and
+                data-generating models, the first unmoved by the gauge and
+                within 10% of the truth's; gate-set, POVM and Choi metrics;
+                project_model's five projections evaluated on the full
+                dataset on the card; LogLWildcardFunction over the final
+                list's logL (w = 0 is the objective, larger budgets never
+                raise it, the card against the CPU); check_jac of the
+                kernel's chi2 Jacobian on the first list (907 circuits, 1,616
+                parameters) within 1e-5 of max |J| at eps 1e-8 (1e-7 logged),
+                its launches one per
+                bucket, the kernel at those buckets against its plain version;
+                CompressedCircuit, parallelize and convert_to_openqasm on
+                every circuit of the design
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -3496,6 +3511,195 @@ def phase_leakage_fit(builders, device):
     return {'leakage fit': launches, 'leakage bootstrap': boot_launches}
 
 
+def phase_report_quantities(target, datagen, fitted, gauged, ds, lists, device):
+    """Phase 31: the report quantities of phase 3's estimate, through the
+    host API of tools/optools, the projections, the wildcard objective,
+    check_jac of the kernel's Jacobian and the circuit methods; nothing is
+    refitted.  Returns the kernel's launches in the Jacobian check."""
+    from pygsti_tpu_torch.circuits.circuit import CompressedCircuit
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.objectivefns.objectivefns import (LogLWildcardFunction,
+                                                            ObjectiveFunctionBuilder)
+    from pygsti_tpu_torch.objectivefns.wildcardbudget import PrimitiveOpsWildcardBudget
+    from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+    from pygsti_tpu_torch.optimize.optimize import check_jac
+    from pygsti_tpu_torch.tools import jamiolkowski as jam
+    from pygsti_tpu_torch.tools import optools as ot
+    t_phase = time.time()
+    final, first = list(lists[-1]), list(lists[0])
+    ops = list(target.operations.keys())
+
+    # -- (1) the metrics of each operation, host numpy -------------------------
+    t0 = time.time()
+    models = {'fitted': fitted, 'gauged': gauged, 'datagen': datagen}
+    metrics = {}
+    for lbl in ops:
+        T = target.operations[lbl].dense()
+        for name, m in models.items():
+            G = m.operations[lbl].dense()
+            metrics[name, lbl] = {
+                'EI': ot.entanglement_infidelity(G, T),
+                'EEI': ot.eigenvalue_entanglement_infidelity(G, T),
+                'EVI': ot.eigenvalue_infidelity(jam.jamiolkowski_iso(G), jam.jamiolkowski_iso(T)),
+                'GI': ot.generator_infidelity(G, T)}
+        f, g, d = (metrics[name, lbl] for name in ('fitted', 'gauged', 'datagen'))
+        log("report: %-10s entanglement infidelity %.6e (truth %.6e); eigenvalue ent. "
+            "infidelity %.6e fitted, %.6e gauged, %.6e truth; eigenvalue infidelity of the "
+            "Choi matrices %.6e fitted, %.6e gauged, %.6e truth; generator infidelity %.6e "
+            "(truth %.6e)" % (lbl, g['EI'], d['EI'], f['EEI'], g['EEI'], d['EEI'], f['EVI'],
+                              g['EVI'], d['EVI'], g['GI'], d['GI']))
+        # a gauge transformation keeps a superoperator's eigenvalues: the
+        # eigenvalue entanglement infidelity cannot move under it (the Choi
+        # spectrum of eigenvalue_infidelity can, so it is logged only)
+        if not abs(f['EEI'] - g['EEI']) <= 1e-9:
+            raise SystemExit("report: the eigenvalue entanglement infidelity of %s moved under "
+                             "gauge optimization: %.12g -> %.12g" % (lbl, f['EEI'], g['EEI']))
+        if not abs(g['EEI'] - d['EEI']) <= 0.1 * d['EEI']:
+            raise SystemExit("report: the eigenvalue entanglement infidelity of %s, %.6g, is "
+                             "not within 10%% of the truth's %.6g" % (lbl, g['EEI'], d['EEI']))
+        if not all(np.isfinite(v) for m in (f, g, d) for v in m.values()):
+            raise SystemExit("report: a metric of %s is not finite" % lbl)
+    gs = {it: ot.gateset_infidelity(gauged, target, it) for it in ('EI', 'AGI')}
+    povm = {fn: getattr(ot, fn)(gauged, target, 'Mdefault')
+            for fn in ('povm_fidelity', 'povm_jtracedist', 'povm_diamonddist')}
+    negs = jam.sums_of_negative_choi_eigenvalues(gauged)
+    spam_eg = ot.spam_error_generator(gauged.preps['rho0'].dense(), target.preps['rho0'].dense())
+    t_metrics = time.time() - t0
+    log("report: gate-set infidelity EI %.6e, AGI %.6e; POVM 'Mdefault' fidelity %.9f, "
+        "jtracedist %.6e, diamonddist %.6e; sums of negative Choi eigenvalues %s; rho0's "
+        "error generator norm %.6e; %.2f s on the host"
+        % (gs['EI'], gs['AGI'], povm['povm_fidelity'], povm['povm_jtracedist'],
+           povm['povm_diamonddist'], ['%.3e' % x for x in negs], np.linalg.norm(spam_eg),
+           t_metrics))
+    if not all(np.isfinite(v) for v in list(gs.values()) + list(povm.values()) + negs):
+        raise SystemExit("report: a model-level metric is not finite")
+
+    # -- (2) the projections, each evaluated on the full dataset on the card ----
+    # project_model's default 'logG-logT' generator takes the principal logs
+    # of G and of its target apart, so a gate with eigenvalue -1 (the CNOT)
+    # gets a generator off by the branch (ROADMAP.md section 3); 'logGTi',
+    # the log of T^-1 G near the identity, is run beside it
+    kinds = ('H', 'S', 'H+S', 'LND', 'LNDF')
+    logl = ObjectiveFunctionBuilder('logl', regularization={'min_prob_clip': MINCLIP,
+                                                            'radius': MINCLIP})
+    layout = SimpleForwardSimulator(gauged, device).create_layout(final, ds)
+    n_data = ds.degrees_of_freedom(final)
+    n = len(ops)
+    t_project = t_proj_eval = 0.0
+    for gen_type in ('logG-logT', 'logGTi'):
+        t0 = time.time()
+        projected, counts = ot.project_model(gauged, target, kinds, gen_type=gen_type)
+        t_project += time.time() - t0
+        if counts != [n * 15, n * 15, n * 30, n * 240, n * 240]:
+            raise SystemExit("report: projection parameter counts %s" % (counts,))
+        t0 = time.time()
+        for kind, pm, npar in zip(kinds, projected, counts):
+            two_dlogl = 2 * logl.build(pm, ds, final, device=device, layout=layout).fn()
+            k = n_data - npar
+            nsig = (two_dlogl - k) / np.sqrt(2 * k)
+            dist = {str(l): float(np.max(np.abs(pm.operations[l].dense()
+                                                 - gauged.operations[l].dense()))) for l in ops}
+            far = max(dist, key=dist.get)
+            log("report: projection %-9s %-4s %4d parameters: 2DeltaLogL %.6f, k %d, N_sigma "
+                "%.4f; largest |projected - gauged| %.3e (%s)"
+                % (gen_type, kind, npar, two_dlogl, k, nsig, dist[far], far))
+            if not (np.isfinite(two_dlogl) and np.isfinite(nsig)):
+                raise SystemExit("report: the %s projection's logL is not finite" % kind)
+        t_proj_eval += time.time() - t0
+
+    # -- (3) the wildcard objective over the final list's logL at the fit ------
+    t0 = time.time()
+    theta = fitted.to_vector()
+    obj = logl.build(fitted, ds, final, device=device)
+    wf = LogLWildcardFunction(obj, theta, PrimitiveOpsWildcardBudget(ops))
+    base = float(np.sum(obj.terms(theta)))
+    values = [wf.fn(np.full(n, w)) for w in (0.0, 1e-4, 1e-3, 1e-2)]
+    log("report: wildcard logL on the final list: sum of terms %.9f; at w = 0, 1e-4, 1e-3, "
+        "1e-2: %s" % (base, ['%.9f' % v for v in values]))
+    if not abs(values[0] - base) <= 1e-12 * abs(base):
+        raise SystemExit("report: the wildcard objective at w = 0 is not the objective's")
+    if not all(b <= a for a, b in zip(values, values[1:])):
+        raise SystemExit("report: the wildcard objective rose with the budget")
+    first_terms = []
+    for dev in (device, 'cpu'):
+        o = logl.build(fitted, ds, first, device=dev)
+        first_terms.append(LogLWildcardFunction(o, theta, PrimitiveOpsWildcardBudget(ops))
+                           .terms(np.full(n, 1e-3)))
+    rel = float(np.max(np.abs(first_terms[0] - first_terms[1])) / np.max(np.abs(first_terms[1])))
+    t_wildcard = time.time() - t0
+    log("report: wildcard terms on the card vs the CPU on the first list (%d circuits), w = "
+        "1e-3: max rel diff %.3e (tol 1e-10); %.2f s" % (len(first), rel, t_wildcard))
+    if not rel <= 1e-10:
+        raise SystemExit("report: the wildcard terms on the card disagree with the CPU path")
+
+    # -- (4) the kernel's Jacobian against forward differences -----------------
+    chi2 = ObjectiveFunctionBuilder('chi2', regularization={
+        'min_prob_clip_for_weighting': MINCLIP}).build(fitted, ds, first, device=device)
+    torch.cuda.synchronize()
+    bwd_jacobian_accumulate.launches = 0
+    J = chi2.dlsvec(theta)
+    torch.cuda.synchronize()
+    launches = bwd_jacobian_accumulate.launches
+    buckets = num_buckets(chi2.layout, fitted, device)
+    p = chi2.probs(theta)
+    keep = np.abs(p - MINCLIP) > 1e-6          # lsvec has a kink at the weighting clip
+    scale = float(np.max(np.abs(J)))
+    # the forward differences' truncation, eps times the curvature, reaches
+    # 1e-5 of max |J| at eps 1e-7 on the rows of small p (6.6e-6 in a CPU
+    # rehearsal on this list); eps 1e-8 is held, 1e-7 logged beside it
+    t_check, worst = 0.0, {}
+    for eps in (1e-7, 1e-8):
+        t0 = time.time()
+        err_sum, errs, fd = check_jac(chi2.lsvec, theta, J, eps=eps)
+        t_check += time.time() - t0
+        worst[eps] = float(np.max(np.abs(J[keep] - fd[keep])))
+        log("report: check_jac of the kernel's chi2 Jacobian on the first list (%d circuits, "
+            "%d rows, %d parameters), eps %g: max |J - fd| %.3e = %.3e of max |J|, %d rows "
+            "within 1e-6 of the clip left out; err_sum %.6g, %d entries above the default "
+            "relative tolerance 1e-5; %d lsvec calls in %.2f s"
+            % (len(first), J.shape[0], J.shape[1], eps, worst[eps], worst[eps] / scale,
+               int(np.sum(~keep)), err_sum, len(errs), len(theta) + 1, time.time() - t0))
+        if J.shape != fd.shape:
+            raise SystemExit("report: check_jac's differences have shape %s" % (fd.shape,))
+    log("report: the kernel's Jacobian: %d launches for the list's %d buckets"
+        % (launches, buckets))
+    if not worst[1e-8] <= 1e-5 * scale:
+        raise SystemExit("report: the kernel's Jacobian disagrees with forward differences: "
+                         "%.3e of max |J| (tol 1e-5)" % (worst[1e-8] / scale))
+    if launches != buckets:
+        raise SystemExit("report: the Jacobian launched the kernel %d times for %d buckets"
+                         % (launches, buckets))
+    errs_k, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
+        chi2.layout, fitted, device, 'report')
+    log("report: the kernel at the first list's %d buckets %s: f64 %.4f ms per Jacobian "
+        "against a %.4f ms byte bound (%.1f%%), plain %.3f ms, einsum yardstick %.3f ms; max "
+        "rel err f64 %.3e, f32 %.3e"
+        % (len(shapes), shapes, ms, bound_ms, 100 * bound_ms / ms, plain_ms, einsum_ms,
+           errs_k[torch.float64], errs_k[torch.float32]))
+
+    # -- (5) the circuit methods on every circuit of the design -----------------
+    t0 = time.time()
+    if not all(CompressedCircuit(c).expand() == c for c in final):
+        raise SystemExit("report: a compressed circuit did not expand back")
+    t1 = time.time()
+    if not all(c.parallelize().num_gates == c.num_gates for c in final):
+        raise SystemExit("report: parallelize changed a circuit's gate count")
+    t2 = time.time()
+    for c in final:
+        lines = c.convert_to_openqasm().splitlines()
+        if len(lines) != c.num_gates + 5 or not all(
+                ln.startswith(('u3(', 'cx ')) for ln in lines[4:-1]):
+            raise SystemExit("report: OpenQASM of %s: %s" % (c.str, lines))
+    t3 = time.time()
+    log("report: %d circuits: CompressedCircuit round trips in %.2f s, parallelize keeps "
+        "num_gates in %.2f s, convert_to_openqasm in %.2f s (host)"
+        % (len(final), t1 - t0, t2 - t1, t3 - t2))
+    log("report: phase 31 took %.1f s: metrics %.2f s, project_model %.2f s, their logL on "
+        "the card %.2f s, wildcard %.2f s, check_jac %.2f s"
+        % (time.time() - t_phase, t_metrics, t_project, t_proj_eval, t_wildcard, t_check))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -3766,8 +3970,14 @@ def main():
     fogi_launches = phase_fogi_fit(mp, lists, builders, device)
     t13 = time.time()
     leak_launches = phase_leakage_fit(builders, device)
+    t14 = time.time()
     log("phases 29 and 30: %.1f s and %.1f s of the script's wall time"
-        % (t13 - t12, time.time() - t13))
+        % (t13 - t12, t14 - t13))
+
+    # -- the report quantities of phase 3's estimate ------------------------
+    report_launches = phase_report_quantities(target, datagen, fitted, gauged, ds, lists,
+                                              device)
+    log("phase 31: %.1f s of the script's wall time" % (time.time() - t14))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -3778,7 +3988,7 @@ def main():
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
         + cloud3_launches + stat_launches + driver_launches + boot_launches
         + selection_launches + td_launches + sum(fogi_launches.values())
-        + sum(leak_launches.values()),
+        + sum(leak_launches.values()) + report_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -3790,7 +4000,7 @@ def main():
                                     "bootstrap": boot_launches,
                                     "design-selection fit": selection_launches,
                                     "time-resolved fit": td_launches}, **fogi_launches,
-                                 **leak_launches),
+                                 **leak_launches, **{"jacobian check": report_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -14,6 +14,8 @@
                      JAX package's tuples, so the two packages' labels hash
                      and compare alike.  ``Label(..., time=t)`` takes the
                      time and ignores it, as the JAX package's factory does.
+* ``LabelTupTupWithArgs`` -- a layer with arguments of its own.
+* ``CircuitLabel`` -- a named, repeatable sub-circuit as one layer label.
 
 Labels are immutable, hashable, compare equal to the equivalent plain tuple
 or string, and serve as dict keys in models.
@@ -296,3 +298,114 @@ class LabelTupTupWithTime(LabelTupTup):
 
     def __reduce__(self):
         return (LabelTupTupWithTime.init, (self.components, self.time))
+
+
+class LabelTupTupWithArgs(LabelTupTup):
+    """A layer label that carries arguments of its own, beside any of its
+    components', stored as (('@LARGS', *args), *components)."""
+
+    __slots__ = ()
+
+    @classmethod
+    def init(cls, component_labels, args):
+        return tuple.__new__(cls, (('@LARGS',) + tuple(args),) + tuple(component_labels))
+
+    @property
+    def args(self):
+        return tuple(self[0][1:])
+
+    @property
+    def components(self):
+        return tuple(self[1:])
+
+    @property
+    def sslbls(self):
+        s = []
+        for comp in self.components:
+            if comp.sslbls is None:
+                return None
+            s.extend(comp.sslbls)
+        return tuple(s) if s else None
+
+    def map_state_space_labels(self, mapper):
+        return LabelTupTupWithArgs.init(
+            tuple(c.map_state_space_labels(mapper) for c in self.components), self.args)
+
+    def __str__(self):
+        return "[" + "".join(str(c) for c in self.components) + ";" + \
+            ";".join(str(a) for a in self.args) + "]"
+
+    def __reduce__(self):
+        return (LabelTupTupWithArgs.init, (self.components, self.args))
+
+
+class CircuitLabel(tuple):
+    """A sub-circuit as one (repeatable) layer label: a name, the lines it
+    acts on, a repetition count and its layers, stored as (name, sslbls,
+    reps, *layers).  Its string is ``name(layers)^reps``, which the parser
+    reads as the JAX package's does: the name as a label of its own, then
+    the expanded layers."""
+
+    __slots__ = ()
+
+    def __new__(cls, name, tup_of_layers, state_space_labels, reps=1, time=None):
+        sslbls = tuple(state_space_labels) if state_space_labels is not None else None
+        return tuple.__new__(cls, (str(name), sslbls, int(reps)) + tuple(tup_of_layers))
+
+    @property
+    def name(self):
+        return self[0]
+
+    @property
+    def sslbls(self):
+        return self[1]
+
+    @property
+    def reps(self):
+        return self[2]
+
+    @property
+    def components(self):
+        return self[3:]
+
+    @property
+    def args(self):
+        return ()
+
+    @property
+    def time(self):
+        return 0.0
+
+    @property
+    def qubits(self):
+        return self.sslbls
+
+    @property
+    def is_simple(self):
+        return True
+
+    @property
+    def depth(self):
+        return sum(getattr(layer, 'depth', 1) for layer in self.components) * self.reps
+
+    def expand_subcircuits(self):
+        """The tuple of layer labels this label stands for."""
+        return self.components * self.reps
+
+    def map_state_space_labels(self, mapper):
+        m = mapper.__getitem__ if hasattr(mapper, '__getitem__') else mapper
+        return CircuitLabel(self.name,
+                            tuple(c.map_state_space_labels(mapper) for c in self.components),
+                            tuple(m(x) for x in self.sslbls) if self.sslbls else None,
+                            self.reps)
+
+    def __str__(self):
+        s = self.name + "(" + "".join(str(c) for c in self.components) + ")"
+        return s + ("^%d" % self.reps if self.reps != 1 else "")
+
+    def __repr__(self):
+        return "CircuitLabel(%r, %s, %s, %d)" % (self.name, self.components, self.sslbls,
+                                                 self.reps)
+
+    def __reduce__(self):
+        return (CircuitLabel, (self.name, self.components, self.sslbls, self.reps))

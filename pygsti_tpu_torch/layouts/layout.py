@@ -170,6 +170,10 @@ class CircuitOutcomeProbabilityLayout(object):
     def num_circuits(self):
         return len(self.circuits)
 
+    def indices(self, circuit):
+        """The element slice of `circuit`."""
+        return self.element_slices[self.circuits.index(circuit)]
+
     def counts_arrays(self, dataset):
         """(counts, total_counts) flat element arrays from a dataset; each
         element of a circuit carries the circuit's total.  Cached per

@@ -30,6 +30,7 @@ import torch
 from pygsti_tpu_torch.baseobjs.errorgenlabel import GlobalElementaryErrorgenLabel
 from pygsti_tpu_torch.baseobjs.label import Label
 from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
+from pygsti_tpu_torch.models.layerrules import LayerRules as _LayerRules
 from pygsti_tpu_torch.models.model import OpModel
 from pygsti_tpu_torch.modelmembers.modelmember import ModelMember
 from pygsti_tpu_torch.modelmembers import operations as _op
@@ -933,3 +934,28 @@ class ExplicitOpModel(OpModel):
             m.param_interposer = LinearInterposer(np.asarray(state['param_interposer']))
             m._mark_for_rebuild()
         return m
+
+
+class ExplicitLayerRules(_LayerRules):
+    """The layer rules of an explicit model: each circuit layer label is a
+    key of the model's member dicts (the model looks layers up directly;
+    this names the rule)."""
+
+    def prep_layer_operator(self, model, layerlbl, caches):
+        return model.preps[layerlbl]
+
+    def povm_layer_operator(self, model, layerlbl, caches):
+        return model.povms[layerlbl]
+
+    def operation_layer_operator(self, model, layerlbl, caches):
+        return model.operations[layerlbl]
+
+
+def transform_composed_model(mdl, s):
+    """A copy of `mdl` gauge-transformed by the GaugeGroupElement `s`.  A
+    member's parameterization is a function of its parameter vector, so
+    transform_inplace keeps it, as the reference's composed transform
+    does."""
+    out = mdl.copy()
+    out.transform_inplace(s)
+    return out

@@ -1001,6 +1001,16 @@ class TVDFunction(_bound_objective(RawTVDFunction, 'tvd')):
     """The total-variation-distance objective."""
 
 
+class EvaluatedModelDatasetCircuitsStore(ModelDatasetCircuitsStore):
+    """A ModelDatasetCircuitsStore that also holds ``probs``, the layout's
+    element probabilities at the model's current parameters."""
+
+    def __init__(self, mdc_store, verbosity=0):
+        super().__init__(mdc_store.model, mdc_store.dataset, mdc_store.circuits,
+                         device=mdc_store.device, precomp_layout=mdc_store.layout)
+        self.probs = SimpleForwardSimulator(self.model, self.device).bulk_fill_probs(self.layout)
+
+
 class TermWeighted(TimeIndependentMDCObjectiveFunction):
     """An objective whose per-element terms are scaled by the constant
     weights ``terms_weights`` (ones at first): fn = sum_i w_i terms_i and
@@ -1800,3 +1810,45 @@ def _with_rows(fns, rows_fn, rows_jac, gram=lambda v, Jr: Jr.T @ Jr):
         return torch.cat([base['dlsvec'](v, *args), rows_jac(v)], dim=0)
 
     return {'lsvec': lsvec_fn, 'fn': fn_fn, 'jtj_jtf': jtj_jtf_fn, 'dlsvec': dlsvec_fn}
+
+
+class LogLWildcardFunction(object):
+    """A log-likelihood objective over wildcard-budget vectors: the
+    objective's probabilities at `base_pt` (None: the model's current
+    parameters) move within each circuit's budget toward its frequencies
+    (the water-fill of PrimitiveOpsWildcardBudget.update_probs, its plan
+    built once, on the objective's device), and the raw objective's terms
+    are taken there.  Any other attribute is the objective's."""
+
+    def __init__(self, logl_objective_fn, base_pt, wildcard):
+        from pygsti_tpu_torch.objectivefns.wildcardbudget import WaterfillPlan
+        self.logl_objfn = logl_objective_fn
+        self.basept = base_pt
+        self.wildcard_budget = wildcard
+        self.description = getattr(logl_objective_fn, 'name', 'logl') + " + wildcard budget"
+        self.probs = logl_objective_fn.probs(base_pt)
+        lay = logl_objective_fn.layout
+        self._plan = WaterfillPlan(wildcard, lay.element_slices, lay.circuits,
+                                   logl_objective_fn.freqs, logl_objective_fn.device)
+
+    def __getattr__(self, attr):
+        return getattr(self.__dict__['logl_objfn'], attr)
+
+    def chi2k_distributed_qty(self, objective_function_value):
+        return self.logl_objfn.chi2k_distributed_qty(objective_function_value)
+
+    def fn(self, wvec=None):
+        return float(np.sum(self.terms(wvec)))
+
+    def terms(self, wvec=None):
+        """The raw objective's terms at the moved probabilities, for the
+        budget vector `wvec` (None: the budget's current one)."""
+        if wvec is not None:
+            self.wildcard_budget.from_vector(np.asarray(wvec))
+        objfn = self.logl_objfn
+        with torch.no_grad():
+            p, _ = self._plan.update(self.probs, self.wildcard_budget.wildcard_vector)
+            return objfn.raw_objfn.terms(p, *objfn._data).cpu().numpy()
+
+    def lsvec(self, wvec=None):
+        return np.sqrt(np.clip(self.terms(wvec), 0.0, None))

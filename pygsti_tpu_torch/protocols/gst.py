@@ -871,6 +871,18 @@ def _scale_dataset(dataset, circuit_weights, circuits):
     return new_ds
 
 
+class HasProcessorSpec(object):
+    """Mixin that gives an experiment design a ``processor_spec``: a
+    processor spec, or None.  Neither package serializes processor specs,
+    so a file name raises NotImplementedError."""
+
+    def __init__(self, processorspec_filename_or_obj):
+        if isinstance(processorspec_filename_or_obj, str):
+            raise NotImplementedError("processor specs are not read from files; pass the "
+                                      "processor spec itself")
+        self.processor_spec = processorspec_filename_or_obj
+
+
 class GateSetTomographyCheckpoint(ProtocolCheckpoint):
     """Per-iteration GST checkpoint.
 

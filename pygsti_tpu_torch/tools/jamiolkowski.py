@@ -59,3 +59,43 @@ def fast_jamiolkowski_iso_std_inv(choi_mx, op_mx_basis='pp'):
     d = int(round(np.sqrt(d2)))
     std = choi.reshape(d, d, d, d).transpose(0, 2, 1, 3).reshape(d2, d2) * d
     return change_basis(std, 'std', op_mx_basis)
+
+
+def _negative_choi_eigenvalues(gate_mx, mx_basis):
+    """The negative eigenvalues of a superoperator's std-basis Choi matrix
+    (its Hermitian part)."""
+    choi = fast_jamiolkowski_iso_std(gate_mx, mx_basis)
+    evals = np.linalg.eigvalsh((choi + choi.conj().T) / 2)
+    return evals[evals < 0]
+
+
+def sums_of_negative_choi_eigenvalues(model):
+    """Per operation of `model`, the magnitude of the sum of its Choi
+    matrix's negative eigenvalues (0 for a CP operation)."""
+    return [-float(np.sum(_negative_choi_eigenvalues(op.dense(), model.basis)))
+            for op in model.operations.values()]
+
+
+def sum_of_negative_choi_eigenvalues(model):
+    """The sum over operations of sums_of_negative_choi_eigenvalues."""
+    return float(sum(sums_of_negative_choi_eigenvalues(model)))
+
+
+def sum_of_negative_choi_eigenvalues_gate(gate_mx, mx_basis='pp'):
+    """The magnitude of the sum of one superoperator's negative Choi
+    eigenvalues (from the general eigensolver, as the JAX package takes
+    them)."""
+    J = fast_jamiolkowski_iso_std(gate_mx, mx_basis)
+    evals = np.linalg.eigvals(J)
+    return float(sum(-ev.real for ev in evals if ev.real < 0))
+
+
+def magnitudes_of_negative_choi_eigenvalues(model, dimensions=None):
+    """|negative Choi eigenvalues| of every operation of `model`, in
+    operation order (from the general eigensolver, as the JAX package takes
+    them)."""
+    out = []
+    for op in model.operations.values():
+        evals = np.linalg.eigvals(fast_jamiolkowski_iso_std(op.dense(), model.basis))
+        out.extend(-ev.real for ev in evals if ev.real < 0)
+    return out

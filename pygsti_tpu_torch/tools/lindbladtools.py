@@ -164,3 +164,31 @@ def random_CPTP_error_generator_rates(num_qubits, errorgen_types=('H', 'S', 'C',
                 out[k] = out[k] * (t if k.errorgen_type != 'H'
                                    else np.sqrt(t))
     return out
+
+
+def elementary_errorgens_matrix(typ, basis_elements, mx_basis='pp'):
+    """[n, d**2, d**2]: the elementary generators of type `typ` made from
+    the basis elements after the first (the identity), in `mx_basis`; 'C'
+    and 'A' take each pair i < j, row-major."""
+    from pygsti_tpu_torch.tools.basistools import change_basis
+    els = np.asarray(basis_elements)
+    n = els.shape[0]
+    if typ in ('H', 'S'):
+        gens = [create_elementary_errorgen(typ, els[i]) for i in range(1, n)]
+    else:
+        gens = [create_elementary_errorgen(typ, els[i], els[j])
+                for i in range(1, n) for j in range(i + 1, n)]
+    if not gens:
+        return np.zeros((0, els.shape[1] ** 2, els.shape[1] ** 2))
+    return np.stack([change_basis(eg, 'std', mx_basis) for eg in gens])
+
+
+def create_elementary_errorgen_pauli(typ, p, q=None, sparse=False):
+    """create_elementary_errorgen of Pauli matrices (dense: the reference's
+    Pauli-specialized route gives the same matrix)."""
+    return create_elementary_errorgen(typ, p, q)
+
+
+def create_elementary_errorgen_dual_pauli(typ, p, q=None, sparse=False):
+    """create_elementary_errorgen_dual of Pauli matrices."""
+    return create_elementary_errorgen_dual(typ, p, q)

@@ -20,13 +20,14 @@ from pygsti_tpu.io import writers as jwriters
 from pygsti_tpu.tools.optools import is_cptp
 
 import pygsti_tpu_torch.modelpacks.smq1Q_XYI as tmp
-from pygsti_tpu_torch.algorithms import contract as tcontract, grasp as tgrasp
+from pygsti_tpu_torch.algorithms import grasp as tgrasp
 from pygsti_tpu_torch.algorithms import grammatrix as tgram, scoring as tscoring
 from pygsti_tpu_torch.io import readers as treaders
 from pygsti_tpu_torch.tools.argchecks import check_unsupported
 
-# the JAX package's algorithms/__init__ binds the name 'contract' to the function
+# both packages' algorithms/__init__ bind the name 'contract' to the function
 jcontract = importlib.import_module('pygsti_tpu.algorithms.contract')
+tcontract = importlib.import_module('pygsti_tpu_torch.algorithms.contract')
 
 
 def _broken(mp, how):
