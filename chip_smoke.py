@@ -196,6 +196,26 @@ Phases, each fatal on failure:
                 bucket, the kernel at those buckets against its plain version;
                 CompressedCircuit, parallelize and convert_to_openqasm on
                 every circuit of the design
+ 32. interp  -- smq2Q_XYICNOT 'static' whose four single-qubit gates are
+                InterpolatedDenseOps over 21 x 21 grids of (rotation angle,
+                axis tilt), 8 physical parameters; data of the same model at
+                off-node points on phase 3's 13,958 circuits (1,000 shots,
+                drawn on the card); the fit from the grid's midpoint through
+                GateSetTomography.run (chi2 stages, then logL), every
+                parameter within 5 Hessian sigma of the truth; Tv card
+                against CPU and central differences; jtj_jtf card against
+                CPU; the kernel at the fit's buckets; its own launch count
+ 33. idt + crosstalk -- ibmq_bogota's first 4 qubits (extras.devices, d
+                256): idle tomography of a planted weight <= 2 'H+s' idle
+                through SimpleRunner and do_idle_tomography at 100,000
+                shots, every rate within 5 propagated standard errors of
+                the exact probabilities' estimate; crosstalk detection of a
+                planted 'XX' error of Gxpi2:Q1 on 600 random circuits, and
+                none without it; both again through one TreeRunner
+ 34. lfh     -- the fluctuating-Hamiltonian simulators (integrating,
+                sigma-point, weak) on smq2Q_XYICNOT 'H+s' over the maxL-4
+                list: exact at deviation 0, integrating within 5 MC errors
+                of weak, the sigma-point gap fourth order, card against CPU
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -212,6 +232,7 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+T_START = time.time()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth, and the float64 and
 # float32 rates outside the tensor cores, which is where this kernel's
@@ -3700,6 +3721,647 @@ def phase_report_quantities(target, datagen, fitted, gauged, ds, lists, device):
     return launches
 
 
+INTERP_NODES = 21        # phase 32: nodes per grid axis
+INTERP_HALF_WIDTH = 0.1  # phase 32: the grid's half-width in each angle, rad
+INTERP_DEPOL = 0.01      # phase 32: the samples' fixed depolarization
+# phase 32: the truth's (rotation angle off pi/2, axis tilt) per gate, rad, off the grid's nodes
+INTERP_TRUTH = {('Gxpi2', 0): (0.012, 0.006), ('Gypi2', 0): (-0.007, -0.013),
+                ('Gxpi2', 1): (0.018, -0.004), ('Gypi2', 1): (-0.015, 0.017)}
+
+
+def tilted_rotation_ptm(name, qubit, theta, phi, depol):
+    """The 2-qubit PTM of `name` ('Gxpi2' or 'Gypi2') on `qubit`: a
+    rotation by theta about the gate's axis tilted by phi out of the XY
+    plane toward Z, then depolarization `depol` of that qubit; the identity
+    on the other."""
+    from pygsti_tpu_torch.tools.optools import unitary_to_pauligate
+    sx = np.array([[0, 1], [1, 0]], dtype=complex)
+    sy = np.array([[0, -1j], [1j, 0]])
+    sz = np.diag([1.0, -1.0]).astype(complex)
+    axis = sx if name == 'Gxpi2' else sy
+    h = np.cos(phi) * axis + np.sin(phi) * sz
+    u = np.cos(theta / 2) * np.eye(2) - 1j * np.sin(theta / 2) * h
+    one = np.diag([1.0] + [1 - depol] * 3) @ np.real(unitary_to_pauligate(u))
+    return np.kron(one, np.eye(4)) if qubit == 0 else np.kron(np.eye(4), one)
+
+
+def interpolated_model(mp, points, depol):
+    """smq2Q_XYICNOT 'static' whose four single-qubit gates are
+    InterpolatedDenseOps over the (theta, phi) grid of tilted, depolarized
+    rotations, at `points` ({(name, qubit): (theta, phi)}); the samples
+    built on the host."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.extras.interpygate import InterpolatedDenseOp
+    h = INTERP_HALF_WIDTH
+    thetas = np.linspace(np.pi / 2 - h, np.pi / 2 + h, INTERP_NODES)
+    phis = np.linspace(-h, h, INTERP_NODES)
+    model = mp.target_model('static')
+    for (name, q), point in points.items():
+        samples = np.stack([np.stack([tilted_rotation_ptm(name, q, t, p, depol) for p in phis])
+                            for t in thetas])
+        model.operations[Label(name, q)] = InterpolatedDenseOp([thetas, phis], samples, point)
+    return model
+
+
+def phase_interpolated_fit(mp, lists, builders, device):
+    """Phase 32: smq2Q_XYICNOT 'static' with its four single-qubit gates
+    InterpolatedDenseOps over 21 x 21 (rotation angle, axis tilt) grids (8
+    physical parameters); data of the same model at off-node points, cell
+    1's 13,958 circuits at 1,000 shots drawn on the card; the fit from the
+    grid's midpoint through GateSetTomography.run (chi2 stages, then logL;
+    no gauge: the SPAM and Gcnot are static).  Every parameter within 5
+    Hessian sigma of the truth; Tv card against CPU and against central
+    differences inside a cell; one jtj_jtf card against CPU; the kernel at
+    the fit's buckets.  Returns the kernel's launches in the fit."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    t_phase = time.time()
+    final = list(lists[-1])
+    truth_points = {k: (np.pi / 2 + dt, dp) for k, (dt, dp) in INTERP_TRUTH.items()}
+    t0 = time.time()
+    truth = interpolated_model(mp, truth_points, INTERP_DEPOL)
+    start = interpolated_model(mp, {k: (np.pi / 2, 0.0) for k in INTERP_TRUTH}, INTERP_DEPOL)
+    build_s = time.time() - t0
+    exact_gap = max(float(np.max(np.abs(truth.operations[Label(*k)].dense()
+                                        - tilted_rotation_ptm(k[0], k[1], t, p, INTERP_DEPOL))))
+                    for k, (t, p) in truth_points.items())
+    ideal_gap = max(float(np.max(np.abs(
+        tilted_rotation_ptm(k[0], k[1], np.pi / 2, 0.0, 0.0)
+        - mp.target_model('static').operations[Label(*k)].dense()))) for k in INTERP_TRUTH)
+    log("interp: 4 InterpolatedDenseOps over %d x %d grids (theta pi/2 +- %g, phi +- %g rad) of "
+        "%d x %d PTMs, built on the host in %.3f s; %d parameters; the samples at (pi/2, 0) "
+        "without depolarization against the pack's target: max |diff| %.1e; the "
+        "interpolation at the truth against the exact tilted rotations: max |diff| %.3e"
+        % (INTERP_NODES, INTERP_NODES, INTERP_HALF_WIDTH, INTERP_HALF_WIDTH, truth.dim, truth.dim,
+           build_s, truth.num_params, ideal_gap, exact_gap))
+    if truth.num_params != 8 or not ideal_gap < 1e-12:
+        raise SystemExit("interp: the interpolated model is not the pack's gates on its grid")
+    t0 = time.time()
+    ds = simulate_data(truth, final, 1000, seed=1234, device=device)
+    torch.cuda.synchronize()
+    sim_s = time.time() - t0
+    log("interp: %d circuits x 1000 shots drawn on the card in %.2f s (seed 1234)"
+        % (len(final), sim_s))
+
+    # -- Tv: card against CPU, against central differences inside a cell -------
+    v_truth = torch.as_tensor(truth.to_vector(), dtype=torch.float64, device=device)
+    jac, flat = truth.flat_tensors_jacobian_fn(), truth.flat_tensors_fn()
+    Tv_card = jac(v_truth)
+    Tv_cpu = jac(v_truth.cpu())
+    eps = 1e-6
+    fd = torch.stack([(flat(v_truth + eps * e) - flat(v_truth - eps * e)) / (2 * eps)
+                      for e in torch.eye(truth.num_params, dtype=torch.float64,
+                                         device=device)], dim=1)
+    scale = float(Tv_cpu.abs().max())
+    rel_cpu = float((Tv_card.cpu() - Tv_cpu).abs().max()) / scale
+    rel_fd = float((Tv_card - fd).abs().max()) / scale
+    log("interp: Tv [%d x %d] at the truth: card against the CPU path max rel %.3e (tol "
+        "1e-12), against central differences (eps %g, inside the cell) max rel %.3e (tol 1e-7)"
+        % (Tv_card.shape[0], Tv_card.shape[1], rel_cpu, eps, rel_fd))
+    if not (rel_cpu < 1e-12 and rel_fd < 1e-7):
+        raise SystemExit("interp: Tv disagrees with the CPU path or central differences")
+
+    # -- the fit -----------------------------------------------------------
+    gst = GateSetTomography(GSTInitialModel(model=start), gaugeopt_suite=None,
+                            objfn_builders=builders, optimizer={'maxiter': LM_MAXITER},
+                            verbosity=0, device=device)
+    est, launches, fit_s, iters, peak = fit_launches(
+        gst, ProtocolData(GateSetTomographyDesign(start, lists), ds), 'interp fit', lists)
+    fitted = est.models['final iteration estimate']
+    layout = SimpleForwardSimulator(fitted, device).create_layout(final)
+    nb = num_buckets(layout, fitted, device)
+    nsigma = est.misfit_sigma()
+    log("interp fit: %d parameters, %d LM iterations in %.3f s (%.1f ms each); final "
+        "2*DeltaLogL %.6f, k %d, N_sigma %.4f; kernel launches {'bwd_jacobian': %d} (%d "
+        "buckets x %d iterations = %d); peak device memory %.1f MB"
+        % (fitted.num_params, iters, fit_s, 1e3 * fit_s / max(iters, 1),
+           est.parameters['final_objfn_value'], est.parameters['final_dof'], nsigma, launches,
+           nb, iters, nb * iters, peak))
+    if launches != nb * iters:
+        raise SystemExit("interp fit: the kernel's launches are not the buckets times the LM "
+                         "iterations")
+    theta = fitted.to_vector()
+    if not (np.all(np.isfinite(theta)) and abs(nsigma) < 10):
+        raise SystemExit("interp fit is not finite or far from the statistical optimum: "
+                         "N_sigma %g" % nsigma)
+    t0 = time.time()
+    crf = est.create_confidence_region_factory()
+    crf.compute_hessian(approximate=True)
+    sigma = np.sqrt(np.abs(np.diag(crf.project_hessian('none'))))
+    hess_s = time.time() - t0
+    z = (theta - truth.to_vector()) / sigma
+    log("interp: Gauss-Newton Hessian through the kernel and its inverse in %.3f s; fitted "
+        "(theta - pi/2, phi) per gate %s; truth %s; sigma %s; z %s"
+        % (hess_s, ['%.6f' % x for x in theta - np.tile([np.pi / 2, 0.0], 4)],
+           ['%.6f' % x for x in truth.to_vector() - np.tile([np.pi / 2, 0.0], 4)],
+           ['%.2e' % s for s in sigma], ['%.2f' % x for x in z]))
+    if not np.max(np.abs(z)) < 5:
+        raise SystemExit("interp: a fitted parameter lies %.2f sigma from the truth"
+                         % np.max(np.abs(z)))
+
+    # -- one jtj_jtf card against CPU; the kernel at the fit's buckets -----------
+    first = list(lists[0])
+    objs = [ObjectiveFunctionBuilder('chi2').build(fitted, ds, first, device=dev)
+            for dev in (device, 'cpu')]
+    rel = card_vs_cpu(objs, theta)
+    log("interp: chi2 lsvec/JTJ/JTf on the card vs the CPU path (%d circuits): max rel diff "
+        "%.3e (tol 1e-12)" % (len(first), rel))
+    if not rel < 1e-12:
+        raise SystemExit("interp: the card's J^T J disagrees with the CPU path")
+    errs, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
+        layout, fitted, device, 'interp fit')
+    log("interp: the kernel at the fit's %d bucket shapes %s with the interpolated model's G "
+        "(d %d): rel err f64 %.3e, f32 %.3e; %.4f ms per Jacobian (bound %.4f ms, %.1f%% of "
+        "it), plain %.3f ms, einsum %.3f ms; build %.2f s, simulation %.2f s, fit %.2f s; "
+        "phase %.1f s"
+        % (len(shapes), shapes, fitted.dim, errs[torch.float64], errs[torch.float32], ms,
+           bound_ms, 100 * bound_ms / ms, plain_ms, einsum_ms, build_s, sim_s, fit_s,
+           time.time() - t_phase))
+    return launches
+
+
+IDT_QUBITS = ('Q0', 'Q1', 'Q2', 'Q3')   # phases 33-34: ibmq_bogota's first 4 qubits, a line
+IDT_RATES = {'H(XIII)': 2e-3, 'H(IIZI)': 3e-3, 'S(IZII)': 4e-3, 'S(IIIX)': 1.5e-3,
+             'S(IZZI)': 2.5e-3}         # phase 33: planted intrinsic idle rates
+IDT_MAX_LENGTHS = (0, 1, 2, 4, 8, 16, 32)
+IDT_SHOTS = 100000
+# phase 33: the standard Pauli preparation and measurement words of Gxpi2/Gypi2
+IDT_PREP_DICT = {'X': ('Gypi2',), 'Y': ('Gxpi2',) * 3, 'Z': (), '-X': ('Gypi2',) * 3,
+                 '-Y': ('Gxpi2',), '-Z': ('Gxpi2', 'Gxpi2')}
+IDT_MEAS_DICT = {'X': ('Gypi2',) * 3, 'Y': ('Gxpi2',), 'Z': (), '-X': ('Gypi2',),
+                 '-Y': ('Gxpi2',) * 3, '-Z': ('Gxpi2', 'Gxpi2')}
+CT_LENGTHS = (10, 20, 40)
+CT_CIRCUITS = 200       # per length
+CT_SHOTS = 100
+CT_H = 0.05             # the planted 'XX' Hamiltonian rate of Gxpi2:Q1 on Q1 and Q2
+
+
+def parity_weights(outcomes, positions, scale=1.0):
+    """{outcome: scale * (-1)^(sum of its bits at `positions`)}."""
+    return {o: scale * (-1.0) ** sum(int(o[0][i]) for i in positions) for o in outcomes}
+
+
+def slope_covariance(slopes, probs, shots):
+    """The covariance of linear functionals s_m = sum over (circuit, {outcome:
+    weight}) of weight . frequencies, the frequencies of each circuit
+    multinomial with `shots` draws from probs[circuit] ({outcome: p}):
+    each circuit adds W (diag p - p p^T) W^T / shots over its functionals."""
+    uses = {}
+    for m, terms in enumerate(slopes):
+        for c, w in terms:
+            uses.setdefault(c, []).append((m, w))
+    cov = np.zeros((len(slopes), len(slopes)))
+    for c, mw in uses.items():
+        outs = list(probs[c].keys())
+        p = np.array([probs[c][o] for o in outs])
+        W = np.array([[w.get(o, 0.0) for o in outs] for _, w in mw])
+        idx = np.array([m for m, _ in mw])
+        cov[np.ix_(idx, idx)] += W @ (np.diag(p) - np.outer(p, p)) @ W.T / shots
+    return cov
+
+
+def apply_slopes(slopes, ds):
+    """Each functional's value on the dataset's frequencies."""
+    return np.array([sum(sum(wt * ds[c][o] / ds[c].total for o, wt in w.items())
+                         for c, w in terms) for terms in slopes])
+
+
+def idt_protocol_linear_map(design, outcomes):
+    """IdleTomography.run's estimate as a linear map of its slopes: (slopes
+    as functionals of the frequencies, R, the rates' keys) with rates = R s
+    (its slopes are unweighted linear fits, its rates least-squares
+    solutions of fixed design matrices)."""
+    from pygsti_tpu_torch.extras.idletomography.idtcore import (_joint_pair_design,
+                                                                _weight1_design_matrix)
+    import itertools
+    Ns = np.asarray(design.max_lengths, dtype=float)
+    c = np.polyfit(Ns, np.eye(len(Ns)), 1)[0]
+    qpos = {q: i for i, q in enumerate(design.qubit_labels_list)}
+
+    def slope(table_key_of_N, qubits):
+        return [(table_key_of_N(N), parity_weights(outcomes, [qpos[q] for q in qubits], ck))
+                for N, ck in zip(design.max_lengths, c)]
+    slopes, blocks, keys = [], [], []
+    M1, cols1 = _weight1_design_matrix()
+    for q in design.qubit_labels_list:
+        for prep, meas in itertools.product('XYZ', 'XYZ'):
+            slopes.append(slope(lambda N: design.circuit_table[(q, prep, meas, N)], (q,)))
+        blocks.append(np.linalg.pinv(M1))
+        keys += [(q, col) for col in cols1]
+    M2, col_keys, row_specs = _joint_pair_design()
+    keep = [i for i, k in enumerate(col_keys) if k[0] == 'S' and isinstance(k[1], tuple)]
+    for pair in sorted({k[0] for k in design.pair_table}):
+        for spec in row_specs:
+            if spec[0] == 'single':
+                _, which, prep, meas = spec
+                q = pair[which]
+                slopes.append(slope(lambda N: design.circuit_table[(q, prep, meas, N)], (q,)))
+            else:
+                _, kind, pq = spec
+                qubits = pair if kind == 'joint' else ((pair[0],) if kind == 'marg1'
+                                                       else (pair[1],))
+                slopes.append(slope(lambda N: design.pair_table[(pair, pq, N)], qubits))
+        blocks.append(np.linalg.pinv(M2)[keep])
+        keys += [(pair, col_keys[i]) for i in keep]
+    R = np.zeros((sum(b.shape[0] for b in blocks), len(slopes)))
+    r = s = 0
+    for b in blocks:
+        R[r:r + b.shape[0], s:s + b.shape[1]] = b
+        r, s = r + b.shape[0], s + b.shape[1]
+    return slopes, R, keys
+
+
+def idt_protocol_rates(res, keys):
+    return np.array([res.pair_rates[k[0]][k[1]] if isinstance(k[0], tuple)
+                     else res.intrinsic_rates[k[0]][k[1]] for k in keys])
+
+
+def do_idt_linear_map(res, outcomes):
+    """do_idle_tomography's estimate ('separate' Jacobians, fit order 1) as
+    a linear map of its observed rates, each a weighted linear fit whose
+    weights are taken as fixed: (slopes as functionals of the frequencies,
+    R) with [stochastic, affine, hamiltonian] = R s over the rates it
+    extracted."""
+    ne = len(res.error_list)
+    prep_dict, meas_dict = res.prep_basis_strs, res.meas_basis_strs
+    slopes, rows_same, rows_ham, rows_aff = [], [], [], []
+    for typ in ('samebasis', 'diffbasis'):
+        for (prep, meas), infos in zip(res.pauli_fidpairs.get(typ, []),
+                                       res.observed_rate_infos.get(typ, [])):
+            pf, mf = prep.to_circuit(prep_dict), meas.to_circuit(meas_dict)
+            circuits = [pf + res.idle_str * L + mf for L in res.max_lengths]
+            for key, info in infos.items():
+                c = np.polyfit(res.max_lengths, np.eye(len(circuits)), 1,
+                               w=info['weights'])[0]
+                if typ == 'samebasis':
+                    ws = [{(key.rep,): ck} for ck in c]
+                    rows_same.append(info['jacobian row'])
+                else:
+                    pos = [i for i, ch in enumerate(key.rep) if ch != 'I']
+                    sign = np.prod([meas.signs[i] for i in pos])
+                    ws = [parity_weights(outcomes, pos, sign * ck) for ck in c]
+                    rows_ham.append(info['jacobian row'])
+                    if 'affine jacobian row' in info:
+                        rows_aff.append(info['affine jacobian row'])
+                slopes.append(list(zip(circuits, ws)))
+    n_same = len(rows_same)
+    rates = res.intrinsic_rates
+    J = np.array(rows_same)
+    if 'affine' not in rates:
+        J = J[:, :ne]
+    P_same = np.linalg.pinv(J)
+    blocks = [P_same[:ne]] + ([P_same[ne:]] if 'affine' in rates else [])
+    R = np.zeros((ne * (len(blocks) + 1), len(slopes)))
+    for i, b in enumerate(blocks):
+        R[i * ne:(i + 1) * ne, :n_same] = b
+    P_ham = np.linalg.pinv(np.array(rows_ham))
+    R[-ne:, n_same:] = P_ham
+    if 'affine' in rates and rows_aff:
+        R[-ne:, :n_same] = -P_ham @ np.array(rows_aff) @ P_same[ne:]
+    return slopes, R
+
+
+def do_idt_rates(res):
+    rates = res.intrinsic_rates
+    return np.concatenate([rates['stochastic']] + ([rates['affine']] if 'affine' in rates
+                                                   else []) + [rates['hamiltonian']])
+
+
+def phase_idt_crosstalk(device):
+    """Phase 33: idle tomography and crosstalk detection on ibmq_bogota's
+    first 4 qubits (a line; d 256), through the runners.  (a) An explicit
+    model with static gates and a global idle exp(Lindblad 'H+s', weight <=
+    2) of planted rates; an IdleTomographyDesign (maxweight 2) beside
+    do_idle_tomography's circuits, drawn by DataCountsSimulator at 100,000
+    shots on the card; IdleTomography through SimpleRunner, and
+    do_idle_tomography on the same counts; every rate of both within 5
+    standard errors (the binomial variances propagated through the slope
+    fits and the least-squares inversions) of the same pipelines on the
+    exact probabilities.  (b) A cloud-crosstalk model whose Gxpi2 on Q1
+    carries an 'XX' Hamiltonian error on Q1 and Q2; 600 random circuits of
+    crosstalk_detection_experiment at 100 shots drawn on the card;
+    do_basic_crosstalk_detection finds the edge between Q1's setting and
+    Q2's outcome, and none on data of the model without the error.  (a) and (b)
+    run again as the two children of one combined design through a
+    TreeRunner, each result held equal to its direct run."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.data.dataset import DataSet
+    from pygsti_tpu_torch.extras import devices
+    from pygsti_tpu_torch.extras.crosstalk import (crosstalk_detection_experiment,
+                                                   do_basic_crosstalk_detection)
+    from pygsti_tpu_torch.extras.idletomography import (IdleTomography,
+                                                        IdleTomographyDesign,
+                                                        do_idle_tomography,
+                                                        make_idle_tomography_list, idttools)
+    from pygsti_tpu_torch.models.modelconstruction import (create_cloud_crosstalk_model,
+                                                           create_explicit_model)
+    from pygsti_tpu_torch.modelmembers.operations import ExpErrorgenOp, build_lindblad_errorgen
+    from pygsti_tpu_torch.protocols.protocol import (CombinedExperimentDesign,
+                                                     DataCountsSimulator, ExperimentDesign,
+                                                     Protocol, ProtocolData, ProtocolResults,
+                                                     SimpleRunner, TreeRunner)
+    t_phase = time.time()
+    pspec = devices.create_processor_spec('ibmq_bogota', ('Gxpi2', 'Gypi2'),
+                                          qubitsubset=list(IDT_QUBITS))
+    nq = len(IDT_QUBITS)
+    log("idt: processor spec of ibmq_bogota's qubits %s: gates %s, edges %s"
+        % (pspec.qubit_labels, pspec.gate_names, pspec.qubit_graph.edges()))
+
+    # -- (a) idle tomography -------------------------------------------------
+    t0 = time.time()
+    model = create_explicit_model(pspec, ideal_gate_type='static')
+    model.operations[Label(())] = ExpErrorgenOp(build_lindblad_errorgen(
+        'pp', 'H+s', dim=4 ** nq, max_weight=2))
+    idttools.set_idle_errors(nq, model, IDT_RATES)
+    ham_p, sto_p, _ = idttools.predicted_intrinsic_rates(nq, 2, model)
+    design = IdleTomographyDesign(IDT_QUBITS, max_lengths=IDT_MAX_LENGTHS, maxweight=2)
+    to_q = {i: q for i, q in enumerate(IDT_QUBITS)}
+    functional = make_idle_tomography_list(nq, IDT_MAX_LENGTHS, (IDT_PREP_DICT, IDT_MEAS_DICT),
+                                           maxweight=2)
+    func_q = [c.map_state_space_labels(to_q) for c in functional]
+    idt_node = CombinedExperimentDesign({'design': design,
+                                         'functional': ExperimentDesign(func_q, IDT_QUBITS)})
+    build_s = time.time() - t0
+    t0 = time.time()
+    data = DataCountsSimulator(model, IDT_SHOTS, seed=2026, device=device).run(idt_node)
+    exact = DataCountsSimulator(model, IDT_SHOTS, sample_error='none',
+                                device=device).run(idt_node)
+    torch.cuda.synchronize()
+    sim_s = time.time() - t0
+    log("idt: %d parameters on the global idle (%d weight <= 2 error generators), %d "
+        "design + %d do_idle_tomography circuits (depth <= %d), built in %.2f s; two datasets "
+        "(%d shots, and the exact expectation) drawn on the card in %.2f s"
+        % (model.operations[Label(())].num_params, len(idttools.allerrors(nq, 2)),
+           len(design.all_circuits_needing_data), len(func_q),
+           max(c.depth for c in idt_node.all_circuits_needing_data), build_s,
+           IDT_SHOTS, sim_s))
+
+    def by_int(ds):
+        """The counts of do_idle_tomography's circuits keyed by them (it
+        labels qubits 0..n-1; the model's are ibmq_bogota's)."""
+        out = DataSet()
+        for ci, cq in zip(functional, func_q):
+            out.add_count_dict(ci, dict(ds[cq].counts))
+        return out
+    t0 = time.time()
+    runs = {}
+    for tag, d in (('noisy', data), ('exact', exact)):
+        rd = SimpleRunner(IdleTomography(), edesign_type=IdleTomographyDesign).run(d)
+        if rd.for_protocol or rd['functional'].for_protocol or \
+                'IdleTomography' not in rd['design'].for_protocol:
+            raise SystemExit("idt: SimpleRunner ran on nodes other than the design")
+        runs[tag] = (rd['design'].for_protocol['IdleTomography'],
+                     do_idle_tomography(nq, by_int(d.dataset), list(IDT_MAX_LENGTHS),
+                                        (IDT_PREP_DICT, IDT_MEAS_DICT), maxweight=2))
+    fit_s = time.time() - t0
+    outcomes = list(exact.dataset[func_q[0]].counts.keys())
+    probs = {c: {o: exact.dataset[c][o] / IDT_SHOTS for o in outcomes}
+             for c in idt_node.all_circuits_needing_data}
+    probs_int = {ci: probs[cq] for ci, cq in zip(functional, func_q)}
+    # the protocol's rates
+    slopes, R, keys = idt_protocol_linear_map(design, outcomes)
+    se = np.sqrt(np.diag(R @ slope_covariance(slopes, probs, IDT_SHOTS) @ R.T))
+    rec = float(np.max(np.abs(R @ apply_slopes(slopes, exact.dataset)
+                              - idt_protocol_rates(runs['exact'][0], keys))))
+    z_p = (idt_protocol_rates(runs['noisy'][0], keys)
+           - idt_protocol_rates(runs['exact'][0], keys)) / np.maximum(se, 1e-15)
+    # do_idle_tomography's rates
+    slopes_f, R_f = do_idt_linear_map(runs['exact'][1], outcomes)
+    se_f = np.sqrt(np.diag(R_f @ slope_covariance(slopes_f, probs_int, IDT_SHOTS) @ R_f.T))
+    obs = np.array([info['rate'] for typ in ('samebasis', 'diffbasis')
+                    for infos in runs['exact'][1].observed_rate_infos[typ]
+                    for info in infos.values()])
+    rec_f = float(np.max(np.abs(R_f @ obs - do_idt_rates(runs['exact'][1]))))
+    z_f = (do_idt_rates(runs['noisy'][1]) - do_idt_rates(runs['exact'][1])) / \
+        np.maximum(se_f, 1e-15)
+    ne = len(runs['exact'][1].error_list)
+    ex = runs['exact'][1].intrinsic_rates
+    log("idt: IdleTomography via SimpleRunner and do_idle_tomography on both datasets in %.2f "
+        "s (the exact one's rates from their linear maps: max |diff| %.1e and %.1e); "
+        "protocol: %d rates, standard errors %.2e..%.2e, max |noisy - exact| / se %.2f; "
+        "do_idle_tomography (%s): %d rates, standard errors %.2e..%.2e, max |z| %.2f"
+        % (fit_s, rec, rec_f, len(keys), se.min(), se.max(), np.max(np.abs(z_p)),
+           '+'.join(sorted(ex)), len(z_f), se_f.min(), se_f.max(), np.max(np.abs(z_f))))
+    labels = [str(e) for e in runs['exact'][1].error_list]
+    gaps = {'hamiltonian': ex['hamiltonian'] - ham_p, 'stochastic': ex['stochastic'] - sto_p}
+    log("idt: planted %s; do_idle_tomography on the exact probabilities against "
+        "predicted_intrinsic_rates: H max |gap| %.3e (at %s), S max |gap| %.3e (at %s); its "
+        "rates at the planted labels %s"
+        % (IDT_RATES, np.max(np.abs(gaps['hamiltonian'])),
+           labels[int(np.argmax(np.abs(gaps['hamiltonian'])))], np.max(np.abs(gaps['stochastic'])),
+           labels[int(np.argmax(np.abs(gaps['stochastic'])))],
+           {k: '%.3e' % ex['hamiltonian' if k[0] == 'H' else 'stochastic'][labels.index(k[2:-1])]
+            for k in IDT_RATES}))
+    if not (rec < 1e-10 and rec_f < 1e-10):
+        raise SystemExit("idt: the linear maps behind the standard errors are not the "
+                         "estimators'")
+    if not (np.max(np.abs(z_p)) < 5 and np.max(np.abs(z_f)) < 5):
+        raise SystemExit("idt: a rate lies more than 5 standard errors from the exact "
+                         "probabilities' estimate")
+
+    # -- (b) crosstalk detection --------------------------------------------
+    t0 = time.time()
+    circuits, settings = crosstalk_detection_experiment(pspec, CT_LENGTHS, CT_CIRCUITS, seed=7)
+    by_circuit = {}
+    for c, s in zip(circuits, settings):
+        by_circuit.setdefault(c, s)
+    ct_design = ExperimentDesign(list(by_circuit), IDT_QUBITS)
+    ct_model = create_cloud_crosstalk_model(
+        pspec, lindblad_error_coeffs={'Gxpi2': {('H', 'XX:@0,Q2'): CT_H}})
+    for key, member in ct_model.operation_blks['cloudnoise'].items():
+        if key != ('Gxpi2', ('Q1',)):       # the error on Gxpi2:Q1 only
+            member.from_vector(np.zeros(member.num_params))
+    ct_model._mark_for_rebuild()
+    null_model = create_cloud_crosstalk_model(pspec)
+    ct_data = {}
+    for tag, m in (('crosstalk', ct_model), ('null', null_model)):
+        ds = DataCountsSimulator(m, CT_SHOTS, seed=8, device=device).run(ct_design).dataset
+        for c in ds.keys():
+            ds.auxInfo[c]['settings'] = {(r,): s for r, s in enumerate(by_circuit[c])}
+        ct_data[tag] = ds
+    torch.cuda.synchronize()
+    ct_sim_s = time.time() - t0
+    t0 = time.time()
+    found = {tag: do_basic_crosstalk_detection(ds, nq, settings=[1] * nq, confidence=0.95,
+                                               verbosity=0) for tag, ds in ct_data.items()}
+    ct_s = time.time() - t0
+    log("crosstalk: %d circuits (%d distinct; lengths %s, %d per length, populations of 3 "
+        "sequences) x %d shots drawn on the card for each model in %.2f s; "
+        "do_basic_crosstalk_detection (%d x %d data matrix) on both in %.2f s: pairs "
+        "(setting region, outcome region) %s with the error (max TVD %s), %s without"
+        % (len(circuits), len(by_circuit), CT_LENGTHS, CT_CIRCUITS, CT_SHOTS, ct_sim_s,
+           found['crosstalk'].number_of_datapoints, found['crosstalk'].number_of_columns, ct_s,
+           found['crosstalk'].crosstalk_pairs,
+           {k: '%.3f' % v for k, v in (found['crosstalk'].max_tvds or {}).items()},
+           found['null'].crosstalk_pairs))
+    if not {(1, 2), (2, 1)} & set(found['crosstalk'].crosstalk_pairs):
+        raise SystemExit("crosstalk: the planted edge between Q1's setting and Q2's outcome "
+                         "was not found")
+    if found['null'].crosstalk_pairs:
+        raise SystemExit("crosstalk: edges found on data of the model without crosstalk")
+
+    # -- both through one TreeRunner ----------------------------------------
+    class CrosstalkDetection(Protocol):
+        """do_basic_crosstalk_detection on the node's circuits, one region
+        per qubit."""
+
+        def run(self, data, memlimit=None, comm=None):
+            res = ProtocolResults(data, self)
+            ds = data.dataset.truncate(data.edesign.all_circuits_needing_data)
+            res.crosstalk = do_basic_crosstalk_detection(ds, nq, settings=[1] * nq,
+                                                         confidence=0.95, verbosity=0)
+            return res
+    merged = data.dataset.copy()
+    for c in ct_data['crosstalk'].keys():
+        if c in merged:
+            raise SystemExit("crosstalk: a circuit of both designs")
+        merged.add_count_dict(c, dict(ct_data['crosstalk'][c].counts),
+                              aux=ct_data['crosstalk'].auxInfo[c])
+    top = CombinedExperimentDesign({'idt': idt_node, 'crosstalk': ct_design})
+    t0 = time.time()
+    tree = TreeRunner({('idt', 'design'): IdleTomography(),
+                       ('crosstalk',): CrosstalkDetection()}).run(ProtocolData(top, merged))
+    tree_s = time.time() - t0
+    idt_tree = tree[('idt', 'design')]['IdleTomography']
+    ct_tree = tree[('crosstalk',)]['CrosstalkDetection'].crosstalk
+    same_idt = np.array_equal(idt_protocol_rates(idt_tree, keys),
+                              idt_protocol_rates(runs['noisy'][0], keys))
+    same_ct = (np.array_equal(ct_tree.cmatrix, found['crosstalk'].cmatrix)
+               and ct_tree.graph.edges() == found['crosstalk'].graph.edges()
+               and ct_tree.skel.edges() == found['crosstalk'].skel.edges())
+    log("runners: TreeRunner over the combined design (%d circuits) in %.2f s: the idle "
+        "tomography child's rates equal to the SimpleRunner run's: %s; the crosstalk child's "
+        "graph and crosstalk matrix equal to the direct run's: %s; phase %.1f s"
+        % (len(top.all_circuits_needing_data), tree_s, same_idt, same_ct,
+           time.time() - t_phase))
+    if not (same_idt and same_ct):
+        raise SystemExit("runners: a TreeRunner child's result differs from its direct run")
+
+
+LFH_DEV = 0.01          # phase 34: the fluctuating rates' standard deviation
+LFH_ORDER = 7           # Gauss-Hermite nodes per fluctuating parameter
+LFH_DRAWS = 1000        # the weak simulator's seeded draws
+
+
+def h_rate_index(model, op_label, pauli):
+    """The model-vector index of operation `op_label`'s 'H' rate on basis
+    element `pauli`, checked by moving it alone."""
+    model._rebuild_paramvec_if_needed()
+    op = model.operations[op_label]
+    labels = op.errorgen_coefficient_labels()
+    lbl = next(l for l in labels
+               if l.errorgen_type == 'H' and l.basis_element_labels[0] == pauli)
+    i = op.gpindices.start + [l for l in labels if l.errorgen_type == 'H'].index(lbl)
+    m = model.copy()
+    v = m.to_vector()
+    v[i] += 1e-3
+    m.from_vector(v)
+    moved = {l: abs(m.operations[op_label].errorgen_coefficients()[l]
+                    - op.errorgen_coefficients()[l]) for l in labels}
+    if not (moved[lbl] > 5e-4 and sum(moved.values()) - moved[lbl] < 1e-12):
+        raise SystemExit("lfh: parameter %d is not %s's H(%s) rate" % (i, op_label, pauli))
+    return i
+
+
+def phase_lfh(mp, lists, device):
+    """Phase 34: the fluctuating-Hamiltonian simulators on the card:
+    smq2Q_XYICNOT 'H+s' at its target, the X 'H' rate of Gxpi2:0 and the Y
+    'H' rate of Gypi2:1 fluctuating with standard deviation 0.01, over cell
+    1's maxL-4 list (3,527 circuits), each simulator over one layout of
+    all circuits: integrating (a 7 x 7 Gauss-Hermite grid), sigma-point
+    (nested forward-mode second derivatives) and weak (1,000 seeded draws).
+    At deviation 0 each equals the exact probabilities; integrating within
+    5 Monte-Carlo standard errors of weak; sigma-point's gap to integrating
+    fourth order in the deviation; integrating card against CPU; every
+    circuit's probabilities summing to 1."""
+    from pygsti_tpu_torch.baseobjs.label import Label
+    from pygsti_tpu_torch.extras.lfh import (GaussianParamFluctuation,
+                                             LFHIntegratingForwardSimulator,
+                                             LFHSigmaForwardSimulator, LFHWeakForwardSimulator)
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    t_phase = time.time()
+    circuits = list(lists[2])
+    model = mp.target_model('H+s')
+    idx = [h_rate_index(model, Label('Gxpi2', 0), 'XI'),
+           h_rate_index(model, Label('Gypi2', 1), 'IY')]
+
+    def fluct(dev):
+        return GaussianParamFluctuation({i: dev for i in idx})
+    sim = SimpleForwardSimulator(model, device)
+    exact = torch.as_tensor(sim.bulk_fill_probs(sim.create_layout(circuits)),
+                            dtype=torch.float64, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    zero = {}
+    for name, s in (('integrating', LFHIntegratingForwardSimulator(model, fluct(0.0), LFH_ORDER,
+                                                                   device=device)),
+                    ('sigma-point', LFHSigmaForwardSimulator(model, fluct(0.0), device=device)),
+                    ('weak', LFHWeakForwardSimulator(model, fluct(0.0), 10, base_seed=5,
+                                                     device=device))):
+        zero[name] = float((s.bulk_fill_probs(circuits)[0] - exact).abs().max())
+    timings, out = {}, {}
+    for name, make in (
+            ('integrating', lambda dev: LFHIntegratingForwardSimulator(
+                model, fluct(dev), LFH_ORDER, device=device)),
+            ('sigma-point', lambda dev: LFHSigmaForwardSimulator(model, fluct(dev),
+                                                                 device=device))):
+        for dev in (LFH_DEV, LFH_DEV / 2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out[name, dev], layout = make(dev).bulk_fill_probs(circuits)
+            torch.cuda.synchronize()
+            timings[name, dev] = time.time() - t0
+    weak = LFHWeakForwardSimulator(model, fluct(LFH_DEV), LFH_DRAWS, base_seed=5, device=device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    p_weak, _ = weak.bulk_fill_probs(circuits)
+    torch.cuda.synchronize()
+    timings['weak', LFH_DEV] = time.time() - t0
+    draws, _ = weak._probs_at_offsets(circuits, weak.offsets())
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    se = draws.std(dim=0) / np.sqrt(LFH_DRAWS)
+    integ = out['integrating', LFH_DEV]
+    z = float(((integ - p_weak).abs() / (se + 1e-12)).max())
+    gaps = [float((out['sigma-point', d] - out['integrating', d]).abs().max())
+            for d in (LFH_DEV, LFH_DEV / 2)]
+    ratio = gaps[0] / gaps[1]
+    check = circuits[:: len(circuits) // 200][:200]
+    p_cpu, _ = LFHIntegratingForwardSimulator(model, fluct(LFH_DEV), LFH_ORDER,
+                                              device='cpu').bulk_fill_probs(check)
+    p_card, _ = LFHIntegratingForwardSimulator(model, fluct(LFH_DEV), LFH_ORDER,
+                                               device=device).bulk_fill_probs(check)
+    card_cpu = float((p_card.cpu() - p_cpu).abs().max())
+    sums = max(float((torch.zeros(len(circuits), dtype=torch.float64, device=device)
+                      .index_add_(0, torch.as_tensor(layout.elem_circuit, device=device),
+                                  p) - 1).abs().max())
+               for p in (integ, out['sigma-point', LFH_DEV], p_weak))
+    moved = float((integ - exact).abs().max())
+    log("lfh: %d circuits, %d probabilities; parameters %s fluctuating (dev %g); at dev 0 "
+        "against the exact probabilities: %s (tol 1e-12); at dev %g the probabilities move "
+        "up to %.3e; integrating (%d points) against weak (%d draws): max |diff| / MC se %.2f "
+        "(tol 5); sigma-point - integrating max |gap| %.3e at dev, %.3e at dev/2, ratio %.2f "
+        "(fourth order: 16; held in [8, 32]); integrating card vs CPU on %d circuits %.3e "
+        "(tol 1e-12); |sum - 1| max %.3e (tol 1e-12); seconds %s; peak device memory %.1f "
+        "MB; phase %.1f s"
+        % (len(circuits), layout.num_elements, idx, LFH_DEV,
+           {k: '%.1e' % v for k, v in zero.items()}, LFH_DEV, moved, LFH_ORDER ** 2, LFH_DRAWS,
+           z, gaps[0], gaps[1], ratio, len(check), card_cpu, sums,
+           {'%s@%g' % k: '%.2f' % v for k, v in timings.items()}, peak, time.time() - t_phase))
+    if not max(zero.values()) < 1e-12:
+        raise SystemExit("lfh: a simulator at deviation 0 is not the exact probabilities")
+    if not z < 5:
+        raise SystemExit("lfh: integrating and weak disagree beyond 5 Monte-Carlo errors")
+    if not 8 <= ratio <= 32:
+        raise SystemExit("lfh: the sigma-point gap is not fourth order in the deviation")
+    if not (card_cpu < 1e-12 and sums < 1e-12):
+        raise SystemExit("lfh: the card disagrees with the CPU, or probabilities do not sum "
+                         "to 1")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -3977,7 +4639,19 @@ def main():
     # -- the report quantities of phase 3's estimate ------------------------
     report_launches = phase_report_quantities(target, datagen, fitted, gauged, ds, lists,
                                               device)
-    log("phase 31: %.1f s of the script's wall time" % (time.time() - t14))
+    t15 = time.time()
+    log("phase 31: %.1f s of the script's wall time" % (t15 - t14))
+
+    # -- an interpolated-gate fit, idle tomography and crosstalk through the
+    # -- runners, the fluctuating-Hamiltonian simulators
+    interp_launches = phase_interpolated_fit(mp, lists, builders, device)
+    t16 = time.time()
+    phase_idt_crosstalk(device)
+    t17 = time.time()
+    phase_lfh(mp, lists, device)
+    t18 = time.time()
+    log("phases 32, 33 and 34: %.1f s, %.1f s and %.1f s of the script's wall time; the "
+        "script %.1f s" % (t16 - t15, t17 - t16, t18 - t17, t18 - T_START))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -3988,7 +4662,7 @@ def main():
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
         + cloud3_launches + stat_launches + driver_launches + boot_launches
         + selection_launches + td_launches + sum(fogi_launches.values())
-        + sum(leak_launches.values()) + report_launches,
+        + sum(leak_launches.values()) + report_launches + interp_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -4000,7 +4674,8 @@ def main():
                                     "bootstrap": boot_launches,
                                     "design-selection fit": selection_launches,
                                     "time-resolved fit": td_launches}, **fogi_launches,
-                                 **leak_launches, **{"jacobian check": report_launches}),
+                                 **leak_launches, **{"jacobian check": report_launches,
+                                                     "interpolated-gate fit": interp_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -1,6 +1,6 @@
 """Carry a JAX-package model's parameters, its instruments, its composite
-layers, an implicit model's registered layers and its gauge-group elements
-into the port.
+layers, its interpolated operations, an implicit model's registered layers
+and its gauge-group elements into the port.
 
 The functions take plain numpy data -- what ``pygsti_tpu``'s
 ``model.to_vector()``, its members' dense matrices or a gauge group's
@@ -56,6 +56,26 @@ def instrument_from_dense(kind, members):
     if kind == 'static':
         return Instrument(members)
     raise ValueError("unknown instrument kind %r ('TP', 'full' or 'static')" % (kind,))
+
+
+def interpolated_model(template, interpolated_ops):
+    """A copy of the port's `template` model with each operation of
+    `interpolated_ops` ({label string: (grid axes, samples, point)}, the
+    numpy arrays of a JAX-package InterpolatedDenseOp: its ``grid_axes``,
+    ``samples`` and ``to_vector()``) replaced by the port's
+    InterpolatedDenseOp of the same arrays.  A replaced operation keeps its
+    place, so the copy orders its parameters as a JAX model whose same
+    operations were replaced."""
+    from pygsti_tpu_torch.extras.interpygate.core import InterpolatedDenseOp
+    m = template.copy()
+    for lbl, (axes, samples, point) in interpolated_ops.items():
+        key = parse_label_str(lbl)
+        if key not in m.operations:
+            raise KeyError("the template has no operation %s" % lbl)
+        m.operations[key] = InterpolatedDenseOp([np.asarray(a, dtype=float) for a in axes],
+                                                np.asarray(samples, dtype=float),
+                                                np.asarray(point, dtype=float))
+    return m
 
 
 def register_composite_layers(model, layers):

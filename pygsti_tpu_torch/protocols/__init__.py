@@ -1,12 +1,12 @@
 """Protocols: the top-level user API (counterpart of
-pygsti_tpu/protocols).  The JAX package's runners and data simulators of
-protocols/protocol.py (DefaultRunner, MultiPassProtocol, TreeRunner, ...)
-are not ported yet (ROADMAP.md queue 1, item 7)."""
+pygsti_tpu/protocols)."""
 
 from pygsti_tpu_torch.protocols.protocol import (
     ExperimentDesign, CircuitListsDesign, CombinedExperimentDesign,
     SimultaneousExperimentDesign, FreeformDesign, ProtocolData, Protocol,
-    ProtocolResults, ProtocolResultsDir, ProtocolCheckpoint,
+    ProtocolResults, ProtocolResultsDir, ProtocolCheckpoint, DefaultRunner,
+    MultiPassProtocol, MultiPassResults, ProtocolPostProcessor, TreeRunner, SimpleRunner,
+    SlurmSettings, DataCountsSimulator,
 )
 from pygsti_tpu_torch.protocols.gst import (
     GateSetTomographyDesign, StandardGSTDesign, GSTInitialModel, GSTBadFitOptions,

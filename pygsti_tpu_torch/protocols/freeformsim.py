@@ -8,14 +8,7 @@ import torch
 
 from pygsti_tpu_torch import DTYPE
 from pygsti_tpu_torch.data.freedataset import FreeformDataSet
-from pygsti_tpu_torch.protocols.protocol import ProtocolData
-
-
-class DataSimulator(object):
-    """Base: run(edesign) -> ProtocolData."""
-
-    def run(self, edesign, memlimit=None, comm=None):
-        raise NotImplementedError
+from pygsti_tpu_torch.protocols.protocol import DataSimulator, ProtocolData
 
 
 class FreeformDataSimulator(DataSimulator):

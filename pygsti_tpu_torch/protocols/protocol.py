@@ -6,7 +6,11 @@ the JAX package wrote reads here: its module names are read as the port's
 (``resolve_module_name``).  The combined, simultaneous and freeform
 designs write their children and auxiliary information and read back as
 what they were (the JAX package's three do not read back: ROADMAP.md
-section 3); the runners are not ported yet.  Host work only."""
+section 3).  The runners walk a data tree; DataCountsSimulator draws a
+design's data through data.simulate_data on its device.  Host work
+otherwise.  (The JAX package's Protocol.run_mpi and stage_slurm, which
+stage a multi-host run through tools/launchtools.py, are not ported:
+ROADMAP.md queue 1, item 10.)"""
 
 from __future__ import annotations
 
@@ -333,3 +337,172 @@ class ProtocolCheckpoint(NicelySerializable):
     def __init__(self, name, parent=None):
         self.name = name
         self.parent = parent
+
+
+class MultiPassResults(ProtocolResults):
+    """The results of one protocol on each pass of a multi-pass dataset,
+    by pass name (``passes``)."""
+
+    def __init__(self, data, protocol_instance, passes=None):
+        super().__init__(data, protocol_instance)
+        self.passes = collections.OrderedDict(passes or {})
+
+    def to_nice_serialization(self):
+        state = super().to_nice_serialization()
+        state['pass_names'] = list(self.passes.keys())
+        return state
+
+
+class MultiPassProtocol(Protocol):
+    """Runs a protocol on each pass of a MultiDataSet (a plain DataSet is
+    one pass, named None)."""
+
+    def __init__(self, protocol, name=None):
+        super().__init__(name or ('MultiPass' + protocol.name))
+        self.protocol = protocol
+
+    def run(self, data, memlimit=None, comm=None):
+        from pygsti_tpu_torch.data.multidataset import MultiDataSet
+        ds = data.dataset
+        passes = collections.OrderedDict()
+        if isinstance(ds, MultiDataSet):
+            for pass_name in ds.keys():
+                passes[pass_name] = self.protocol.run(ProtocolData(data.edesign, ds[pass_name]),
+                                                      memlimit, comm)
+        else:
+            passes[None] = self.protocol.run(data, memlimit, comm)
+        return MultiPassResults(data, self, passes)
+
+
+class ProtocolPostProcessor(object):
+    """A protocol that runs on results rather than on data."""
+
+    def __init__(self, name=None):
+        self.name = name or type(self).__name__
+
+    def run(self, results, memlimit=None, comm=None):
+        raise NotImplementedError()
+
+
+class ProtocolRunner(object):
+    """Base class of the runners: run(data) -> ProtocolResultsDir over a
+    whole data tree."""
+
+    def run(self, data, memlimit=None, comm=None):
+        raise NotImplementedError("Derived classes should implement run()")
+
+
+class DefaultRunner(ProtocolRunner):
+    """Runs one protocol on every node of a data tree."""
+
+    def __init__(self, protocol):
+        self.protocol = protocol
+
+    def run(self, data, memlimit=None, comm=None):
+        results = {self.protocol.name: self.protocol.run(data, memlimit, comm)}
+        children = {k: self.run(sub, memlimit, comm) for k, sub in data.items()}
+        return ProtocolResultsDir(data, results, children)
+
+
+class TreeRunner(ProtocolRunner):
+    """Runs given protocols on given nodes: `protocol_dict` maps a path of
+    keys (a tuple, () the root) to a Protocol.  The root's results are the
+    directory's own; each other path's results are its child under the
+    path tuple, as in the JAX package."""
+
+    def __init__(self, protocol_dict):
+        self.protocols = dict(protocol_dict)
+
+    def run(self, data, memlimit=None, comm=None):
+        results = {}
+        for path, proto in self.protocols.items():
+            node = data
+            for k in path:
+                node = node[k]
+            results.setdefault(path, {})[proto.name] = proto.run(node, memlimit, comm)
+        children = {path: res for path, res in results.items() if path}
+        return ProtocolResultsDir(data, results.get((), {}), children)
+
+
+class SimpleRunner(ProtocolRunner):
+    """Runs one protocol on every node that has data and whose design is an
+    `edesign_type` ('all': any design).  A node of another design type is
+    skipped; a protocol that fails on a node raises (the JAX package's
+    runner skips every node whose run raises: ROADMAP.md section 3)."""
+
+    def __init__(self, protocol, protocol_can_handle_multipass_data=False, edesign_type='all'):
+        self.protocol = protocol
+        self.edesign_type = edesign_type
+
+    def run(self, data, memlimit=None, comm=None):
+        results = {}
+        if data.dataset is not None and (self.edesign_type == 'all'
+                                         or isinstance(data.edesign, self.edesign_type)):
+            results[self.protocol.name] = self.protocol.run(data, memlimit, comm)
+        children = {k: self.run(sub, memlimit, comm) for k, sub in data.items()}
+        return ProtocolResultsDir(data, results, children)
+
+
+class SlurmSettings(object):
+    """SLURM job settings of a staged multi-host run."""
+
+    def __init__(self, num_nodes=1, num_procs_per_node=1, time_limit=None,
+                 partition=None, account=None, extra_sbatch_lines=()):
+        self.num_nodes = num_nodes
+        self.num_procs_per_node = num_procs_per_node
+        self.time_limit = time_limit
+        self.partition = partition
+        self.account = account
+        self.extra_sbatch_lines = tuple(extra_sbatch_lines)
+
+
+class CanCreateAllCircuitsDesign(ExperimentDesign):
+    """A design whose circuits can be made again from its other attributes."""
+
+    def _create_all_circuits_needing_data(self):
+        raise NotImplementedError("Derived classes should implement this")
+
+
+class DataSimulator(object):
+    """Base of the data simulators: run(edesign) -> ProtocolData."""
+
+    def run(self, edesign, memlimit=None, comm=None):
+        raise NotImplementedError("Derived classes should implement run()")
+
+
+class DataCountsSimulator(DataSimulator):
+    """Counts drawn from a model for a design's circuits, by
+    data.simulate_data on `device` with every one of its options (the JAX
+    package's simulator drops alias_dict, collision_action,
+    record_zero_counts and times: ROADMAP.md section 3)."""
+
+    def __init__(self, model, num_samples=1000, sample_error='multinomial', seed=None,
+                 alias_dict=None, collision_action='aggregate', record_zero_counts=True,
+                 times=None, device="cuda"):
+        self.model = model
+        self.num_samples = num_samples
+        self.sample_error = sample_error
+        self.seed = seed
+        self.alias_dict = alias_dict
+        self.collision_action = collision_action
+        self.record_zero_counts = record_zero_counts
+        self.times = times
+        self.device = device
+
+    def run(self, edesign, memlimit=None, comm=None):
+        from pygsti_tpu_torch.data.datasetconstruction import simulate_data
+        ds = simulate_data(self.model, list(edesign.all_circuits_needing_data), self.num_samples,
+                           sample_error=self.sample_error, seed=self.seed,
+                           alias_dict=self.alias_dict, collision_action=self.collision_action,
+                           record_zero_counts=self.record_zero_counts, times=self.times,
+                           device=self.device)
+        return ProtocolData(edesign, ds)
+
+
+def run_default_protocols(data, memlimit=None, comm=None):
+    """Runs the protocols each design of the tree names in its
+    ``default_protocols`` ({name: Protocol}) on its node."""
+    results = {name: protocol.run(data, memlimit, comm)
+               for name, protocol in getattr(data.edesign, 'default_protocols', {}).items()}
+    children = {k: run_default_protocols(sub, memlimit, comm) for k, sub in data.items()}
+    return ProtocolResultsDir(data, results, children)

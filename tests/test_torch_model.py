@@ -520,3 +520,43 @@ def test_gauge_structure_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def test_extras_and_runner_modules_import_no_jax():
+    """The runners' and the extras' modules load, and crosstalk
+    detection, a device's processor spec from the port's own
+    device_data.json and an interpolated gate's Tv run, in a process that
+    cannot import networkx and ends with neither JAX nor pygsti_tpu
+    imported."""
+    new = ('protocols.protocol', 'protocols.treenode', 'extras.devices',
+           'extras.devices.devcore', 'extras.devices.experimentaldevice',
+           'extras.idletomography', 'extras.idletomography.idtcore',
+           'extras.idletomography.idttools', 'extras.idletomography.pauliobjs',
+           'extras.idletomography.idtresults', 'extras.crosstalk', 'extras.crosstalk.core',
+           'extras.crosstalk.objects', 'extras.crosstalk.pcalg', 'extras.paritybenchmarking',
+           'extras.interpygate', 'extras.interpygate.process_tomography', 'extras.lfh',
+           'extras.lfh.lfherrorgen', 'extras.lfh.lfhmodel', 'extras.lfh.lfhforwardsims',
+           'extras.ibmq')
+    code = ("import sys, importlib\n"
+            "sys.modules['networkx'] = None\n"
+            "import numpy as np, torch\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "from pygsti_tpu_torch.extras import crosstalk, devices, interpygate\n"
+            "rng = np.random.RandomState(0)\n"
+            "s = rng.randint(0, 2, (3000, 2)); o = rng.randint(0, 2, (3000, 2))\n"
+            "o[:, 0] = rng.rand(3000) < 0.2 + 0.6 * s[:, 1]\n"
+            "r = crosstalk.do_basic_crosstalk_detection(np.hstack([o, s]), 2, verbosity=0)\n"
+            "assert r.crosstalk_pairs, r.crosstalk_pairs\n"
+            "p = devices.create_processor_spec('ibmq_bogota', ('Gxpi2',), qubitsubset=['Q0', 'Q1'])\n"
+            "assert p.qubit_graph.edges() == [('Q0', 'Q1')]\n"
+            "op = interpygate.InterpolatedDenseOp([np.linspace(0, 1, 3)], rng.randn(3, 4, 4))\n"
+            "J = torch.func.jacfwd(op.to_dense)(torch.tensor([0.3], dtype=torch.float64))\n"
+            "assert J.shape == (4, 4, 1)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')\n"
+            "       and sys.modules[m] is not None]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'

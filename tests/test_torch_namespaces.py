@@ -22,20 +22,14 @@ import pygsti_tpu_torch  # noqa: F401
 
 NAMESPACES = ['', 'algorithms', 'baseobjs', 'circuits', 'data', 'extras', 'forwardsims',
               'layouts', 'modelmembers', 'models', 'objectivefns', 'optimize', 'protocols',
-              'tools', 'processors', 'io', 'serialization', 'drivers', 'ops']
+              'tools', 'processors', 'io', 'serialization', 'drivers', 'ops',
+              'extras.crosstalk', 'extras.devices', 'extras.ibmq', 'extras.idletomography',
+              'extras.interpygate', 'extras.lfh', 'extras.paritybenchmarking']
 
 # name -> the ROADMAP.md queue 1 item that ports it
 NOT_PORTED = {
-    # item 7: the extras and the remaining protocol pieces
-    'extras.crosstalk': 7, 'extras.devices': 7, 'extras.ibmq': 7,
-    'extras.idletomography': 7, 'extras.interpygate': 7, 'extras.lfh': 7,
-    'extras.paritybenchmarking': 7,
-    'protocols.DataCountsSimulator': 7, 'protocols.DefaultRunner': 7,
-    'protocols.MultiPassProtocol': 7, 'protocols.MultiPassResults': 7,
-    'protocols.ProtocolPostProcessor': 7, 'protocols.SimpleRunner': 7,
-    'protocols.SlurmSettings': 7, 'protocols.TreeRunner': 7, 'protocols.treenode': 7,
-    # item 8: reports
-    'report': 8, 'rpt': 8,
+    # item 8: reports (idle tomography's report comes with them)
+    'report': 8, 'rpt': 8, 'extras.idletomography.create_idletomography_report': 8,
     # item 9: the remaining Jacobian and probability modes (the simulator
     # base class with dprobs/hprobs, its aliases, the product cache)
     'forwardsims.ForwardSimulator': 9, 'forwardsims.MapForwardSimulator': 9,
@@ -130,8 +124,8 @@ def test_listed_names_are_public_in_jax_and_absent_here(key):
 
 
 def test_not_ported_items_are_later_queue_items():
-    """The list holds only queue 1 items 7-10 (item 6 is this slice)."""
-    assert set(NOT_PORTED.values()) <= {7, 8, 9, 10}
+    """The list holds only queue 1 items 8-10 (item 7 is ported)."""
+    assert set(NOT_PORTED.values()) <= {8, 9, 10}
 
 
 def test_top_level_names_are_the_jax_packages():
