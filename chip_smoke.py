@@ -216,6 +216,20 @@ Phases, each fatal on failure:
                 sigma-point, weak) on smq2Q_XYICNOT 'H+s' over the maxL-4
                 list: exact at deviation 0, integrating within 5 MC errors
                 of weak, the sigma-point gap fourth order, card against CPU
+ 35. report  -- phase 3's results, not refitted, through
+                construct_standard_report(results, confidence_level=95)
+                .write_html, write_pdf and create_report_notebook: every
+                section of the page, an error bar in every gate-metric cell
+                but unitarity's and in every prep cell (the Gauss-Newton
+                Hessian through the kernel, against its plain version; its
+                own launch count), N_sigma, the box plot's per-circuit values
+                against the final 2*DeltaLogL, the dependency-restricted
+                error bar against every parameter differenced and phase 21's,
+                the diamond norm's linearization against central differences
+                of the maximization, the kernel at the Hessian's buckets.
+                Phases 25, 28, 29 and 33 also write their reports (VB plots,
+                drift, FOGI diagram, idle tomography) and find their own
+                numbers in them
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -2074,7 +2088,7 @@ def phase_statistics(mp, est, target, datagen, lists, builders, device):
     if not rel50 < 1e-10:
         raise SystemExit("the Fisher information disagrees with its per-circuit sum")
     log("phase 21: %.1f s of the script's wall time" % (time.time() - t_phase))
-    return launches, bars[(('Gxpi2', 0), 'exact')]
+    return launches, bars
 
 
 def num_buckets(layout, model, device):
@@ -2581,6 +2595,7 @@ def phase_mirror(device):
                                                    mirror_benchmark)
     from pygsti_tpu_torch.protocols.vb import ByDepthSummaryStatistics, PeriodicMirrorCircuitDesign
     from pygsti_tpu_torch.protocols.vbdataframe import VBDataFrame
+    from pygsti_tpu_torch.report import vbplot
     from pygsti_tpu_torch.tools import optools
     t_phase = time.time()
 
@@ -2690,6 +2705,14 @@ def phase_mirror(device):
     means = vb.vb_data('polarization', 'mean', lower_cutoff=-np.inf)
     regions = vb.capability_regions('polarization', threshold=1 / np.e)
     analysis_s = time.time() - t0
+    page, page_bytes, page_s = written(text_writer(
+        vbplot.volumetric_plot_html(means, title='VB') + vbplot.capability_region_plot_html(vb)),
+        'vb.html')
+    shown = sum(('Depth=%s Width=%s: %.3f' % (d, w, v)) in page for (d, w), v in means.items())
+    log("vb: volumetric and capability-region plots written in %.3f s, %d bytes; %d of the %d "
+        "mean polarizations shown" % (page_s, page_bytes, shown, len(means)))
+    if shown != len(means):
+        raise SystemExit("vb: the plot lacks the phase's mean polarizations")
     log("vb: %d periodic mirror circuits (widths 1-4, depths %s, 10 each; depth up to %d) in "
         "%.2f s on the host; the stabilizer simulator gives %d of them their ideal outcome with "
         "probability 1; simulate_data(1000 shots) on the card %.2f s; card vs CPU on %d circuits "
@@ -3088,6 +3111,7 @@ def phase_drift_detection(mp, lists, device):
     from pygsti_tpu_torch.extras.drift import signal
     from pygsti_tpu_torch.protocols.protocol import ProtocolData
     from pygsti_tpu_torch.protocols.stability import StabilityAnalysis, StabilityAnalysisDesign
+    from pygsti_tpu_torch.report.factory import create_drift_report
     t_phase = time.time()
     circuits = list(lists[2])
     if len(circuits) != DRIFT_CIRCUITS:
@@ -3162,6 +3186,13 @@ def phase_drift_detection(mp, lists, device):
         "the CPU path on 100 circuits: max abs diff %.3e (tol 1e-12); phase %.1f s"
         % (len(must), len(must & got), len(others), [c.str for c in others][:3], spec_err,
            time.time() - t_phase))
+    page, page_bytes, page_s = written(create_drift_report(res).write_html, 'drift.html')
+    rows = page.count('<tr><td style="font-family:monospace">')
+    log("drift drifting: create_drift_report written in %.3f s, %d bytes: '%d drifting' %s, "
+        "%d rows of drifting circuits" % (page_s, page_bytes, len(flagged),
+                                          '%d drifting' % len(flagged) in page, rows))
+    if '%d drifting' % len(flagged) not in page or rows != len(flagged):
+        raise SystemExit("drift: the report lacks the flagged circuits")
     if not res.instability_detected:
         raise SystemExit("drift: no drift detected in the drifting data")
     if len(others) > 1:
@@ -3213,6 +3244,7 @@ def phase_fogi_fit(mp, lists, builders, device):
     from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
                                                 GSTInitialModel)
     from pygsti_tpu_torch.protocols.protocol import ProtocolData
+    from pygsti_tpu_torch.report.fogidiagram import FOGIDiagram
     from pygsti_tpu_torch.tools.optools import entanglement_infidelity
     t_phase = time.time()
     final = list(lists[-1])
@@ -3357,6 +3389,22 @@ def phase_fogi_fit(mp, lists, builders, device):
                          % z.max())
     if not np.max(np.abs(fa.fogi_errorgen_components_array() - theta_a)) < 1e-10:
         raise SystemExit("fogi: fit (a)'s parameters are not its model's FOGI components")
+    diagram = FOGIDiagram(fa)
+    t0 = time.time()
+    rows = diagram.rates_table()
+    page, page_bytes, page_s = written(diagram.write_html, 'fogi.html')
+    meta = fa.fogi_store.fogi_metadata
+    store_rows = sorted((m['name'], float(r), 'intrinsic' if m['gaugespace_dir'] is None
+                         else 'relational')
+                        for m, r in zip(meta, fa.fogi_errorgen_components_array()))
+    shown = sum(('%.3e' % r) in page for _, r, _ in rows[:50])
+    log("fogi: FOGIDiagram of fit (a): %d rates (%d intrinsic), the table equal to the store's "
+        "components %s; written in %.3f s (the table %.3f s), %d bytes, %d of the 50 largest "
+        "rates shown" % (len(rows), sum(k == 'intrinsic' for _, _, k in rows),
+                         sorted(rows) == store_rows, page_s, time.time() - t0 - page_s,
+                         page_bytes, shown))
+    if sorted(rows) != store_rows or shown != min(50, len(rows)):
+        raise SystemExit("fogi: the diagram's rates are not the store's")
 
     errs, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
         layout, fa, device, 'fogi fit')
@@ -4056,6 +4104,7 @@ def phase_idt_crosstalk(device):
                                                    do_basic_crosstalk_detection)
     from pygsti_tpu_torch.extras.idletomography import (IdleTomography,
                                                         IdleTomographyDesign,
+                                                        create_idletomography_report,
                                                         do_idle_tomography,
                                                         make_idle_tomography_list, idttools)
     from pygsti_tpu_torch.models.modelconstruction import (create_cloud_crosstalk_model,
@@ -4163,6 +4212,18 @@ def phase_idt_crosstalk(device):
     if not (np.max(np.abs(z_p)) < 5 and np.max(np.abs(z_f)) < 5):
         raise SystemExit("idt: a rate lies more than 5 standard errors from the exact "
                          "probabilities' estimate")
+    noisy = runs['noisy'][0]
+    page, page_bytes, page_s = written(
+        lambda path: create_idletomography_report(noisy, path), 'idt.html')
+    rates = [v for q in IDT_QUBITS for k, v in noisy.intrinsic_rates[q].items()
+             if isinstance(k, tuple)]
+    rates += [v for pr in noisy.pair_rates.values() for v in pr.values() if abs(v) > 1e-6]
+    shown = sum(('<td>%.3e</td>' % v) in page for v in rates)
+    log("idt: create_idletomography_report of the protocol's results written in %.3f s, %d "
+        "bytes; %d of its %d intrinsic and pair rates shown" % (page_s, page_bytes, shown,
+                                                                len(rates)))
+    if shown != len(rates):
+        raise SystemExit("idt: the report lacks the protocol's rates")
 
     # -- (b) crosstalk detection --------------------------------------------
     t0 = time.time()
@@ -4360,6 +4421,231 @@ def phase_lfh(mp, lists, device):
     if not (card_cpu < 1e-12 and sums < 1e-12):
         raise SystemExit("lfh: the card disagrees with the CPU, or probabilities do not sum "
                          "to 1")
+
+
+def written(write, name):
+    """Write a report through `write(path)` into a temporary directory:
+    (its text, its bytes, the seconds the write took)."""
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, name)
+        t0 = time.time()
+        write(path)
+        seconds = time.time() - t0
+        with open(path) as f:
+            text = f.read()
+    return text, len(text.encode()), seconds
+
+
+def text_writer(text):
+    """A `write(path)` for `written` that writes `text`."""
+    def write(path):
+        with open(path, 'w') as f:
+            f.write(text)
+    return write
+
+
+REPORT_CONFIDENCE = 95   # phase 35: the report's confidence level, %
+
+
+def phase_report(results, fitted, gauged, target, mp, gx_bars, device):
+    """Phase 35: the standard report of phase 3's results at full width,
+    not refitted: construct_standard_report(results, confidence_level=95)
+    .write_html, write_pdf and create_report_notebook; every section of the
+    page, an error bar in every gate-metric cell but unitarity's and in every
+    prep cell, N_sigma, the box plot's values against the final 2*DeltaLogL,
+    the dependency-restricted error bar against all parameters differenced,
+    the diamond norm's linearization against central differences of the
+    full maximization, the report's Gauss-Newton Hessian against the
+    kernel's plain version.  Returns the kernel launches of the phase."""
+    import re
+    from pygsti_tpu_torch.objectivefns import objectivefns as objfns
+    from pygsti_tpu_torch.ops.bwd_jacobian import (bwd_jacobian_accumulate,
+                                                   bwd_jacobian_accumulate_plain)
+    from pygsti_tpu_torch.report import construct_standard_report, reportables
+    from pygsti_tpu_torch.report.factory import create_report_notebook
+    from pygsti_tpu_torch.tools.optools import entanglement_infidelity
+    from pygsti_tpu_torch.tools.sdptools import diamond_norm, trace_norm_at_input
+    t_phase = time.time()
+    key = 'GateSetTomography'
+    est = results.estimates[key]
+    bwd_jacobian_accumulate.launches = 0
+    report = construct_standard_report(results, "smq2Q_XYICNOT GST report",
+                                       confidence_level=REPORT_CONFIDENCE)
+    page, page_bytes, html_s = written(report.write_html, 'report.html')
+    torch.cuda.synchronize()
+    launches = bwd_jacobian_accumulate.launches
+    _, pdf_bytes, pdf_s = written(report.write_pdf, 'report.pdf')
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        nb = create_report_notebook(results, os.path.join(d, 'report.ipynb'),
+                                    confidence_level=REPORT_CONFIDENCE)
+        nb_s = time.time() - t0
+        nb_bytes = os.path.getsize(nb) + dir_bytes(os.path.join(d, 'report_results'))
+        with open(nb) as f:
+            nb_code = "\n".join(c['source'] for c in json.load(f)['cells']
+                                if c['cell_type'] == 'code')
+    log("report: write_html %.2f s (%s), %d bytes; write_pdf %.2f s, %d bytes; "
+        "create_report_notebook %.2f s, %d bytes with the results it reads; kernel launches %d"
+        % (html_s, ", ".join("%s %.2f s" % kv for kv in report.seconds.items()), page_bytes,
+           pdf_s, pdf_bytes, nb_s, nb_bytes, launches))
+
+    # -- sections, as the JAX package's factory would write them ------------
+    model = est.models['stdgaugeopt']
+    expected = ["Input summary", "Estimate: %s" % key, "Model violation",
+                "Per-circuit 2&amp;Delta;log&amp;#8467; contributions",
+                "Per-gate metrics vs target", "Model-level metrics",
+                "Gate eigenvalues (gauge-invariant)", "Angles between rotation axes (/&pi;)",
+                "Error-generator projections (logGTi)",
+                "Gate decompositions &amp; Choi spectra", "SPAM metrics vs target",
+                "SPAM probabilities &lt;E|&rho;&gt;", "Estimated gate matrices (pp basis)",
+                "SPAM vectors", "Metadata"]
+    if est.parameters.get('raw_objective_values'):
+        expected.insert(3, "Fit progression (objective per stage)")
+    if est.parameters.get('unmodeled_error') is not None:
+        expected.insert(4, "Un-modeled error (wildcard budget)")
+    if getattr(results.data.edesign, 'germs', None):
+        expected.append("Germ-amplified metrics (gauge-invariant)")
+    if len(model.instruments):
+        expected.append("Instrument metrics vs target")
+    headings = re.findall(r'<h[234]>(.*?)</h[234]>', page)
+    missing = [h for h in expected if h not in headings]
+
+    def cells(title):
+        table = page[page.index(title):]
+        table = table[:table.index('</table>')]
+        return [re.findall(r'<td[^>]*>(.*?)</td>', row)
+                for row in re.findall(r'<tr><td class="lbl">.*?</tr>', table)]
+
+    def bar(cell):
+        return float(cell.split('&plusmn;')[1]) if '&plusmn;' in cell else None
+
+    gate_rows = cells("Per-gate metrics vs target")
+    gate_bars = [[bar(c) for c in row[1:]] for row in gate_rows]
+    prep_rows = [row for row in cells("SPAM metrics vs target") if row[0].startswith('prep')]
+    prep_bars = [bar(c) for row in prep_rows for c in row[1:]]
+    good = [b is not None and np.isfinite(b) and b > 0
+            for row in gate_bars for b in row[:-1]] + \
+        [b is not None and np.isfinite(b) and b > 0 for b in prep_bars]
+    log("report: %d headings, the JAX factory's %d for this model all present: %s; "
+        "'unavailable' %d times; per-gate table %d gates x %d metrics, error bars in %d of the "
+        "%d cells that take one, unitarity's column without; prep cells with error bars %d of "
+        "%d"
+        % (len(headings), len(expected), not missing, page.count('unavailable'),
+           len(gate_rows), len(gate_bars[0]) if gate_bars else 0,
+           sum(good[:len(good) - len(prep_bars)]), len(gate_rows) * 8,
+           sum(good[len(good) - len(prep_bars):]), len(prep_bars)))
+    if missing or 'unavailable' in page or len(gate_rows) != len(target.operations) \
+            or not all(good) or any(row[-1] is not None for row in gate_bars) \
+            or not prep_bars:
+        raise SystemExit("report: missing sections %s or error bars" % missing)
+
+    # -- model violation and the box plot --------------------------------------
+    mv = reportables.model_violation_table(results, key)
+    nsig_cell = [row[1] for row in cells("<h3>Model violation</h3>") if 'sigma' in row[0]][0]
+    box = report.box_values[key]
+    box_sum = float(sum(box.values()))
+    final_value = est.parameters['final_objfn_value']
+    log("report: N_sigma %s in the table, est.misfit_sigma() %.6g; the box plot's %d "
+        "per-circuit 2*DeltaLogL sum to %.9f against the table's %.9f (rel %.3e, tol 1e-9)"
+        % (re.sub('<[^>]+>', '', nsig_cell), est.misfit_sigma(), len(box), box_sum,
+           final_value, abs(box_sum - final_value) / final_value))
+    if mv['n_sigma'] != est.misfit_sigma() or \
+            re.sub('<[^>]+>', '', nsig_cell) != '%.3g' % est.misfit_sigma():
+        raise SystemExit("report: the table's N_sigma is not the estimate's")
+    if len(box) != len(results.data.edesign.circuit_lists[-1]) or \
+            not abs(box_sum - final_value) <= 1e-9 * final_value:
+        raise SystemExit("report: the box plot's values do not sum to the final 2*DeltaLogL")
+
+    # -- (a) the dependency-restricted error bar --------------------------------
+    crf = est.confidence_region_factories[('final iteration estimate', 'final')]
+    view = crf.view(REPORT_CONFIDENCE)
+    gx = next(k for k in model.operations if k == ('Gxpi2', 0))
+
+    def ent_inf(m):
+        return reportables._GateMetric(m, entanglement_infidelity, target.operations[gx].dense(),
+                                       gx, m.basis)
+    t0 = time.time()
+    restricted = view.compute_uncertainty(ent_inf(gauged), gauged)
+    t1 = time.time()
+    everything = view.compute_uncertainty(lambda m: ent_inf(gauged).evaluate_nearby(m), gauged)
+    t2 = time.time()
+    at_fit = view.compute_uncertainty(ent_inf(fitted), fitted)
+    rel_all = abs(restricted - everything) / everything
+    rel_21 = abs(at_fit - gx_bars[(('Gxpi2', 0), 'approximate')]) \
+        / gx_bars[(('Gxpi2', 0), 'approximate')]
+    table_bar = gate_bars[[str(k) for k in model.operations].index(str(gx))][0]
+    log("report: %s's entanglement infidelity, 95%% error bar by its gate's %d parameters "
+        "%.9e (%.2f s) against every one of the %d differenced %.9e (%.2f s): rel %.3e (tol "
+        "1e-12); the table prints %.2g; at the fitted model %.9e against phase 21's bar from "
+        "the same Gauss-Newton Hessian and 'std' projection: rel %.3e (tol 1e-9)"
+        % (gx, len(ent_inf(gauged).parameter_indices(gauged)), restricted, t1 - t0,
+           gauged.num_params, everything, t2 - t1, rel_all, table_bar, at_fit, rel_21))
+    if not (rel_all <= 1e-12 and rel_21 <= 1e-9 and '%.2g' % restricted == '%.2g' % table_bar):
+        raise SystemExit("report: the dependency-restricted error bar differs")
+
+    # -- (b) the diamond norm's linearization -------------------------------------
+    cnot = next(k for k in model.operations if k == ('Gcnot', 0, 1))
+    hd = reportables.HalfDiamondNorm(gauged, target, cnot)
+    value = hd.evaluate(gauged)
+    gap = hd.evaluate_nearby(gauged) - value
+    rng = np.random.RandomState(3535)
+    idx = np.arange(gauged.num_params)[gauged.operations[cnot].gpindices]
+    v0, work = gauged.to_vector(), gauged.copy()
+    h = 1e-5
+    derivs = []
+    for _ in range(3):
+        u = np.zeros(len(v0))
+        u[idx] = rng.randn(len(idx))
+        u /= np.linalg.norm(u)
+        ends = {}
+        for s in (1, -1):
+            work.from_vector(v0 + s * h * u)
+            L = work.operations[cnot].dense() - target.operations[cnot].dense()
+            _, psi = diamond_norm(L, 'pp', return_x=True)
+            ends[s] = (hd.evaluate_nearby(work), 0.5 * trace_norm_at_input(L, psi, 'pp'))
+        derivs.append(((ends[1][0] - ends[-1][0]) / (2 * h), (ends[1][1] - ends[-1][1]) / (2 * h)))
+    worst = max(abs(a - b) / abs(b) for a, b in derivs)
+    log("report: %s's half diamond norm %.9e (the polished maximum %.3e above it); along 3 "
+        "seeded directions of its %d parameters the linearization's derivative against central "
+        "differences (h %g) of the full maximization, polished: %s, max rel %.3e (tol 1e-3)"
+        % (cnot, value, gap, len(idx), h, ["%.6e / %.6e" % d for d in derivs], worst))
+    if not worst <= 1e-3:
+        raise SystemExit("report: the diamond norm's linearization disagrees with the "
+                         "maximization's differences")
+
+    # -- the report's Gauss-Newton Hessian through the kernel against its plain version
+    obj = crf.objective()
+    with torch.no_grad():
+        p = obj._fns['probs'](obj._v(None))
+        hterms = obj.raw_objfn.hterms(p, *obj._data)
+    objfns.bwd_jacobian_accumulate = bwd_jacobian_accumulate_plain
+    try:
+        H_plain = obj.weighted_gram(hterms)
+    finally:
+        objfns.bwd_jacobian_accumulate = bwd_jacobian_accumulate
+    rel_plain = float(np.max(np.abs(crf.hessian - H_plain)) / np.max(np.abs(H_plain)))
+    germs = reportables.germ_amplified_metrics_table(model, target, mp.germs())
+    log("report: its Gauss-Newton Hessian [%d x %d] through the kernel (%d launches) against "
+        "the plain version on the card: max rel %.3e (tol 1e-12); the pack's %d germs' "
+        "amplified eigenvalue infidelities %.3e..%.3e"
+        % (crf.hessian.shape[0], crf.hessian.shape[1], launches, rel_plain, len(germs),
+           min(d['eigenvalue_entanglement_infidelity'] for d in germs.values()),
+           max(d['eigenvalue_entanglement_infidelity'] for d in germs.values())))
+    errs, ms, plain_ms, einsum_ms, bound_ms, shapes = hold_kernel_at_buckets(
+        obj.layout, fitted, device, 'report')
+    log("report: the kernel at the Hessian's %d bucket shapes %s with the fitted model's G: "
+        "rel err f64 %.3e, f32 %.3e; %.4f ms per Jacobian (bound %.4f ms, %.1f%% of it), plain "
+        "%.3f ms, einsum %.3f ms; phase %.1f s (%s)"
+        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], ms, bound_ms,
+           100 * bound_ms / ms, plain_ms, einsum_ms, time.time() - t_phase,
+           card_name_and_limit()))
+    if not (launches > 0 and rel_plain <= 1e-12):
+        raise SystemExit("report: the Hessian did not go through the kernel, or disagrees "
+                         "with its plain version")
+    imports = re.findall(r'^(?:from|import) (\S+)', nb_code, re.M)
+    if not imports or any(m.split('.')[0] != 'pygsti_tpu_torch' for m in imports):
+        raise SystemExit("report: the notebook imports %s" % imports)
+    return launches
 
 
 def main():
@@ -4602,7 +4888,8 @@ def main():
     cloud3_launches = rb_and_cloud3_phases(device)
 
     # -- error bars, bad-fit handling and Fisher information at full width ----
-    stat_launches, gx_bar95 = phase_statistics(mp, est, target, datagen, lists, builders, device)
+    stat_launches, gx_bars = phase_statistics(mp, est, target, datagen, lists, builders, device)
+    gx_bar95 = gx_bars[(('Gxpi2', 0), 'exact')]
 
     # -- data in and out, the one-call driver, the bootstrap -----------------
     driver_launches, boot_launches = phase_data_io(mp, target, lists, ds, fitted, fit_value,
@@ -4650,8 +4937,14 @@ def main():
     t17 = time.time()
     phase_lfh(mp, lists, device)
     t18 = time.time()
-    log("phases 32, 33 and 34: %.1f s, %.1f s and %.1f s of the script's wall time; the "
-        "script %.1f s" % (t16 - t15, t17 - t16, t18 - t17, t18 - T_START))
+    log("phases 32, 33 and 34: %.1f s, %.1f s and %.1f s of the script's wall time"
+        % (t16 - t15, t17 - t16, t18 - t17))
+
+    # -- the standard report of phase 3's results, with error bars -----------
+    report_kernel_launches = phase_report(results, fitted, gauged, target, mp, gx_bars, device)
+    t19 = time.time()
+    log("phase 35: %.1f s of the script's wall time; the script %.1f s (%s)"
+        % (t19 - t18, t19 - T_START, card_name_and_limit()))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -4662,7 +4955,8 @@ def main():
         + fpr_launches + qutrit_launches + sum(obj_launches.values()) + cloud_launches
         + cloud3_launches + stat_launches + driver_launches + boot_launches
         + selection_launches + td_launches + sum(fogi_launches.values())
-        + sum(leak_launches.values()) + report_launches + interp_launches,
+        + sum(leak_launches.values()) + report_launches + interp_launches
+        + report_kernel_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -4675,7 +4969,8 @@ def main():
                                     "design-selection fit": selection_launches,
                                     "time-resolved fit": td_launches}, **fogi_launches,
                                  **leak_launches, **{"jacobian check": report_launches,
-                                                     "interpolated-gate fit": interp_launches}),
+                                                     "interpolated-gate fit": interp_launches,
+                                                     "report": report_kernel_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

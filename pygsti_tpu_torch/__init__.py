@@ -45,12 +45,14 @@ from pygsti_tpu_torch import data  # noqa: E402
 from pygsti_tpu_torch import protocols  # noqa: E402
 from pygsti_tpu_torch import drivers  # noqa: E402
 from pygsti_tpu_torch import io  # noqa: E402
+from pygsti_tpu_torch import report  # noqa: E402
 from pygsti_tpu_torch import serialization  # noqa: E402
 from pygsti_tpu_torch import leakage  # noqa: E402
 
 # pyGSTi's short aliases
 from pygsti_tpu_torch import algorithms as alg  # noqa: E402
 from pygsti_tpu_torch import modelmembers as mm  # noqa: E402
+from pygsti_tpu_torch import report as rpt  # noqa: E402
 
 from pygsti_tpu_torch.algorithms.core import run_lgst, run_iterative_gst  # noqa: E402
 from pygsti_tpu_torch.algorithms.gaugeopt import gaugeopt_to_target  # noqa: E402

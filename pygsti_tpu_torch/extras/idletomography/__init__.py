@@ -1,7 +1,6 @@
 """Idle tomography: Pauli-basis characterization of idle errors
-(counterpart of pygsti_tpu/extras/idletomography/).  The JAX package also
-exports create_idletomography_report from its reports, which come to the
-port with them."""
+(counterpart of pygsti_tpu/extras/idletomography/), with the idle
+tomography report of report/idtreport.py."""
 
 from pygsti_tpu_torch.extras.idletomography.idtcore import (
     IdleTomographyDesign, IdleTomography, IdleTomographyProtocolResults,
@@ -16,3 +15,4 @@ from pygsti_tpu_torch.extras.idletomography.idtresults import IdleTomographyResu
 from pygsti_tpu_torch.extras.idletomography.pauliobjs import (NQOutcome, NQPauliState,
                                                               NQPauliOp)
 from pygsti_tpu_torch.extras.idletomography import idttools
+from pygsti_tpu_torch.report.idtreport import create_idletomography_report

@@ -278,14 +278,25 @@ class ConfidenceRegionFactoryView(object):
     def compute_uncertainty(self, fn_of_model, model=None, eps=1e-7):
         """The interval half-width of the scalar fn(model): sqrt(C1 g^T H^-1
         g) with g its forward-difference gradient over the parameters, or
-        g^T x with H x = g solved (linear response)."""
+        g^T x with H x = g solved (linear response).
+
+        `fn_of_model` is a callable of a model, whose gradient is differenced
+        over every parameter, or a report ModelFunction, evaluated by its
+        ``evaluate_nearby`` and differenced over the parameters of the
+        members it depends on only: the others leave it unchanged, so their
+        entries of g are 0 either way."""
         factory = self.factory
         model = model if model is not None else factory.model
         v0 = model.to_vector()
+        indices = range(len(v0))
+        if hasattr(fn_of_model, 'evaluate_nearby'):
+            found = fn_of_model.parameter_indices(model)
+            indices = indices if found is None else found
+            fn_of_model = fn_of_model.evaluate_nearby
         f0 = fn_of_model(model)
         grad = np.zeros(len(v0))
         work = model.copy()
-        for i in range(len(v0)):
+        for i in indices:
             vp = v0.copy()
             vp[i] += eps
             work.from_vector(vp)

@@ -8,6 +8,8 @@ so that a CPTP map gives J >= 0 with trace(J) = 1 (when `normalized`).
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from pygsti_tpu_torch.baseobjs.basis import Basis
@@ -21,13 +23,30 @@ def _pair_elements(basis):
     return np.einsum('iab,jce->ijacbe', els, els.conj()).reshape(n, n, d * d, d * d)
 
 
+def _conj_pairs_and_norms(basis):
+    """(conj(B_i kron B_j^*), <B_i kron B_j^*, B_i kron B_j^*>) of a basis."""
+    conj_pairs = _pair_elements(basis).conj()
+    return conj_pairs, np.einsum('ijab,ijab->ij', conj_pairs, conj_pairs.conj()).real
+
+
+@functools.lru_cache(maxsize=None)
+def _named_conj_pairs_and_norms(basis_name, d2):
+    """_conj_pairs_and_norms of a basis given by name, made once per (name,
+    dimension): a report differences thousands of nearby Choi matrices.
+    The arrays are read-only."""
+    out = _conj_pairs_and_norms(Basis.cast(basis_name, d2))
+    for a in out:
+        a.setflags(write=False)
+    return out
+
+
 def jamiolkowski_iso(operation_mx, op_mx_basis='pp', choi_mx_basis='pp', normalized=True):
     """Superoperator -> Choi matrix in `choi_mx_basis`."""
     std = change_basis(np.asarray(operation_mx), op_mx_basis, 'std')
     d2 = std.shape[0]
-    pairs = _pair_elements(Basis.cast(choi_mx_basis, d2))
-    norms = np.einsum('ijab,ijab->ij', pairs.conj(), pairs).real
-    choi = np.einsum('ijab,ab->ij', pairs.conj(), std) / norms
+    conj_pairs, norms = _named_conj_pairs_and_norms(choi_mx_basis, d2) \
+        if isinstance(choi_mx_basis, str) else _conj_pairs_and_norms(Basis.cast(choi_mx_basis, d2))
+    choi = np.einsum('ijab,ab->ij', conj_pairs, std) / norms
     if normalized:
         choi = choi / int(round(np.sqrt(d2)))
     return choi

@@ -4,6 +4,8 @@ std-basis superoperator of rho -> U rho U^dag is kron(U, U.conj())."""
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import scipy.linalg as spl
 
@@ -199,9 +201,10 @@ def unitarity(a, mx_basis='pp'):
 
 def diamonddist(a, b, mx_basis='pp', return_x=False):
     """||a - b||_diamond, maximized over pure inputs on the doubled space
-    (tools/sdptools.diamond_norm_distance)."""
+    (tools/sdptools.diamond_norm_distance); with `return_x`, (distance,
+    psi), psi the maximizing unit input in C^(d*d)."""
     from pygsti_tpu_torch.tools import sdptools
-    return sdptools.diamond_norm_distance(a, b, mx_basis)
+    return sdptools.diamond_norm_distance(a, b, mx_basis, return_x=return_x)
 
 
 # -- error generators: elementary generators, their duals, projections ----
@@ -317,6 +320,17 @@ def elementary_errorgens_dual(dim, typ, basis):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _named_basis_duals(dim, typ, basis_name):
+    """elementary_errorgens_dual of a basis given by name, made once per
+    (dim, type, name): a report's error bars project thousands of nearby
+    generators onto the same duals.  The arrays are read-only."""
+    duals = elementary_errorgens_dual(dim, typ, basis_name)
+    for dual in duals.values():
+        dual.setflags(write=False)
+    return duals
+
+
 def project_errorgen(errorgen, elementary_errorgen_type,
                      elementary_errorgen_basis, errorgen_basis='pp',
                      return_dual_elementary_errorgens=False,
@@ -328,13 +342,16 @@ def project_errorgen(errorgen, elementary_errorgen_type,
     in `errorgen_basis`."""
     eg_std = change_basis(np.asarray(errorgen), errorgen_basis, 'std')
     dim = eg_std.shape[0]
-    duals = elementary_errorgens_dual(dim, elementary_errorgen_type,
-                                      elementary_errorgen_basis)
+    if isinstance(elementary_errorgen_basis, str):
+        duals = _named_basis_duals(dim, elementary_errorgen_type, elementary_errorgen_basis)
+    else:
+        duals = elementary_errorgens_dual(dim, elementary_errorgen_type,
+                                          elementary_errorgen_basis)
     projections = {lbl: float(np.real(np.vdot(dual, eg_std)))
                    for lbl, dual in duals.items()}
     ret = [projections]
     if return_dual_elementary_errorgens:
-        ret.append(duals)
+        ret.append(dict(duals))
     if return_projected_errorgen:
         prims = elementary_errorgens(dim, elementary_errorgen_type,
                                      elementary_errorgen_basis)
@@ -526,12 +543,10 @@ def eigenvalue_infidelity(a, b, gauge_invariant=True):
 
 def generator_infidelity(a, b, mx_basis='pp'):
     """The sum of the squared Hamiltonian rates and of the stochastic rates
-    of the 'logGTi' error generator of `a` against its target `b`; nan when
-    the generator cannot be taken."""
-    try:
-        errgen = error_generator(np.asarray(a), np.asarray(b), mx_basis, 'logGTi')
-    except Exception:
-        return np.nan
+    of the 'logGTi' error generator of `a` against its target `b`.  Where
+    the generator cannot be taken (a singular target) this raises; the JAX
+    package returns nan there."""
+    errgen = error_generator(np.asarray(a), np.asarray(b), mx_basis, 'logGTi')
     h = project_errorgen(errgen, 'H', 'pp', mx_basis)
     s = project_errorgen(errgen, 'S', 'pp', mx_basis)
     return float(sum(v ** 2 for v in h.values()) + sum(s.values()))

@@ -560,3 +560,49 @@ def test_extras_and_runner_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
                          capture_output=True, text=True).stdout
     assert out.strip().splitlines()[-1] == 'ok'
+
+
+def test_report_modules_import_no_jax():
+    """The report modules load, and a standard report of a 1-qubit estimate
+    (target and a depolarized model, no fit) is written with its error bars
+    on the CPU, in a process that ends with neither JAX nor pygsti_tpu
+    imported; no string of the report's code names the JAX package as a
+    module to import."""
+    import pathlib
+    import re
+    new = ('report', 'report.colormaps', 'report.driftreport', 'report.factory',
+           'report.fogidiagram', 'report.idtreport', 'report.modelfunction',
+           'report.reportableqty', 'report.reportables', 'report.vbplot', 'report.workspace',
+           'report.workspaceplots')
+    code = ("import sys, importlib, os, tempfile\n"
+            "for name in %r:\n"
+            "    importlib.import_module('pygsti_tpu_torch.' + name)\n"
+            "import torch\n"
+            "torch.set_num_threads(1)\n"
+            "from pygsti_tpu_torch.modelpacks import smq1Q_XYI as mp\n"
+            "from pygsti_tpu_torch.protocols.gst import StandardGSTDesign, ModelEstimateResults\n"
+            "from pygsti_tpu_torch.protocols.estimate import Estimate\n"
+            "from pygsti_tpu_torch.protocols.protocol import Protocol, ProtocolData\n"
+            "from pygsti_tpu_torch.data.datasetconstruction import simulate_data\n"
+            "from pygsti_tpu_torch.report import construct_standard_report\n"
+            "d = StandardGSTDesign(mp.target_model('full TP'), mp.prep_fiducials(),\n"
+            "                      mp.meas_fiducials(), mp.germs(), [1])\n"
+            "m = mp.target_model('full TP').depolarize(op_noise=0.02, spam_noise=0.01)\n"
+            "ds = simulate_data(m, d.all_circuits_needing_data, 1000, seed=1, device='cpu')\n"
+            "r = ModelEstimateResults(ProtocolData(d, ds), Protocol('GST'))\n"
+            "r.add_estimate(Estimate(r, {'target': mp.target_model('full TP'),\n"
+            "    'final iteration estimate': m}, {'final_objfn_value': 30.0,\n"
+            "    'final_dof': 20}, device='cpu'), 'GST')\n"
+            "path = os.path.join(tempfile.mkdtemp(), 'r.html')\n"
+            "construct_standard_report(r, confidence_level=95).write_html(path)\n"
+            "assert '&plusmn;' in open(path).read()\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'pygsti_tpu')]\n"
+            "assert not bad, bad\n"
+            "print('ok')\n" % (new,))
+    out = subprocess.run([sys.executable, "-c", code], check=True, timeout=120,
+                         capture_output=True, text=True).stdout
+    assert out.strip().splitlines()[-1] == 'ok'
+    root = pathlib.Path(__file__).resolve().parents[1] / 'pygsti_tpu_torch' / 'report'
+    for path in sorted(root.glob('*.py')):
+        named = re.findall(r"""(?:['"]|import |from )pygsti_tpu(?:\.|['"\s])""", path.read_text())
+        assert not named, (path.name, named)

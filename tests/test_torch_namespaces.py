@@ -24,12 +24,10 @@ NAMESPACES = ['', 'algorithms', 'baseobjs', 'circuits', 'data', 'extras', 'forwa
               'layouts', 'modelmembers', 'models', 'objectivefns', 'optimize', 'protocols',
               'tools', 'processors', 'io', 'serialization', 'drivers', 'ops',
               'extras.crosstalk', 'extras.devices', 'extras.ibmq', 'extras.idletomography',
-              'extras.interpygate', 'extras.lfh', 'extras.paritybenchmarking']
+              'extras.interpygate', 'extras.lfh', 'extras.paritybenchmarking', 'report']
 
 # name -> the ROADMAP.md queue 1 item that ports it
 NOT_PORTED = {
-    # item 8: reports (idle tomography's report comes with them)
-    'report': 8, 'rpt': 8, 'extras.idletomography.create_idletomography_report': 8,
     # item 9: the remaining Jacobian and probability modes (the simulator
     # base class with dprobs/hprobs, its aliases, the product cache)
     'forwardsims.ForwardSimulator': 9, 'forwardsims.MapForwardSimulator': 9,
@@ -124,8 +122,8 @@ def test_listed_names_are_public_in_jax_and_absent_here(key):
 
 
 def test_not_ported_items_are_later_queue_items():
-    """The list holds only queue 1 items 8-10 (item 7 is ported)."""
-    assert set(NOT_PORTED.values()) <= {8, 9, 10}
+    """The list holds only queue 1 items 9-10 (item 8 is ported)."""
+    assert set(NOT_PORTED.values()) <= {9, 10}
 
 
 def test_top_level_names_are_the_jax_packages():
