@@ -230,6 +230,15 @@ Phases, each fatal on failure:
                 Phases 25, 28, 29 and 33 also write their reports (VB plots,
                 drift, FOGI diagram, idle tomography) and find their own
                 numbers in them
+ 36. simulator modes -- on phase 3's data and fitted point: the germ-power
+                product cache of the final list (its counts those of the
+                JAX package's plan), the factorized probabilities against
+                the scan on every element, 'prodjac' against 'blocked' 1e-3
+                off the fitted point and on the card against the CPU, a GST
+                fit through 'prodjac' at phase 3's optimum without a launch
+                of the kernel, exact Hessians of 4 circuits against central
+                differences, and the mesh path on a one-rank NCCL group bit
+                for bit the serial 'linearize' objective
 Then a JSON line of kernel numbers, the card's name and power limit, and the
 last line {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
@@ -570,7 +579,7 @@ def phase_cptp_fit(mp, lists, ds, builders, full_value, full_model, check, devic
     if not (min_eval >= -1e-9 and tp_dev <= 1e-9):
         raise SystemExit("a fitted CPTPLND operation is not CPTP")
     check_layout = SimpleForwardSimulator(fitted, device).create_layout(check)
-    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(check_layout)
+    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(None, check_layout)
     p_ref = reference_probs(fitted, check)
     dp = float(np.max(np.abs(p_card - p_ref)))
     log("cptp: probabilities of %d circuits vs numpy reference: max |dp| %.3e (tol 1e-10)"
@@ -708,7 +717,7 @@ def phase_instrument_fit(mp, lists, datagen, builders, device):
         raise SystemExit("the fitted instrument is not trace-preserving")
     check = final[:100] + final[len(extra)::(len(final) - len(extra)) // 100][:100]
     sim = SimpleForwardSimulator(fitted, device)
-    p_card = sim.bulk_fill_probs(sim.create_layout(check))
+    p_card = sim.bulk_fill_probs(None, sim.create_layout(check))
     p_ref = reference_probs(fitted, check)
     dp = float(np.max(np.abs(p_card - p_ref)))
     log("instrument: probabilities of %d circuits (100 with Iz:0) vs a numpy reference that "
@@ -997,7 +1006,7 @@ def phase_parallel_fit(builders, device):
     check = [c for c in final if any(len(l.components) > 1 for l in c.layertup)]
     check = check[:: max(1, len(check) // 200)][:200]
     sim = SimpleForwardSimulator(fitted, device)
-    p_card = sim.bulk_fill_probs(sim.create_layout(check))
+    p_card = sim.bulk_fill_probs(None, sim.create_layout(check))
     dp_ref = float(np.max(np.abs(p_card - reference_probs(fitted, check))))
     group = FullGaugeGroup(fitted.dim)
     el = group.compute_element(group.initial_params()
@@ -1005,7 +1014,7 @@ def phase_parallel_fit(builders, device):
     moved = fitted.copy()
     moved.transform_inplace(el)
     sim2 = SimpleForwardSimulator(moved, device)
-    dp_gauge = float(np.max(np.abs(sim2.bulk_fill_probs(sim2.create_layout(check)) - p_card)))
+    dp_gauge = float(np.max(np.abs(sim2.bulk_fill_probs(None, sim2.create_layout(check)) - p_card)))
     log("parallel: probabilities of %d circuits with parallel layers vs a numpy reference that "
         "multiplies the components: max |dp| %.3e (tol 1e-10); after a random gauge "
         "transformation near the identity (Frobenius distance %.3e): max |dp| %.3e (tol 1e-9)"
@@ -1115,7 +1124,7 @@ def phase_qutrit_fit(builders, device):
                          "N_sigma %g" % nsigma)
     check = final[:: len(final) // 200][:200]
     sim = SimpleForwardSimulator(fitted, device)
-    p_card = sim.bulk_fill_probs(sim.create_layout(check))
+    p_card = sim.bulk_fill_probs(None, sim.create_layout(check))
     dp_ref = float(np.max(np.abs(p_card - reference_probs(fitted, check))))
     group = TPGaugeGroup(fitted.dim)
     el = group.compute_element(group.initial_params()
@@ -1123,7 +1132,7 @@ def phase_qutrit_fit(builders, device):
     moved = fitted.copy()
     moved.transform_inplace(el)
     sim2 = SimpleForwardSimulator(moved, device)
-    dp_gauge = float(np.max(np.abs(sim2.bulk_fill_probs(sim2.create_layout(check)) - p_card)))
+    dp_gauge = float(np.max(np.abs(sim2.bulk_fill_probs(None, sim2.create_layout(check)) - p_card)))
     log("qutrit: probabilities of %d circuits vs a numpy product of the 9x9 "
         "superoperators: max |dp| %.3e (tol 1e-10); after a random TP gauge transformation "
         "(Frobenius distance %.3e): max |dp| %.3e (tol 1e-9)"
@@ -1172,7 +1181,7 @@ def phase_rpe(device):
         raise SystemExit("robust phase estimation missed the true angle")
     deepest = [c for c in circuits if c.depth == depth]
     sim = SimpleForwardSimulator(model, device)
-    p_card = sim.bulk_fill_probs(sim.create_layout(deepest))
+    p_card = sim.bulk_fill_probs(None, sim.create_layout(deepest))
     G = model.operations[('Gxpi2', 0)].dense()
     rho = model.preps['rho0'].dense()
     p_ref = model.povms['Mdefault'].dense() @ np.linalg.matrix_power(G, depth) @ rho
@@ -1398,10 +1407,10 @@ def phase_cloud5(device):
         layout = sim.create_layout(circuits)
         torch.cuda.synchronize()
         t0 = time.time()
-        p = sim.bulk_fill_probs(layout)
+        p = sim.bulk_fill_probs(None, layout)
         cold = time.time() - t0
         t0 = time.time()
-        p = sim.bulk_fill_probs(layout)
+        p = sim.bulk_fill_probs(None, layout)
         warm = time.time() - t0
         n_ops = len(mdl.op_keys)
         log("%s: %d circuits of %d one-qubit layers and %d CNOTs (depth %d), %d distinct "
@@ -1412,7 +1421,7 @@ def phase_cloud5(device):
                n * mdl.dim ** 2 * 8 / 1e6, min(n_ops + 1, n) * mdl.dim ** 2 * 8 / 1e6))
         check = circuits[:40]
         cpu = SimpleForwardSimulator(mdl, 'cpu')
-        p_cpu = cpu.bulk_fill_probs(cpu.create_layout(check))
+        p_cpu = cpu.bulk_fill_probs(None, cpu.create_layout(check))
         dp_cpu = float(np.max(np.abs(p[:len(check) * 32] - p_cpu)))
         p_np = np.concatenate([numpy_cloud_probs(mdl, c) for c in circuits[:5]])
         dp_np = float(np.max(np.abs(p[:5 * 32] - p_np)))
@@ -1557,10 +1566,10 @@ def phase_statevec(designs, device):
                           ('superop', SimpleForwardSimulator)):
             sim = cls(mdl, device)
             layout = sim.create_layout(circuits)
-            sim.bulk_fill_probs(layout)
+            sim.bulk_fill_probs(None, layout)
             torch.cuda.synchronize()
             t0 = time.time()
-            probs[name] = sim.bulk_fill_probs(layout)
+            probs[name] = sim.bulk_fill_probs(None, layout)
             times[name] = time.time() - t0
         dp = float(np.max(np.abs(probs['statevec'] - probs['superop'])))
         log("statevec[%d]: warm bulk probabilities on the card: state vectors (u 32) %.4f s, "
@@ -1587,15 +1596,15 @@ def rb_checks(tag, pspec, circuits, ideals, mdl, device):
     from pygsti_tpu_torch.models.modelconstruction import create_crosstalk_free_model
     sim = SimpleForwardSimulator(mdl, device)
     layout = sim.create_layout(circuits)
-    p = sim.bulk_fill_probs(layout)
+    p = sim.bulk_fill_probs(None, layout)
     cpu = SimpleForwardSimulator(mdl, 'cpu')
-    dp = float(np.max(np.abs(p - cpu.bulk_fill_probs(cpu.create_layout(circuits)))))
+    dp = float(np.max(np.abs(p - cpu.bulk_fill_probs(None, cpu.create_layout(circuits)))))
     dsum = float(np.max(np.abs(p.reshape(layout.num_rows, -1).sum(axis=1) - 1)))
     ideal = create_crosstalk_free_model(pspec, depolarization_strengths={
         g: 0.0 for g in pspec.gate_names})
     isim = SimpleForwardSimulator(ideal, device)
     ilayout = isim.create_layout(circuits)
-    d_ideal = float(np.max(np.abs(ideal_probs(ilayout, isim.bulk_fill_probs(ilayout), ideals)
+    d_ideal = float(np.max(np.abs(ideal_probs(ilayout, isim.bulk_fill_probs(None, ilayout), ideals)
                                   - 1)))
     stab = StabilizerForwardSimulator(pspec)
     n_stab = sum(stab.probability(c, ''.join(str(x) for x in i)) == 1.0
@@ -1631,7 +1640,7 @@ def rb_fit(tag, design, mdl, device, seed, r_max):
     fit_s = time.time() - t0
     sim = SimpleForwardSimulator(mdl, device)
     layout = sim.create_layout(circuits)
-    ps = ideal_probs(layout, sim.bulk_fill_probs(layout),
+    ps = ideal_probs(layout, sim.bulk_fill_probs(None, layout),
                      [i for l in design.idealout_lists for i in l])
     per = len(circuits) // len(design.depths)
     n = len(design.qubit_labels)
@@ -1684,10 +1693,10 @@ def phase_q3rb(device):
     layout = sim.create_layout(circs)
     torch.cuda.synchronize()
     t0 = time.time()
-    sim.bulk_fill_probs(layout)
+    sim.bulk_fill_probs(None, layout)
     cold = time.time() - t0
     t0 = time.time()
-    sim.bulk_fill_probs(layout)
+    sim.bulk_fill_probs(None, layout)
     warm = time.time() - t0
     log("q3rb: bench[q3]: %d direct-RB circuits on QubitProcessorSpec(3, %s, 'line') from "
         "RandomState(2026) in %.2f s on the host (depth up to %d, %d distinct layers); bulk "
@@ -2176,8 +2185,9 @@ def phase_data_io(mp, target, lists, ds, fitted, fit_value, nsigma, datagen, gx_
         layout = SimpleForwardSimulator(fitted, device).create_layout(final)
         nb = num_buckets(layout, fitted, device)
         drv_model = est.models['final iteration estimate']
-        dp = float(np.max(np.abs(SimpleForwardSimulator(drv_model, device).bulk_fill_probs(layout)
-                                 - SimpleForwardSimulator(fitted, device).bulk_fill_probs(layout))))
+        dp = float(np.max(np.abs(
+            SimpleForwardSimulator(drv_model, device).bulk_fill_probs(None, layout)
+            - SimpleForwardSimulator(fitted, device).bulk_fill_probs(None, layout))))
         rel = abs(value - fit_value) / abs(fit_value)
         log("driver: run_long_sequence_gst(<file>, ..., %s) from LGST with its default "
             "regularization: %d LM iterations, fit %.3f s, the call %.3f s (LGST, fit, "
@@ -2208,9 +2218,9 @@ def phase_data_io(mp, target, lists, ds, fitted, fit_value, nsigma, datagen, gx_
         for k in ('final iteration estimate', 'stdgaugeopt'):
             if not np.array_equal(best.models[k].to_vector(), est.models[k].to_vector()):
                 raise SystemExit("the %r model does not read back bit for bit" % k)
-            dps.append(float(np.max(np.abs(
-                SimpleForwardSimulator(best.models[k], device).bulk_fill_probs(check_layout)
-                - SimpleForwardSimulator(est.models[k], device).bulk_fill_probs(check_layout)))))
+            sims = [SimpleForwardSimulator(m.models[k], device) for m in (best, est)]
+            dps.append(float(np.max(np.abs(sims[0].bulk_fill_probs(None, check_layout)
+                                           - sims[1].bulk_fill_probs(None, check_layout)))))
         data_back = read_data_from_dir(rdir)
         log("results: write %.3f s, read_results_from_dir %.3f s, the directory %d bytes; "
             "parameters bit for bit, probabilities of %d circuits max |dp| %s (tol 1e-12), "
@@ -2690,8 +2700,8 @@ def phase_mirror(device):
         some = d.all_circuits_needing_data[::4][:13 if w < 4 else 11]
         card = SimpleForwardSimulator(vmdls[w], device)
         cpu = SimpleForwardSimulator(vmdls[w], 'cpu')
-        dp = max(dp, float(np.max(np.abs(card.bulk_fill_probs(card.create_layout(some))
-                                         - cpu.bulk_fill_probs(cpu.create_layout(some))))))
+        dp = max(dp, float(np.max(np.abs(card.bulk_fill_probs(None, card.create_layout(some))
+                                         - cpu.bulk_fill_probs(None, cpu.create_layout(some))))))
     t0 = time.time()
     rows = []
     for w, d in designs.items():
@@ -2825,7 +2835,7 @@ def phase_term_simulator(lists, device):
     layout = dense.create_layout(circuits)
     torch.cuda.synchronize()
     t0 = time.time()
-    pd = dense.bulk_fill_probs(layout)
+    pd = dense.bulk_fill_probs(None, layout)
     dense_s = time.time() - t0
     col = {o: k for k, o in enumerate(co.outcomes)}
 
@@ -2852,7 +2862,7 @@ def phase_term_simulator(lists, device):
     by_depth = {int(dd): float(diff[depths == dd].max()) for dd in sorted(set(depths))}
     half = mp.target_model('H+s')
     half.from_vector(v0 + noise / 2)
-    ph = SimpleForwardSimulator(half, device).bulk_fill_probs(layout)
+    ph = SimpleForwardSimulator(half, device).bulk_fill_probs(None, layout)
     diff_half = np.abs(co.probs(half.to_vector()).cpu().numpy() - dense_matrix(ph)).max()
     ratio = diff.max() / diff_half
     # (4) dprobs against central differences of the term probabilities
@@ -3514,8 +3524,8 @@ def phase_leakage_fit(builders, device):
     R = leakage.subspace_restriction(el.transform_matrix, 'gm')
     orth = float(np.max(np.abs(R @ R.T - np.eye(4))))
     sim_f = SimpleForwardSimulator(fitted, device)
-    p_fit = sim_f.bulk_fill_probs(layout)
-    dp = max(float(np.max(np.abs(SimpleForwardSimulator(m, device).bulk_fill_probs(layout)
+    p_fit = sim_f.bulk_fill_probs(None, layout)
+    dp = max(float(np.max(np.abs(SimpleForwardSimulator(m, device).bulk_fill_probs(None, layout)
                                  - p_fit))) for m in (lago, again))
     rate_lago = leakage.gate_leakage_rate(lago.operations[gx].dense())
     seep_lago = leakage.gate_seepage_rate(lago.operations[gx].dense())
@@ -4354,7 +4364,7 @@ def phase_lfh(mp, lists, device):
     def fluct(dev):
         return GaussianParamFluctuation({i: dev for i in idx})
     sim = SimpleForwardSimulator(model, device)
-    exact = torch.as_tensor(sim.bulk_fill_probs(sim.create_layout(circuits)),
+    exact = torch.as_tensor(sim.bulk_fill_probs(None, sim.create_layout(circuits)),
                             dtype=torch.float64, device=device)
     torch.cuda.reset_peak_memory_stats()
     zero = {}
@@ -4648,6 +4658,203 @@ def phase_report(results, fitted, gauged, target, mp, gx_bars, device):
     return launches
 
 
+def rel_max(a, b):
+    """Largest |a - b| relative to the largest |b|."""
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))) / np.max(np.abs(b)))
+
+
+def phase_simulator_modes(target, fitted, ds, lists, builders, fit_value, device):
+    """Phase 36: the product cache, its probabilities and 'prodjac' on
+    phase 3's data and fitted point, a 'prodjac' fit, exact Hessians, and
+    the mesh path on a one-rank NCCL group.  Returns the fit's launches of
+    the kernel (which it must not launch)."""
+    import datetime
+    import socket
+    import torch.distributed as dist
+    from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+    from pygsti_tpu_torch.layouts.prodcache import build_element_group_tables
+    from pygsti_tpu_torch.objectivefns.objectivefns import ObjectiveFunctionBuilder
+    from pygsti_tpu_torch.parallel.mesh import circuit_mesh
+    from pygsti_tpu_torch.protocols.gst import (GateSetTomography, GateSetTomographyDesign,
+                                                GSTInitialModel, GSTObjFnBuilders)
+    from pygsti_tpu_torch.protocols.protocol import ProtocolData
+
+    final, first = list(lists[-1]), list(lists[0])
+    theta = fitted.to_vector()
+    v = torch.as_tensor(theta, device=device)
+    steps = {}
+    t_phase = time.time()
+
+    # -- the factorization of phase 3's final layout (host) ------------------
+    t0 = time.time()
+    scan = SimpleForwardSimulator(fitted, device)
+    layout = scan.create_layout(final, ds)
+    t1 = time.time()
+    fact = layout.factorization
+    t2 = time.time()
+    tables = build_element_group_tables(fact, 64)
+    t3 = time.time()
+    counts = (len(fact.levels), fact.n_cache, len(fact.a_pfx_cache), len(fact.e_sfx_cache),
+              len(fact.pair_g))
+    log("simulator modes: product cache of the final layout (%d circuits, %d elements): "
+        "%d levels, %d cache entries, %d prefixes, %d suffixes, %d pairs (the JAX package's "
+        "7 / 1,122 / 163 / 733 / 1,869); factorize %.3f s, element groups of 64 %.3f s "
+        "(%d + %d groups) on the host; layout %.3f s"
+        % ((len(final), layout.num_elements) + counts
+           + (t2 - t1, t3 - t2, len(tables.erow_chunk_row), len(tables.pair_chunk_q), t1 - t0)))
+    if counts != (7, 1122, 163, 733, 1869):
+        raise SystemExit("the product cache differs from the JAX package's plan")
+    steps['factorization'] = time.time() - t0
+
+    # -- the factorized probabilities against the scan -----------------------
+    t0 = time.time()
+    fact_fn = SimpleForwardSimulator(fitted, device, probs_kernel='fact').probs_fn(layout)
+    scan_fn = scan.probs_fn(layout)
+    with torch.no_grad():
+        dp = float((fact_fn(v) - scan_fn(v)).abs().max())
+        fact_ms, scan_ms = cuda_time_ms(lambda: fact_fn(v), 10), cuda_time_ms(lambda: scan_fn(v), 10)
+    log("simulator modes: factorized probabilities of all %d elements vs the scan: max |dp| "
+        "%.3e (tol 1e-12); %.3f ms per evaluation against the scan's %.3f ms"
+        % (layout.num_elements, dp, fact_ms, scan_ms))
+    if not dp < 1e-12:
+        raise SystemExit("the factorized probabilities disagree with the scan")
+    steps['factorized probabilities'] = time.time() - t0
+
+    # -- 'prodjac' against 'blocked' near the fitted point ---------------------
+    # At the optimum J^T f is the gradient, near 0, and its rounding passes
+    # 1e-10 of its largest entry (5.5e-10 in a 1-qubit rehearsal on the
+    # CPU), so the four are held 1e-3 off the fitted point, along a seeded
+    # random direction.
+    t0 = time.time()
+    near = theta + 1e-3 * np.random.RandomState(36).randn(len(theta))
+    v_near = torch.as_tensor(near, device=device)
+    prod, blocked = (ObjectiveFunctionBuilder('logl', jac_mode=mode).build(
+        fitted, ds, final, device=device, layout=layout) for mode in ('prodjac', 'blocked'))
+    args = prod._args()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    res_p = prod.jtj_jtf(near) + (prod.dlsvec(near),)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    res_b = blocked.jtj_jtf(near) + (blocked.dlsvec(near),)
+    rels = [rel_max(a, b) for a, b in zip(res_p, res_b)]
+    prod_ms = cuda_time_ms(lambda: prod._fns['jtj_jtf'](v_near, *args), 3)
+    blocked_ms = cuda_time_ms(lambda: blocked._fns['jtj_jtf'](v_near, *args), 3)
+    log("simulator modes: 'prodjac' vs 'blocked' 1e-3 off the fitted point (%d elements, %d "
+        "parameters): lsvec %.3e, JTJ %.3e, JTf %.3e, dlsvec %.3e of their largest entries "
+        "(tol 1e-9, 1e-8, 1e-10, 1e-7); at the fitted point JTf %.3e; one jtj_jtf %.2f ms "
+        "against blocked's %.2f ms; peak device memory of jtj_jtf + dlsvec %.1f MB"
+        % ((layout.num_elements, len(theta)) + tuple(rels)
+           + (rel_max(prod.jtj_jtf(theta)[2], blocked.jtj_jtf(theta)[2]), prod_ms,
+              blocked_ms, peak)))
+    if not all(r < tol for r, tol in zip(rels, (1e-9, 1e-8, 1e-10, 1e-7))):
+        raise SystemExit("'prodjac' disagrees with 'blocked'")
+    del res_p
+    objs = [ObjectiveFunctionBuilder('logl', jac_mode='prodjac').build(
+        fitted, ds, first, device=dev) for dev in (device, 'cpu')]
+    rel = card_vs_cpu(objs, theta)
+    log("simulator modes: 'prodjac' lsvec/JTJ/JTf on the card vs the CPU path (%d circuits): "
+        "max rel diff %.3e (tol 1e-12)" % (len(first), rel))
+    if not rel < 1e-12:
+        raise SystemExit("'prodjac' on the card disagrees with the CPU path")
+    steps["'prodjac' checks"] = time.time() - t0
+
+    # -- a GST fit through 'prodjac' ------------------------------------------
+    t0 = time.time()
+    prodjac_builders = GSTObjFnBuilders(
+        [ObjectiveFunctionBuilder(b.name, regularization=b.regularization, jac_mode='prodjac')
+         for b in builders.iteration_builders],
+        [ObjectiveFunctionBuilder(b.name, regularization=b.regularization, jac_mode='prodjac')
+         for b in builders.final_builders])
+    gst = GateSetTomography(GSTInitialModel(model=target.copy()), gaugeopt_suite=None,
+                            objfn_builders=prodjac_builders, optimizer={'maxiter': LM_MAXITER},
+                            verbosity=0, device=device)
+    est, launches, fit_s, iters, fit_peak = fit_launches(
+        gst, ProtocolData(GateSetTomographyDesign(target, lists), ds), 'prodjac fit', lists)
+    value, nsigma = est.parameters['final_objfn_value'], est.misfit_sigma()
+    rel_fit = abs(value - fit_value) / abs(fit_value)
+    log("simulator modes: 'prodjac' fit from the target: %d LM iterations in %.3f s, final "
+        "2*DeltaLogL %.6f (phase 3's %.6f, rel diff %.3e, tol 1e-3), N_sigma %.4f, kernel "
+        "launches %d (tol 0), peak device memory %.1f MB"
+        % (iters, fit_s, value, fit_value, rel_fit, nsigma, launches, fit_peak))
+    if not (rel_fit < 1e-3 and nsigma < 10 and launches == 0):
+        raise SystemExit("the 'prodjac' fit missed phase 3's optimum or launched the kernel")
+    steps["'prodjac' fit"] = time.time() - t0
+
+    # -- exact Hessians and first derivatives against central differences ----
+    t0 = time.time()
+    four = final[:: len(final) // 4][:4]
+    model = fitted.copy()
+    sim = SimpleForwardSimulator(model, device)
+    lay4 = sim.create_layout(four)
+    H = sim.bulk_fill_hprobs(None, lay4)
+    J = sim.bulk_fill_dprobs(None, lay4)
+    scale = float(np.max(np.abs(H)))
+    sym = float(np.max(np.abs(H - H.transpose(0, 2, 1)))) / scale
+    rng = np.random.RandomState(36)
+    eps = 1e-6
+    dh, dj = 0.0, 0.0
+    for _ in range(4):
+        u = rng.randn(len(theta))
+        u /= np.linalg.norm(u)
+        side = []
+        for sgn in (1, -1):
+            model.from_vector(theta + sgn * eps * u)
+            side.append((sim.bulk_fill_dprobs(None, lay4), sim.bulk_fill_probs(None, lay4)))
+        model.from_vector(theta)
+        dh = max(dh, float(np.max(np.abs((side[0][0] - side[1][0]) / (2 * eps) - H @ u))))
+        dj = max(dj, float(np.max(np.abs((side[0][1] - side[1][1]) / (2 * eps) - J @ u))))
+    log("simulator modes: exact Hessians of %d circuits' %d probabilities at %d parameters "
+        "(max |H| %.3e): symmetric within %.3e (tol 1e-12); along 4 random directions H u "
+        "vs central differences of bulk_fill_dprobs at eps 1e-6 within %.3e of max |H| "
+        "(tol 1e-6), dprobs u vs central differences of probs within %.3e (tol 1e-7)"
+        % (len(four), lay4.num_elements, len(theta), scale, sym, dh / scale, dj))
+    if not (sym < 1e-12 and dh < 1e-6 * scale and dj < 1e-7):
+        raise SystemExit("the exact Hessians or first derivatives disagree with central "
+                         "differences")
+    steps['Hessians'] = time.time() - t0
+
+    # -- the mesh path on a one-rank NCCL group -------------------------------
+    t0 = time.time()
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(device)
+    dist.init_process_group('nccl', init_method='tcp://127.0.0.1:%d' % port, rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=120))
+    mesh = circuit_mesh()
+    meshed = fitted.copy()
+    meshed.sim = SimpleForwardSimulator(meshed, device, mesh=mesh)
+    obj_m = ObjectiveFunctionBuilder('logl').build(meshed, ds, final, device=device)
+    obj_s = ObjectiveFunctionBuilder('logl', jac_mode='linearize').build(fitted, ds, final,
+                                                                         device=device)
+    res_m, res_s = obj_m.jtj_jtf(near), obj_s.jtj_jtf(near)
+    same = all(np.array_equal(a, b) for a, b in zip(res_m, res_s))
+    rels = [rel_max(a, b) for a, b in zip(res_m, res_b[:3])]
+    small_m = ObjectiveFunctionBuilder('logl').build(meshed, ds, first, device=device)
+    small_s = ObjectiveFunctionBuilder('logl', jac_mode='linearize').build(fitted, ds, first,
+                                                                           device=device)
+    x0 = target.to_vector()
+    lm_m, lm_s = small_m.run_device_lm(x0, maxiter=3), small_s.run_device_lm(x0, maxiter=3)
+    lm_same = np.array_equal(np.asarray(lm_m[0]), np.asarray(lm_s[0])) and lm_m[7] == lm_s[7]
+    dist.destroy_process_group()
+    log("simulator modes: mesh of %d rank(s) (NCCL, %s): jac_mode %r; jtj_jtf of the final "
+        "list equal to the serial 'linearize' one bit for bit: %s; against blocked: lsvec "
+        "%.3e, JTJ %.3e, JTf %.3e (tol 1e-9, 1e-8, 1e-10); 3 LM iterations on the first "
+        "list from the target equal to the serial ones: %s (%d iterations)"
+        % (mesh.size(), mesh.device_type, obj_m.jac_mode, same, rels[0], rels[1], rels[2],
+           lm_same, lm_m[7]))
+    if not (same and lm_same and obj_m.jac_mode == 'linearize'
+            and all(r < tol for r, tol in zip(rels, (1e-9, 1e-8, 1e-10)))):
+        raise SystemExit("the mesh path disagrees with the serial one")
+    log("simulator modes: two ranks need two cards: the multi-rank checks are the CPU tests "
+        "of tests/test_torch_multidevice.py (gloo)")
+    steps['mesh'] = time.time() - t0
+    log("simulator modes: seconds by step: %s; the phase %.1f s"
+        % (", ".join("%s %.1f" % kv for kv in steps.items()), time.time() - t_phase))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; torch.cuda.is_available() "
@@ -4779,7 +4986,7 @@ def main():
     # -- checks against references on small inputs ---------------------------
     check = final[:: len(final) // 200][:200]
     check_layout = SimpleForwardSimulator(fitted, device).create_layout(check)
-    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(check_layout)
+    p_card = SimpleForwardSimulator(fitted, device).bulk_fill_probs(None, check_layout)
     p_ref = reference_probs(fitted, check)
     dp = float(np.max(np.abs(p_card - p_ref)))
     log("check: probabilities of %d circuits vs numpy reference: max |dp| %.3e (tol 1e-10)"
@@ -4787,7 +4994,7 @@ def main():
     if p_card.shape != p_ref.shape or not dp < 1e-10:
         raise SystemExit("probabilities disagree with the numpy reference")
     dp = float(np.max(np.abs(
-        SimpleForwardSimulator(gauged, device).bulk_fill_probs(check_layout) - p_card)))
+        SimpleForwardSimulator(gauged, device).bulk_fill_probs(None, check_layout) - p_card)))
     log("check: probabilities of the 'stdgaugeopt' model vs the fitted model's: "
         "max |dp| %.3e (tol 1e-9: a gauge transformation changes none)" % dp)
     if not dp < 1e-9:
@@ -4943,8 +5150,14 @@ def main():
     # -- the standard report of phase 3's results, with error bars -----------
     report_kernel_launches = phase_report(results, fitted, gauged, target, mp, gx_bars, device)
     t19 = time.time()
-    log("phase 35: %.1f s of the script's wall time; the script %.1f s (%s)"
-        % (t19 - t18, t19 - T_START, card_name_and_limit()))
+    log("phase 35: %.1f s of the script's wall time" % (t19 - t18))
+
+    # -- the product cache, 'prodjac', exact Hessians and the mesh path ------
+    prodjac_launches = phase_simulator_modes(target, fitted, ds, lists, builders, fit_value,
+                                             device)
+    t20 = time.time()
+    log("phase 36: %.1f s of the script's wall time; the script %.1f s (%s)"
+        % (t20 - t19, t20 - T_START, card_name_and_limit()))
 
     r64 = kernel_rows[torch.float64]
     log(json.dumps({"kernels": [{
@@ -4956,7 +5169,7 @@ def main():
         + cloud3_launches + stat_launches + driver_launches + boot_launches
         + selection_launches + td_launches + sum(fogi_launches.values())
         + sum(leak_launches.values()) + report_launches + interp_launches
-        + report_kernel_launches,
+        + report_kernel_launches + prodjac_launches,
         "launches_by_path": dict({"full fit": launches['bwd_jacobian'],
                                   "cptp fit": cptp_launches, "instrument fit": inst_launches,
                                   "parallel-layer fit": par_launches, "fpr fit": fpr_launches,
@@ -4970,7 +5183,8 @@ def main():
                                     "time-resolved fit": td_launches}, **fogi_launches,
                                  **leak_launches, **{"jacobian check": report_launches,
                                                      "interpolated-gate fit": interp_launches,
-                                                     "report": report_kernel_launches}),
+                                                     "report": report_kernel_launches,
+                                                     "prodjac": prodjac_launches}),
         "max_abs_err": r64['max_abs'], "ms": r64['ms'], "plain_ms": r64['plain_ms'],
         "bound_ms": r64['bound_ms'], "bound_by": r64['bound_by'],
         # no single PyTorch call computes this function; the batched-einsum

@@ -17,7 +17,7 @@ import numpy as np
 from pygsti_tpu_torch.baseobjs.profiler import DummyProfiler
 from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
 from pygsti_tpu_torch.circuits.circuit import Circuit
-from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
+from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator, simulator_for
 from pygsti_tpu_torch.modelmembers import operations as _opm
 from pygsti_tpu_torch.modelmembers import povms as _pvm
 from pygsti_tpu_torch.modelmembers import states as _stm
@@ -196,7 +196,7 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
     lists = [list(cl) for cl in circuit_lists]
     n_iters = len(lists)
     nested = all(lists[i] == lists[-1][:len(lists[i])] for i in range(n_iters - 1))
-    shared_layout = SimpleForwardSimulator(mdl, device).create_layout(lists[-1], dataset) \
+    shared_layout = simulator_for(mdl, device).create_layout(lists[-1], dataset) \
         if nested else None
 
     def make_objective(builder, i):

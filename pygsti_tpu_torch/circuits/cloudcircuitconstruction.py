@@ -126,7 +126,7 @@ def _amped_matrices(model, germ, power0, fidpair_circuits, device="cuda"):
         base = germ.repeat(mult * power0)
         circuits = [prep + base + meas for (prep, meas) in fidpair_circuits]
         layout = sim.create_layout(circuits)
-        mats[mult] = (layout, sim.bulk_fill_dprobs(layout))
+        mats[mult] = (layout, sim.bulk_fill_dprobs(None, layout))
     layout1, J1 = mats[1]
     layout2, J2 = mats[2]
     out = []

@@ -18,10 +18,11 @@ from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator, layo
 
 
 class StateVectorForwardSimulator(SimpleForwardSimulator):
-    """Batched pure-state propagation on one device; layouts and the
-    probability dictionaries are SimpleForwardSimulator's."""
+    """Batched pure-state propagation on one device (or, with a mesh
+    ``sim.mesh``, on each rank's shard of the circuits); layouts, fills,
+    derivatives and the probability dictionaries are the base class's."""
 
-    def probs_fn(self, layout):
+    def local_probs_fn(self, layout):
         """A pure function v -> probabilities [n_elements] for `layout`."""
         layout.check_op_stack(self.model)
         compute = self.model.statevec_tensors_fn()

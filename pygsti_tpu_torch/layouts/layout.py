@@ -41,10 +41,21 @@ class CircuitOutcomeProbabilityLayout(object):
       outcomes        : per circuit, its outcome tuples
       omitted_firsts  : int32, first element of each circuit with omitted
                         outcomes; omitted_circuits: those circuits
+
+    With ``pad_to_multiple`` the circuit list is padded to a multiple of it
+    (so a device mesh shards it evenly): the padded circuits repeat circuit
+    0, with zero counts and totals, so they add nothing to an objective;
+    ``num_real_circuits`` counts the circuits given.
     """
 
-    def __init__(self, circuits, model, dataset=None, observed_outcomes_only=False):
+    def __init__(self, circuits, model, dataset=None, observed_outcomes_only=False,
+                 pad_to_multiple=None):
         self.circuits = [c if isinstance(c, Circuit) else Circuit(c) for c in circuits]
+        self.num_real_circuits = len(self.circuits)
+        if pad_to_multiple and self.num_real_circuits % pad_to_multiple:
+            self.circuits += [self.circuits[0]] * (
+                pad_to_multiple - self.num_real_circuits % pad_to_multiple)
+        self.dim = model.dim
         # a parallel layer becomes a composite layer of the model's op stack
         model.register_circuit_layers(self.circuits)
         self.op_keys = tuple(model.op_keys)
@@ -152,6 +163,42 @@ class CircuitOutcomeProbabilityLayout(object):
     def __len__(self):
         return self.num_elements
 
+    def sub_layout(self, c0, c1):
+        """The layout of circuits c0..c1-1 alone, cut from this one: its
+        rows, elements and outcomes are this layout's, renumbered from 0 (a
+        mesh's shard of the circuits)."""
+        sub = object.__new__(type(self))
+        r0, r1 = np.searchsorted(self.row_circuit, [c0, c1])
+        e0 = self.element_slices[c0].start if c1 > c0 else 0
+        e1 = self.element_slices[c1 - 1].stop if c1 > c0 else 0
+        keep = (self.omitted_circuits >= c0) & (self.omitted_circuits < c1)
+        sub.__dict__.update(
+            circuits=self.circuits[c0:c1],
+            num_real_circuits=int(np.clip(self.num_real_circuits - c0, 0, c1 - c0)),
+            dim=self.dim, op_keys=self.op_keys, identity_index=self.identity_index,
+            num_ops=self.num_ops, num_rows=int(r1 - r0), max_depth=self.max_depth,
+            depths=self.depths[r0:r1], op_indices=self.op_indices[r0:r1],
+            prep_index=self.prep_index[r0:r1], row_circuit=self.row_circuit[r0:r1] - c0,
+            elem_circuit=self.elem_circuit[e0:e1] - r0, elem_effect=self.elem_effect[e0:e1],
+            elem_to_circuit=self.elem_to_circuit[e0:e1] - c0,
+            element_slices=[slice(s.start - e0, s.stop - e0)
+                            for s in self.element_slices[c0:c1]],
+            outcomes=self.outcomes[c0:c1], num_elements=int(e1 - e0),
+            rows_uniform_n_out=self.rows_uniform_n_out,
+            omitted_firsts=self.omitted_firsts[keep] - e0,
+            omitted_circuits=self.omitted_circuits[keep] - c0,
+            has_omitted=bool(keep.any()), _counts_cache=weakref.WeakKeyDictionary())
+        return sub
+
+    @property
+    def factorization(self):
+        """The germ-power product-cache plan of this layout
+        (layouts/prodcache.py), made at first use; None without rows."""
+        if '_factorization' not in self.__dict__:
+            from pygsti_tpu_torch.layouts.prodcache import factorize_layout
+            self._factorization = factorize_layout(self)
+        return self._factorization
+
     def check_op_stack(self, model):
         """Make sure this layout's op indices mean `model`'s op stack.  The
         layout's composite layers are registered with `model` first (a
@@ -178,12 +225,13 @@ class CircuitOutcomeProbabilityLayout(object):
         """(counts, total_counts) flat element arrays from a dataset; each
         element of a circuit carries the circuit's total.  Cached per
         dataset (the stages of a nested fit share one layout); the arrays
-        returned are the caller's own."""
+        returned are the caller's own.  Padded circuits keep zero counts
+        and totals."""
         hit = self._counts_cache.get(dataset)
         if hit is None:
             counts = np.zeros(self.num_elements)
             totals = np.zeros(self.num_elements)
-            for b, c in enumerate(self.circuits):
+            for b, c in enumerate(self.circuits[:self.num_real_circuits]):
                 row = dataset[c]
                 sl = self.element_slices[b]
                 totals[sl] = row.total

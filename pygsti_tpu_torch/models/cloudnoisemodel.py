@@ -29,12 +29,13 @@ class CloudNoiseModel(LocalNoiseModel):
     and targets."""
 
     def __init__(self, processor_spec, gate_members, prep_member, povm_member,
-                 cloud_members_by_targets, cloud_members_blk, basis='pp', idle_member=None):
+                 cloud_members_by_targets, cloud_members_blk, basis='pp', idle_member=None,
+                 simulator='auto'):
         # {(gate leaf key, targets): (cloud leaf key, cloud qubits)}
         self._cloud_map_by_targets = dict(cloud_members_by_targets)
         self._cloud_blk = collections.OrderedDict(cloud_members_blk)
         super().__init__(processor_spec, gate_members, prep_member, povm_member, basis,
-                         idle_member)
+                         idle_member, simulator)
         self.operation_blks['cloudnoise'] = self._cloud_blk
 
     def _iter_parameterized_objs(self):
@@ -70,8 +71,8 @@ def create_cloud_crosstalk_model_from_hops_and_weights(
     within `maxhops` of its targets, with error terms of weight at most the
     gate's qubit count plus `extra_gate_weight`; the global idle gets terms
     of weight at most `max_idle_weight` on all qubits.  Each cloud has
-    independent parameters.  `simulator` is accepted and not used: the
-    port's simulators take the model.  As in the JAX package,
+    independent parameters.  `simulator` becomes the model's (a type name
+    or a ForwardSimulator).  As in the JAX package,
     independent_clouds=False, connected_highweight_errors=True,
     extra_weight_1_hops != 0, an errcomp_type other than 'gates', an
     implicit_idle_mode other than 'none' and evotypes other than
@@ -140,7 +141,7 @@ def create_cloud_crosstalk_model_from_hops_and_weights(
             _op.build_lindblad_errorgen(Basis.cast(basis, 4 ** nq), spam_type,
                                         max_weight=max_spam_weight)), povm_member)
     return CloudNoiseModel(pspec, gate_members, prep_member, povm_member, cloud_map,
-                           cloud_members_blk, basis, idle_member)
+                           cloud_members_blk, basis, idle_member, simulator)
 
 
 class CloudNoiseLayerRules(_LayerRulesBase):

@@ -112,8 +112,8 @@ class ExplicitOpModel(OpModel):
     """Model with explicit .operations/.preps/.povms/.instruments dicts."""
 
     def __init__(self, dim, basis='pp', default_gate_type='full',
-                 default_prep_type=None, default_povm_type=None):
-        super().__init__(dim, basis)
+                 default_prep_type=None, default_povm_type=None, simulator='auto'):
+        super().__init__(dim, basis, simulator)
         self.default_gate_type = default_gate_type
         self.default_prep_type = default_prep_type or default_gate_type
         self.default_povm_type = default_povm_type or default_gate_type
@@ -219,6 +219,7 @@ class ExplicitOpModel(OpModel):
         m.param_interposer = self.param_interposer
         if hasattr(self, 'fogi_store'):
             m.fogi_store = self.fogi_store
+        self._copy_simulator_to(m)
         return m
 
     def probabilities(self, circuit, outcomes=None, device="cuda"):

@@ -47,9 +47,9 @@ class LocalNoiseModel(OpModel):
     """Implicit model: each gate's noise acts only on its target qubits."""
 
     def __init__(self, processor_spec, gate_members, prep_member, povm_member,
-                 basis='pp', idle_member=None):
+                 basis='pp', idle_member=None, simulator='auto'):
         self.state_space = QubitSpace(processor_spec.qubit_labels)
-        super().__init__(self.state_space.dim, basis)
+        super().__init__(self.state_space.dim, basis, simulator)
         self.processor_spec = processor_spec
         # leaf members: {Label(gate name) or Label(gate name, targets): member
         # on the gate's qubits}
@@ -305,5 +305,10 @@ class LocalNoiseModel(OpModel):
         return SimpleForwardSimulator(self, device).bulk_probs(circuits)
 
     def copy(self):
-        """A deep copy, the layer registry included."""
-        return copy.deepcopy(self)
+        """A deep copy, the layer registry included, with a fresh simulator
+        of this model's type and settings."""
+        memo = {id(s): None for s in (self.user_sim, self._default_sim) if s is not None}
+        m = copy.deepcopy(self, memo)
+        m.user_sim = m._default_sim = None
+        self._copy_simulator_to(m)
+        return m

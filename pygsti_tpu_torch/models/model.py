@@ -65,10 +65,52 @@ class OpModel(Model):
     pinv(M) w."""
 
     param_interposer = None
+    user_sim = None           # the simulator its user set, or None
+    _default_sim = None
+    _sim_type = 'auto'
 
-    def __init__(self, dim, basis='pp'):
+    def __init__(self, dim, basis='pp', simulator='auto'):
         super().__init__(dim)
         self.basis = Basis.cast(basis, dim)
+        self._set_simulator(simulator)
+
+    # -- the simulator (the JAX package's Model.sim) ----------------------------
+    def _set_simulator(self, simulator):
+        """`simulator` is a type name ('auto', 'map', 'matrix', 'dense': the
+        default simulator) or a ForwardSimulator, which becomes the
+        model's own."""
+        from pygsti_tpu_torch.forwardsims.forwardsim import SIM_TYPES, ForwardSimulator
+        if isinstance(simulator, ForwardSimulator):
+            self.sim = simulator
+        elif simulator in SIM_TYPES:
+            self._sim_type = simulator
+        else:
+            raise ValueError("Unknown simulator type %r" % (simulator,))
+
+    @property
+    def sim(self):
+        """The model's simulator: the one set (``model.sim = ...`` or
+        ``simulator=``), else a SimpleForwardSimulator on "cuda", made once.
+        Objectives take the one set; without it they build their own on
+        their device."""
+        if self.user_sim is not None:
+            return self.user_sim
+        if self._default_sim is None:
+            from pygsti_tpu_torch.forwardsims.forwardsim import create_forward_simulator
+            self._default_sim = create_forward_simulator(self._sim_type, self)
+        return self._default_sim
+
+    @sim.setter
+    def sim(self, new_sim):
+        new_sim.model = self
+        self.user_sim = new_sim
+
+    def _copy_simulator_to(self, m):
+        """Give the copy `m` a fresh simulator of this model's type and
+        settings."""
+        m._sim_type = self._sim_type
+        if self.user_sim is not None:
+            m.sim = self.user_sim.fresh(m)
 
     def _iter_parameterized_objs(self):
         raise NotImplementedError()

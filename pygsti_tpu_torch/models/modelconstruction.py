@@ -255,8 +255,9 @@ def create_explicit_model(processor_spec, custom_gates=None, basis='pp',
     `ideal_spam_type` when 'auto' ('auto' is 'computational').  A unitary
     type embeds the gate's unitary on the register directly, so the
     superoperator is never taken back to a unitary (at five qubits that
-    costs seconds per operation).  `simulator`, `evotype` and `embed_gates`
-    are accepted and not used."""
+    costs seconds per operation).  `simulator` becomes the model's (a type
+    name or a ForwardSimulator); `evotype` and `embed_gates` are accepted
+    and not used."""
     from pygsti_tpu_torch.models.explicitmodel import ExplicitOpModel
     from pygsti_tpu_torch.baseobjs.statespace import QubitSpace
     if ideal_gate_type == 'auto':
@@ -271,7 +272,7 @@ def create_explicit_model(processor_spec, custom_gates=None, basis='pp',
     space = QubitSpace(qlbls)
     basis_obj = Basis.cast(basis, space.dim)
     mdl = ExplicitOpModel(space.dim, basis_obj, ideal_gate_type, ideal_prep_type,
-                          ideal_povm_type)
+                          ideal_povm_type, simulator)
     custom_gates = custom_gates or {}
     for lbl in pspec.primitive_op_labels:
         if lbl in custom_gates:
@@ -340,8 +341,8 @@ def create_crosstalk_free_model(processor_spec, custom_gates=None,
     the three dicts keyed by gate name, acts on its target qubits only, and
     one leaf per gate name serves every target.  A gate given as a function
     of label arguments becomes an op factory.  The settings the JAX package
-    refuses raise NotImplementedError here with its words; `simulator` and
-    `independent_spam` are accepted and not used."""
+    refuses raise NotImplementedError here with its words; `simulator`
+    becomes the model's; `independent_spam` is accepted and not used."""
     from pygsti_tpu_torch.models.localnoisemodel import LocalNoiseModel
     from pygsti_tpu_torch.modelmembers.opfactory import UnitaryOpFactory
     if depolarization_parameterization != 'depolarize':
@@ -430,7 +431,8 @@ def create_crosstalk_free_model(processor_spec, custom_gates=None,
     mn = _noise_op_for_gate(2 ** nq, basis, *noise_for('Mdefault'))
     if mn is not None:
         povm_member = _pv.ComposedPOVM(mn, povm_member)
-    mdl = LocalNoiseModel(pspec, gate_members, prep_member, povm_member, basis, idle_member)
+    mdl = LocalNoiseModel(pspec, gate_members, prep_member, povm_member, basis, idle_member,
+                          simulator)
     for name, fn in factory_fns.items():
         try:
             udim = np.asarray(fn((0.0,))).shape[0]
@@ -564,7 +566,7 @@ def create_cloud_crosstalk_model(processor_spec, custom_gates=None,
     if mn is not None:
         povm_member = _pv.ComposedPOVM(mn, povm_member, basis)
     return CloudNoiseModel(pspec, gate_members, prep_member, povm_member, cloud_map,
-                           cloud_members_blk, basis, idle_member)
+                           cloud_members_blk, basis, idle_member, simulator)
 
 
 def create_cloud_crosstalk_model_from_hops_and_weights(

@@ -17,8 +17,8 @@ The objective evaluates, on one device:
   fn(v)      -> objective value
   lsvec(v)   -> least-squares residual vector [n_elements (+ penalty rows)]
   jtj_jtf(v) -> (lsvec, J^T J, J^T lsvec), what the LM optimizer consumes,
-with J = d lsvec / dv from one of two Jacobians, chosen by the JAX
-package's rule (``jac_mode=None``):
+with J = d lsvec / dv from one of three Jacobians; without a mesh the JAX
+package's rule (``jac_mode=None``) picks one of the first two:
   'blocked'   every row has the same number of elements and none is
               omitted: rows grouped into depth buckets, a forward scan per
               bucket, the backward accumulation of ops/bwd_jacobian.py, a
@@ -30,7 +30,19 @@ package's rule (``jac_mode=None``):
   'linearize' any other layout (sparse outcomes): P forward-mode tangents
               of the probabilities, pushed through the scan in chunks,
               then one Gram.  The JAX package's 'fwd' computes the same J
-              without a mesh, so here both names run this one function.
+              without a mesh, so here both names run this one function;
+  'prodjac'   never chosen by the rule (jac_mode='prodjac'): the
+              derivatives of the germ-power product cache
+              (layouts/prodcache.py), one tangent per op-tensor entry,
+              pushed through the cache's levels as batched matrix products;
+              the Jacobian's element rows assembled by shared effect row
+              and shared (power, state) pair (ElementGroupTables); the prep
+              and effect rows in closed form; then the [NT, NT] Gram of the
+              tensor entries chained once through Tv.
+With a mesh (``sim.mesh`` of a simulator set on the model, parallel/mesh.py)
+the objective is 'linearize' on each rank's shard of the circuits (with
+the forward tangents split over the mesh's 'params' axis, if any), and
+every rank returns the whole residual, J^T J and J^T f.
 """
 
 from __future__ import annotations
@@ -39,7 +51,10 @@ import numpy as np
 import torch
 
 from pygsti_tpu_torch import DTYPE
-from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator, layout_tensors
+from pygsti_tpu_torch.forwardsims.forwardsim import (SimpleForwardSimulator, cache_products,
+                                                     fact_tensors, factorized_probs,
+                                                     layout_shard, layout_tensors,
+                                                     propagate, simulator_for)
 from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
 
 DEFAULT_MIN_PROB_CLIP = 1e-4
@@ -48,8 +63,10 @@ DEFAULT_MIN_PROB_CLIP_FOR_WEIGHTING = 1e-4
 # bytes of one Jacobian block (the JAX package's default budget)
 JAC_BLOCK_BYTES = 256 * 1024 * 1024
 # parameter count from which the device LM loop solves by conjugate gradients
-# when no solver is named (the JAX package's default threshold)
+# when no solver is named (the JAX package's default threshold), and the one
+# from which it does so on a mesh whose 'params' axis splits the tangents
 CG_MIN_PARAMS = 8192
+CG_MIN_PARAMS_PARAM_SHARDED = 1024
 # bytes of one layer's op-tangent products dG s in one chunk of forward-mode
 # tangents, by device type: few large launches on the card; on the CPU
 # chunks that stay near its caches (a 2-qubit LM fit of 16 iterations took
@@ -582,14 +599,18 @@ _RAW_CLASSES = {
     'maxlogl': RawMaxLogLFunction,
 }
 _PENALTY_KEYS = ('cptp_penalty_factor', 'spam_penalty_factor', 'regularize_factor')
-JAC_MODES = ('blocked', 'linearize', 'fwd')
+JAC_MODES = ('blocked', 'linearize', 'fwd', 'prodjac')
 
 
 class ObjectiveFunctionBuilder(object):
     """Recipe for building an MDC objective: a raw objective named in
     _RAW_CLASSES with its `regularization`, optional `penalties`
     (cptp_penalty_factor, spam_penalty_factor, regularize_factor) and
-    `jac_mode` (None for the JAX package's rule, or one of JAC_MODES)."""
+    `jac_mode` (None for the JAX package's rule, or one of JAC_MODES).
+    The 'prodjac' Jacobian also takes `j_dtype` (its products' dtype,
+    default the model's), `prodjac_group` (slots per element group, 64)
+    and `prodjac_chunk` (op-tensor entries per pass through the cache
+    levels; 0, the default, is all of them at once)."""
 
     @classmethod
     def cast(cls, obj):
@@ -612,7 +633,7 @@ class ObjectiveFunctionBuilder(object):
         return cls(objective, **kwargs)
 
     def __init__(self, name='logl', description=None, regularization=None, penalties=None,
-                 jac_mode=None):
+                 jac_mode=None, j_dtype=None, prodjac_group=64, prodjac_chunk=0):
         if name not in _RAW_CLASSES:
             raise ValueError("unsupported objective %r (the port has %s)"
                              % (name, sorted(_RAW_CLASSES)))
@@ -624,6 +645,8 @@ class ObjectiveFunctionBuilder(object):
         self.regularization = regularization or {}
         self.penalties = dict(penalties or {})
         self.jac_mode = jac_mode
+        self.jac_options = {'j_dtype': j_dtype, 'prodjac_group': prodjac_group,
+                            'prodjac_chunk': prodjac_chunk}
 
     def build_raw(self):
         return _RAW_CLASSES[self.name](self.regularization)
@@ -633,7 +656,7 @@ class ObjectiveFunctionBuilder(object):
         return TimeIndependentMDCObjectiveFunction(
             self.build_raw(), model, dataset, circuits, name=self.name, layout=layout,
             num_active_circuits=num_active_circuits, penalties=self.penalties,
-            jac_mode=self.jac_mode, device=device)
+            jac_mode=self.jac_mode, device=device, **self.jac_options)
 
     def build_from_store(self, mdc_store):
         return self.build(mdc_store.model, mdc_store.dataset, mdc_store.circuits,
@@ -641,7 +664,9 @@ class ObjectiveFunctionBuilder(object):
 
 
 class ModelDatasetCircuitsStore(object):
-    """Bundles model + dataset + circuits + layout on one device."""
+    """Bundles model + dataset + circuits + layout on one device; the
+    layout is made by the model's simulator when its user set one (on
+    `device`), else by the default simulator."""
 
     def __init__(self, model, dataset, circuits=None, device="cuda",
                  precomp_layout=None):
@@ -650,7 +675,7 @@ class ModelDatasetCircuitsStore(object):
         self.device = device
         self.circuits = list(circuits) if circuits is not None else list(dataset.keys())
         self.layout = precomp_layout if precomp_layout is not None else \
-            SimpleForwardSimulator(model, device).create_layout(self.circuits, dataset)
+            simulator_for(model, device).create_layout(self.circuits, dataset)
 
 
 class TimeIndependentMDCObjectiveFunction(object):
@@ -661,11 +686,15 @@ class TimeIndependentMDCObjectiveFunction(object):
     nothing to any value or Jacobian row, so the stages of a nested GST fit
     share the final list's layout.  `penalties` add rows to the residual
     (module _make_penalty_fn); `jac_mode` picks the Jacobian (module note),
-    and ``self.jac_mode`` names the one chosen."""
+    and ``self.jac_mode`` names the one chosen; `j_dtype`, `prodjac_group`
+    and `prodjac_chunk` tune 'prodjac' (ObjectiveFunctionBuilder).  The
+    model's simulator is the one its user set (``model.sim``, which must
+    be on `device`; it may carry a mesh), else the default on `device`."""
 
     def __init__(self, raw_objfn, model, dataset, circuits, name=None,
                  layout=None, num_active_circuits=None, penalties=None,
-                 jac_mode=None, device="cuda"):
+                 jac_mode=None, device="cuda", j_dtype=None, prodjac_group=64,
+                 prodjac_chunk=0):
         self.raw_objfn = raw_objfn
         self.model = model
         self.dataset = dataset
@@ -673,7 +702,7 @@ class TimeIndependentMDCObjectiveFunction(object):
         self.name = name or raw_objfn.name
         self.penalties = dict(penalties or {})
         self.device = torch.device(device)
-        sim = SimpleForwardSimulator(model, self.device)
+        sim = self.sim = simulator_for(model, self.device)
         self.layout = layout if layout is not None else \
             sim.create_layout(self.circuits, dataset)
         counts, totals = self.layout.counts_arrays(dataset)
@@ -691,7 +720,9 @@ class TimeIndependentMDCObjectiveFunction(object):
         self._data = tuple(torch.as_tensor(a, dtype=DTYPE, device=self.device)
                            for a in (counts, totals, freqs))
         raw, self._flag, self._regs = _switch_config(raw_objfn)
-        self._fns = _objective_fns(model, self.layout, sim, raw, self.penalties, jac_mode)
+        self._fns = _objective_fns(model, self.layout, sim, raw, self.penalties, jac_mode,
+                                   {'j_dtype': j_dtype, 'group': prodjac_group,
+                                    'chunk': prodjac_chunk})
         self.jac_mode = self._fns['jac_mode']
 
     def _v(self, paramvec):
@@ -732,6 +763,10 @@ class TimeIndependentMDCObjectiveFunction(object):
         correction, no penalties): J^T dterms, by one reverse pass of the
         scan."""
         v = self._v(paramvec)
+        if self.sim.mesh is not None:
+            with torch.no_grad():
+                dterms = self.raw_objfn.dterms(self._fns['probs'](v), *self._data)
+                return (self._fns['jacobian'](v).T @ dterms).cpu().numpy()
         with torch.enable_grad():
             p, pullback = torch.func.vjp(self._fns['probs'], v)
             return pullback(self.raw_objfn.dterms(p.detach(), *self._data))[0] \
@@ -753,6 +788,8 @@ class TimeIndependentMDCObjectiveFunction(object):
 
     def probs_hessian_sum(self, weights, paramvec=None):
         """sum_e w_e d2 p_e / dv2 [P, P] (probability_hessian_fn)."""
+        if self.sim.mesh is not None:
+            raise ValueError("the probabilities' second derivatives are not taken on a mesh")
         if self._prob_hessian is None:
             self._prob_hessian = probability_hessian_fn(self.model, self.layout, self.device)
         w = torch.as_tensor(weights, dtype=DTYPE, device=self.device)
@@ -800,13 +837,18 @@ class TimeIndependentMDCObjectiveFunction(object):
                       solver=None):
         """The Levenberg-Marquardt loop with every state tensor on the
         objective's device.  `solver` is 'cholesky' or 'cg'; None takes
-        'cg' from 8,192 parameters up, the JAX package's rule.  Returns (x,
-        converged, msg, mu, nu, norm_f, f, iterations)."""
+        'cg' from 8,192 parameters up, or from 1,024 on a mesh whose
+        'params' axis splits the tangents, the JAX package's rule.  On a
+        mesh every rank takes the same steps.  Returns (x, converged, msg,
+        mu, nu, norm_f, f, iterations)."""
         from pygsti_tpu_torch.optimize.device_lm import make_device_lm, EXIT_MESSAGES
         tol = tol or {}
         linesearch = linesearch or {}
         if solver is None:
-            solver = 'cg' if len(x0) >= CG_MIN_PARAMS else 'cholesky'
+            from pygsti_tpu_torch.parallel.mesh import param_axis_size
+            sharded = param_axis_size(self.sim.mesh) > 1
+            solver = 'cg' if len(x0) >= CG_MIN_PARAMS or (
+                sharded and len(x0) >= CG_MIN_PARAMS_PARAM_SHARDED) else 'cholesky'
         args = self._args()
         oob = self.device_oob_fn
         lm_init, lm_run, lm_finalize = make_device_lm(
@@ -1008,7 +1050,7 @@ class EvaluatedModelDatasetCircuitsStore(ModelDatasetCircuitsStore):
     def __init__(self, mdc_store, verbosity=0):
         super().__init__(mdc_store.model, mdc_store.dataset, mdc_store.circuits,
                          device=mdc_store.device, precomp_layout=mdc_store.layout)
-        self.probs = SimpleForwardSimulator(self.model, self.device).bulk_fill_probs(self.layout)
+        self.probs = simulator_for(self.model, self.device).bulk_fill_probs(None, self.layout)
 
 
 class TermWeighted(TimeIndependentMDCObjectiveFunction):
@@ -1308,24 +1350,30 @@ def bucket_plan(layout, n_out, NT, device, rows=None):
     return cache[key]
 
 
-def choose_jac_mode(layout, jac_mode=None):
-    """The Jacobian for `layout`: the JAX package's rule without a mesh
-    when `jac_mode` is None ('blocked' when every row has the same number
-    of elements and no outcome is omitted, else 'linearize', or 'fwd' for
-    a layout without rows), else `jac_mode` itself when it can serve."""
+def choose_jac_mode(layout, jac_mode=None, mesh=None):
+    """The Jacobian for `layout`: the JAX package's rule when `jac_mode` is
+    None ('blocked' without a mesh when every row has the same number of
+    elements and no outcome is omitted, else 'linearize', or 'fwd' for a
+    layout without rows), else `jac_mode` itself when it can serve
+    ('blocked' and 'prodjac' only without a mesh; 'prodjac' on a layout
+    with rows, which the product cache factorizes)."""
     rows = layout.op_indices.shape[0]
     uniform = (rows > 0 and layout.num_elements % rows == 0 and layout.rows_uniform_n_out
                and not layout.has_omitted)
     if jac_mode is None:
-        return 'blocked' if uniform else ('linearize' if rows > 0 else 'fwd')
-    if jac_mode == 'prodjac':
-        raise NotImplementedError("jac_mode 'prodjac' (the germ-power product cache) is not "
-                                  "ported yet: ROADMAP.md, queue 1")
+        if uniform and mesh is None:
+            return 'blocked'
+        return 'linearize' if rows > 0 else 'fwd'
     if jac_mode not in JAC_MODES:
         raise ValueError("unknown jac_mode %r (the port has %s)" % (jac_mode, JAC_MODES))
+    if mesh is not None and jac_mode in ('blocked', 'prodjac'):
+        raise ValueError("jac_mode %r runs without a mesh; on a mesh the port has 'linearize' "
+                         "and 'fwd'" % jac_mode)
     if jac_mode == 'blocked' and not uniform:
         raise ValueError("the blocked Jacobian needs every row to have the same number of "
                          "elements and no omitted outcomes")
+    if jac_mode == 'prodjac' and layout.factorization is None:
+        raise ValueError("jac_mode 'prodjac' needs a layout with rows to factorize")
     return jac_mode
 
 
@@ -1385,17 +1433,19 @@ def _omitted_correction(layout, raw, device):
     return terms_of_p, lsvec_of_p, weighted_jac_t
 
 
-def _forward_jacobian_fns(model, layout, sim, correction):
-    """jtj_jtf and dlsvec from forward mode: the tangents of the model's
-    tensors along each parameter (Tv's columns, in chunks of c) are pushed
-    through the scan beside the states, ds <- G ds + dG s, then one Gram.
+def forward_probs_and_jac_t(model, layout, device, params=None):
+    """A function v -> (p [E], Jt = dp / dv [P', E]) by forward mode: the
+    tangents of the model's tensors along each parameter (Tv's columns,
+    in chunks of c; only the columns of the slice `params`, when given)
+    are pushed through the scan beside the states, ds <- G ds + dG s.
     dG s is formed for every op, [K1, B, c*d], and each row's op picked
     after: a layer then writes K1 * B * c * d numbers, not the
     B * c * d * d of gathered op tangents.  Chunks keep that under the
-    device type's JVP_CHUNK_BYTES.  The tangent states are kept as [B, c, d], so that both
-    products are batched matrix products without a transpose."""
-    _, lsvec_of_p, weighted_jac_t = correction
-    device, dim = sim.device, model.dim
+    device type's JVP_CHUNK_BYTES.  The tangent states are kept as [B, c,
+    d], so that both products are batched matrix products without a
+    transpose."""
+    device = torch.device(device)
+    dim = model.dim
     compute_flat = model.flat_tensors_fn()
     tensors_jacobian = model.flat_tensors_jacobian_fn()
     n_ops, n_preps = len(model.op_keys), len(model.prep_keys)
@@ -1408,15 +1458,17 @@ def _forward_jacobian_fns(model, layout, sim, correction):
     per_tangent = (n_ops + 1) * max(B, 1) * dim * torch.finfo(DTYPE).bits // 8
 
     def probs_and_jac_t(v):
-        """(p [E], Jt = dp / dv [P, E])."""
+        """(p [E], Jt = dp / dv [P', E])."""
         tf, Tv = compute_flat(v), tensors_jacobian(v)
+        if params is not None:
+            Tv = Tv[:, params]
         G = torch.cat([tf[:o_sz].reshape(n_ops, dim, dim),
                        torch.eye(dim, dtype=v.dtype, device=device)[None]])
         preps = tf[o_sz:o_sz + p_sz].reshape(n_preps, dim)
         effects = tf[o_sz + p_sz:].reshape(-1, dim)
         chunk = max(1, JVP_CHUNK_BYTES[device.type] // per_tangent)
         Jt = []
-        for j in range(0, v.shape[0], chunk):
+        for j in range(0, Tv.shape[1], chunk):
             T = Tv[:, j:j + chunk]                                     # [NT, c]
             c = T.shape[1]
             # W[k, j', (c, i)] = dG[c, k, i, j'], the identity's slot zero
@@ -1433,7 +1485,19 @@ def _forward_jacobian_fns(model, layout, sim, correction):
             dE = T[o_sz + p_sz:].reshape(-1, dim, c)                   # [n_eff, d, c]
             Jt.append(torch.einsum('eic,ei->ce', dE[elem_eff], s[elem_row])
                       + torch.einsum('eci,ei->ce', ds[elem_row], effects[elem_eff]))
+        if not Jt:            # an empty block of parameters
+            Jt = [torch.zeros((0, elem_row.shape[0]), dtype=v.dtype, device=device)]
+            s = propagate(G, preps[prep_idx], op_idx)
         return (effects[elem_eff] * s[elem_row]).sum(-1), torch.cat(Jt)
+
+    return probs_and_jac_t
+
+
+def _forward_jacobian_fns(model, layout, sim, correction):
+    """jtj_jtf and dlsvec from forward mode (forward_probs_and_jac_t),
+    then one Gram."""
+    _, lsvec_of_p, weighted_jac_t = correction
+    probs_and_jac_t = forward_probs_and_jac_t(model, layout, sim.device)
 
     @torch.no_grad()
     def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
@@ -1741,19 +1805,195 @@ def probability_hessian_fn(model, layout, device):
     return hessian
 
 
-def _objective_fns(model, layout, sim, raw, penalties, jac_mode):
+def prodjac_tables(layout, device, group):
+    """The element groups of the 'prodjac' assembly (ElementGroupTables of
+    `group` slots) and each element's power block, prefix, suffix, prep and
+    effect row, as int64 tensors on `device`, cached on the layout."""
+    from pygsti_tpu_torch.layouts.prodcache import build_element_group_tables
+    cache = layout.__dict__.setdefault('_prodjac_tables', {})
+    key = (str(torch.device(device)), group)
+    if key not in cache:
+        fact = layout.factorization
+        gt = build_element_group_tables(fact, chunk=group)
+        pair_a_e = fact.pair_a[fact.elem_pair]
+        host = dict(gt._asdict(),
+                    g_of_e=fact.pair_g[fact.elem_pair],
+                    m_of_e=fact.a_pfx_cache[pair_a_e // fact.n_preps],
+                    sfx_of_e=fact.e_sfx_cache[fact.elem_erow // fact.n_effects],
+                    prep_of_e=pair_a_e % fact.n_preps,
+                    eff_of_e=fact.elem_erow % fact.n_effects)
+        cache[key] = {k: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
+                      for k, a in host.items()}
+    return cache[key]
+
+
+def _prodjac_jacobian_fns(model, layout, sim, correction, j_dtype=None, group=64, chunk=0):
+    """jtj_jtf and dlsvec from the derivatives of the product cache (module
+    note): Jt = dp / d tensor entries [NT, E] at `j_dtype`, the op rows in
+    passes of `chunk` op-tensor entries (0: all at once)."""
+    _, lsvec_of_p, weighted_jac_t = correction
+    device, dim = sim.device, model.dim
+    j_dtype = DTYPE if j_dtype is None else getattr(torch, j_dtype) \
+        if isinstance(j_dtype, str) else j_dtype
+    compute_flat = model.flat_tensors_fn()
+    tensors_jacobian = model.flat_tensors_jacobian_fn()
+    n_ops, n_preps = len(model.op_keys), len(model.prep_keys)
+    n_eff = sum(model.povms[k].num_outcomes for k in model.povm_keys)
+    o_sz, p_sz = n_ops * dim * dim, n_preps * dim
+    ft = fact_tensors(layout, device)
+    gt = prodjac_tables(layout, device, group)
+    levels = ft['levels']
+    n_ext = n_ops + 1 + layout.factorization.n_cache
+    c_chunk = chunk or o_sz
+
+    def jac_t(tf):
+        """(p [E], Jt = dp / d tensor entries [NT, E]) at j_dtype."""
+        tf = tf.to(j_dtype)
+        ops = tf[:o_sz].reshape(n_ops, dim, dim)
+        preps = tf[o_sz:o_sz + p_sz].reshape(n_preps, dim)
+        effects = tf[o_sz + p_sz:].reshape(n_eff, dim)
+        G = torch.cat([ops, torch.eye(dim, dtype=j_dtype, device=device)[None]])
+        T = cache_products(G, levels)
+        p, a, e, X = factorized_probs(T, preps, effects, ft)
+        op_rows = []
+        for cs in range(0, o_sz, c_chunk):
+            cc = min(c_chunk, o_sz - cs)
+            # one tangent per op-tensor entry, through the levels in place
+            dT = torch.zeros((cc, n_ext, dim, dim), dtype=j_dtype, device=device)
+            dT.view(cc, -1)[torch.arange(cc, device=device),
+                            torch.arange(cs, cs + cc, device=device)] = 1.0
+            off = n_ops + 1
+            for lefts, rights in levels:
+                n = lefts.shape[0]
+                dT[:, off:off + n] = (torch.matmul(dT[:, lefts], T[rights])
+                                      + torch.matmul(T[lefts], dT[:, rights]))
+                off += n
+            da = torch.einsum('cmij,rj->cmri', dT[:, ft['a_pfx']],
+                              preps[:ft['n_preps']]).reshape(cc, -1, dim)
+            de = torch.einsum('oi,cmij->cmoj', effects[:ft['n_effects']],
+                              dT[:, ft['e_sfx']]).reshape(cc, -1, dim)
+            dX = (torch.einsum('cqij,qj->cqi', dT[:, ft['pair_g']], a[ft['pair_a']])
+                  + torch.einsum('qij,cqj->cqi', T[ft['pair_g']], da[:, ft['pair_a']]))
+            del dT, da
+            # grouped element assembly: one product per shared row
+            t1 = torch.einsum('cgi,gli->cgl', de[:, gt['erow_chunk_row']],
+                              X[gt['erow_chunk_pair']])
+            t2 = torch.einsum('cgi,gli->cgl', dX[:, gt['pair_chunk_q']],
+                              e[gt['pair_chunk_erow']])
+            op_rows.append(t1.reshape(cc, -1)[:, gt['erow_perm']]
+                           + t2.reshape(cc, -1)[:, gt['pair_perm']])
+        # prep rows: dp / drho = (e^T T_g) T_pfx; effect rows: T_sfx X
+        u = torch.einsum('ei,eij->ej', e[ft['elem_erow']], T[gt['g_of_e']])
+        arow = torch.einsum('ej,ejk->ek', u, T[gt['m_of_e']])
+        prep_oh = torch.nn.functional.one_hot(gt['prep_of_e'], n_preps).to(j_dtype)
+        Jt_preps = torch.einsum('er,ej->rje', prep_oh, arow).reshape(p_sz, -1)
+        w = torch.einsum('eti,ei->et', T[gt['sfx_of_e']], X[ft['elem_pair']])
+        eff_oh = torch.nn.functional.one_hot(gt['eff_of_e'], n_eff).to(j_dtype)
+        Jt_effs = torch.einsum('eo,et->ote', eff_oh, w).reshape(n_eff * dim, -1)
+        return p, torch.cat(op_rows + [Jt_preps, Jt_effs])
+
+    def weighted(v, counts, totals, freqs, flag, regs):
+        """(ls, Jw = d lsvec / d tensor entries [NT, E] at j_dtype, Tv)."""
+        Tv = tensors_jacobian(v)
+        p, Jt = jac_t(compute_flat(v))
+        p = p.to(v.dtype)
+        ls = lsvec_of_p(p, counts, totals, freqs, flag, regs)
+        Jw = weighted_jac_t(Jt, p, ls, counts, totals, freqs, flag, regs).to(j_dtype)
+        return ls, Jw, Tv.to(j_dtype)
+
+    @torch.no_grad()
+    def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
+        ls, Jw, Tv = weighted(v, counts, totals, freqs, flag, regs)
+        M, q = Jw @ Jw.T, Jw @ ls.to(j_dtype)
+        return ls, (Tv.T @ (M @ Tv)).to(v.dtype), (Tv.T @ q).to(v.dtype)
+
+    @torch.no_grad()
+    def dlsvec_fn(v, counts, totals, freqs, flag, regs):
+        _, Jw, Tv = weighted(v, counts, totals, freqs, flag, regs)
+        return (Jw.T @ Tv).to(v.dtype)
+
+    @torch.no_grad()
+    def gram_fn(v, w):
+        Tv = tensors_jacobian(v).to(j_dtype)
+        Jt = jac_t(compute_flat(v))[1]
+        return (Tv.T @ (((Jt * w.to(j_dtype)[None, :]) @ Jt.T) @ Tv)).to(v.dtype)
+
+    @torch.no_grad()
+    def jacobian_fn(v):
+        return (jac_t(compute_flat(v))[1].T @ tensors_jacobian(v).to(j_dtype)).to(v.dtype)
+
+    return jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn
+
+
+def _mesh_jacobian_fns(model, layout, sim, raw):
+    """jtj_jtf, dlsvec, the weighted Gram and the probability Jacobian on
+    the simulator's mesh: forward mode on this rank's shard of the circuits
+    and its block of the parameters; the Jacobian's blocks gathered over
+    'params', the Grams summed over 'circuits', the rows gathered over
+    'circuits', so every rank returns them whole."""
+    from pygsti_tpu_torch.parallel.mesh import (circuit_shard, gather_along, param_shard,
+                                                sum_along)
+    mesh = sim.mesh
+    sub, sizes = layout_shard(mesh, layout)
+    c0 = circuit_shard(mesh, len(layout.circuits))[0]
+    e0 = layout.element_slices[c0].start if c0 < len(layout.circuits) else layout.num_elements
+    e1 = e0 + sub.num_elements
+    j0, j1, pbounds = param_shard(mesh, model.num_params)
+    psizes = [b - a for a, b in pbounds]
+    _, lsvec_of_p, weighted_jac_t = _omitted_correction(sub, raw, sim.device)
+    probs_and_jac_t = forward_probs_and_jac_t(model, sub, sim.device, slice(j0, j1))
+
+    def local(v, counts, totals, freqs, flag, regs):
+        """(ls_i, Jw_i [P, E_i]) of this rank's circuits."""
+        data = (counts[e0:e1], totals[e0:e1], freqs[e0:e1], flag, regs)
+        p, Jt = probs_and_jac_t(v)
+        Jt = gather_along(mesh, 'params', Jt, psizes)
+        ls = lsvec_of_p(p, *data)
+        return ls, weighted_jac_t(Jt, p, ls, *data)
+
+    @torch.no_grad()
+    def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
+        ls, Jw = local(v, counts, totals, freqs, flag, regs)
+        M, q = sum_along(mesh, 'circuits', Jw @ Jw.T, Jw @ ls)
+        return gather_along(mesh, 'circuits', ls, sizes), M, q
+
+    @torch.no_grad()
+    def dlsvec_fn(v, counts, totals, freqs, flag, regs):
+        return gather_along(mesh, 'circuits', local(v, counts, totals, freqs, flag, regs)[1].T,
+                            sizes)
+
+    def jacobian_t(v):
+        return gather_along(mesh, 'params', probs_and_jac_t(v)[1], psizes)
+
+    @torch.no_grad()
+    def gram_fn(v, w):
+        Jt = jacobian_t(v)
+        return sum_along(mesh, 'circuits', (Jt * w[e0:e1][None, :]) @ Jt.T)[0]
+
+    @torch.no_grad()
+    def jacobian_fn(v):
+        return gather_along(mesh, 'circuits', jacobian_t(v).T, sizes)
+
+    return jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn
+
+
+def _objective_fns(model, layout, sim, raw, penalties, jac_mode, prodjac_options=None):
     """The objective's functions of (v, counts, totals, freqs, flag, regs),
     plus 'probs' of v and the name of the Jacobian chosen."""
-    jac_mode = choose_jac_mode(layout, jac_mode)
+    jac_mode = choose_jac_mode(layout, jac_mode, sim.mesh)
     probs_fn = sim.probs_fn(layout)
     correction = _omitted_correction(layout, raw, sim.device)
     terms_of_p, lsvec_of_p, _ = correction
-    if jac_mode == 'blocked':
-        jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn = _blocked_jacobian_fns(model, layout, sim,
-                                                                            raw)
+    if sim.mesh is not None:
+        jac_fns = _mesh_jacobian_fns(model, layout, sim, raw)
+    elif jac_mode == 'blocked':
+        jac_fns = _blocked_jacobian_fns(model, layout, sim, raw)
+    elif jac_mode == 'prodjac':
+        jac_fns = _prodjac_jacobian_fns(model, layout, sim, correction,
+                                        **(prodjac_options or {}))
     else:
-        jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn = _forward_jacobian_fns(model, layout, sim,
-                                                                            correction)
+        jac_fns = _forward_jacobian_fns(model, layout, sim, correction)
+    jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn = jac_fns
 
     @torch.no_grad()
     def lsvec_fn(v, counts, totals, freqs, flag, regs):

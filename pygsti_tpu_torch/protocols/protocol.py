@@ -8,9 +8,8 @@ designs write their children and auxiliary information and read back as
 what they were (the JAX package's three do not read back: ROADMAP.md
 section 3).  The runners walk a data tree; DataCountsSimulator draws a
 design's data through data.simulate_data on its device.  Host work
-otherwise.  (The JAX package's Protocol.run_mpi and stage_slurm, which
-stage a multi-host run through tools/launchtools.py, are not ported:
-ROADMAP.md queue 1, item 10.)"""
+otherwise.  Protocol.run_mpi and stage_slurm stage a run for torchrun
+(tools/launchtools.py)."""
 
 from __future__ import annotations
 
@@ -251,6 +250,17 @@ class Protocol(NicelySerializable):
 
     def run(self, data, memlimit=None, comm=None):
         raise NotImplementedError()
+
+    def run_mpi(self, data, dirname, num_processes=1, slurm=False, mesh=False, **slurm_kwargs):
+        """Stage this protocol and `data` in `dirname` for a run under
+        torchrun (tools/launchtools.py: run.py, and with `slurm` a SLURM
+        script); returns the paths written."""
+        from pygsti_tpu_torch.tools.launchtools import stage_protocol_run
+        return stage_protocol_run(self, data, dirname, slurm=slurm, mesh=mesh, **slurm_kwargs)
+
+    def stage_slurm(self, data, dirname, **slurm_kwargs):
+        """run_mpi with the SLURM script."""
+        return self.run_mpi(data, dirname, slurm=True, **slurm_kwargs)
 
 
 class ProtocolResults(object):

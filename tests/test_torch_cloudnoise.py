@@ -131,7 +131,7 @@ def test_five_qubit_probabilities(monkeypatch):
     assert 40 * tm.dim ** 2 * 8 > forwardsim.GATHER_BYTES_MAX
     for gather_max in (forwardsim.GATHER_BYTES_MAX, 0):
         monkeypatch.setattr(forwardsim, 'GATHER_BYTES_MAX', gather_max)
-        tp = sim.bulk_fill_probs(layout)
+        tp = sim.bulk_fill_probs(None, layout)
         assert np.max(np.abs(tp - jp)) < 1e-12
         assert np.max(np.abs(tp.reshape(4, 32).sum(axis=1) - 1)) < 1e-12
 
@@ -176,7 +176,7 @@ def test_grouped_scan_equals_the_gather():
     circuits = [Circuit(s) for s in _circuits(3, 40, seed=8, depth=9)]
     sim = SimpleForwardSimulator(tm, 'cpu')
     layout = sim.create_layout(circuits)
-    gathered = sim.bulk_fill_probs(layout)
+    gathered = sim.bulk_fill_probs(None, layout)
     idx = forwardsim.layout_tensors(layout, 'cpu')
     t = tm.tensors_fn()(torch.as_tensor(tm.to_vector()))
     G = torch.cat([t.ops, torch.eye(tm.dim, dtype=t.ops.dtype)[None]])

@@ -82,7 +82,7 @@ def setup(request):
         theta = jt.to_vector() + 1e-3 * np.random.RandomState(seed).randn(jt.num_params)
         m = tt.copy()
         m.from_vector(theta)
-        if np.min(np.abs(SimpleForwardSimulator(m, 'cpu').bulk_fill_probs(lay)
+        if np.min(np.abs(SimpleForwardSimulator(m, 'cpu').bulk_fill_probs(None, lay)
                          - counts / totals)) > 1e-7:
             break
     else:
@@ -246,11 +246,11 @@ def test_layout_of_another_op_stack_is_refused(setup):
     plain = SimpleForwardSimulator(fresh, 'cpu').create_layout([Circuit('Gxpi2:0@(0,1)')])
     other = tp.target_model('full')
     lay = SimpleForwardSimulator(other, 'cpu').create_layout(setup['tc'])
-    p = SimpleForwardSimulator(fresh, 'cpu').bulk_fill_probs(lay)
+    p = SimpleForwardSimulator(fresh, 'cpu').bulk_fill_probs(None, lay)
     assert fresh.op_keys == other.op_keys and len(fresh.op_keys) > len(fresh.operations)
-    assert np.array_equal(p, SimpleForwardSimulator(other, 'cpu').bulk_fill_probs(lay))
+    assert np.array_equal(p, SimpleForwardSimulator(other, 'cpu').bulk_fill_probs(None, lay))
     with pytest.raises(ValueError, match="another op stack"):
-        SimpleForwardSimulator(fresh, 'cpu').bulk_fill_probs(plain)
+        SimpleForwardSimulator(fresh, 'cpu').bulk_fill_probs(None, plain)
 
 
 def test_model_methods_against_the_jax_package(setup):

@@ -134,8 +134,8 @@ def test_five_qubit_grouped_scan_on_the_card(card):
         strs.append(''.join(layers) + '@(0,1,2,3,4)')
     circuits = [Circuit(s) for s in strs]
     card = SimpleForwardSimulator(model, 'cuda')
-    p_card = card.bulk_fill_probs(card.create_layout(circuits))
+    p_card = card.bulk_fill_probs(None, card.create_layout(circuits))
     cpu = SimpleForwardSimulator(model, 'cpu')
-    p_cpu = cpu.bulk_fill_probs(cpu.create_layout(circuits[:4]))
+    p_cpu = cpu.bulk_fill_probs(None, cpu.create_layout(circuits[:4]))
     assert np.max(np.abs(p_card[:4 * 32] - p_cpu)) < 1e-12
     assert np.max(np.abs(p_card.reshape(40, 32).sum(axis=1) - 1)) < 1e-12

@@ -146,7 +146,7 @@ def test_bare_name_probabilities(name):
     sim = SimpleForwardSimulator(tm, 'cpu')
     layout = sim.create_layout(circuits)
     assert layout.op_keys == tuple(tm.op_keys)
-    p = sim.bulk_fill_probs(layout)
+    p = sim.bulk_fill_probs(None, layout)
     jprobs = jm.sim.bulk_probs(jcircuits)
     ref = np.concatenate([[jprobs[c][o] for o in layout.outcomes[i]]
                           for i, c in enumerate(jcircuits)])

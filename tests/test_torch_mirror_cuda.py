@@ -47,8 +47,8 @@ def test_mcfe_on_the_card_against_the_cpu(card):
     circuits = design.all_circuits_needing_data
     a = SimpleForwardSimulator(mdl, 'cuda')
     b = SimpleForwardSimulator(mdl, 'cpu')
-    pa = a.bulk_fill_probs(a.create_layout(circuits))
-    pb = b.bulk_fill_probs(b.create_layout(circuits))
+    pa = a.bulk_fill_probs(None, a.create_layout(circuits))
+    pb = b.bulk_fill_probs(None, b.create_layout(circuits))
     assert np.abs(pa - pb).max() < 1e-10
     ds = simulate_data(mdl, circuits, 1000, seed=3, device='cuda')
     res = calculate_mirror_benchmark_results([test], ProtocolData(design, ds), num_bootstraps=10,
@@ -68,8 +68,8 @@ def test_vb_on_the_card_against_the_cpu(card):
     mdl = create_crosstalk_free_model(pspec, depolarization_strengths={g: 0.01 for g in gates})
     ideal = create_crosstalk_free_model(pspec, depolarization_strengths={g: 0.0 for g in gates})
     a, b = SimpleForwardSimulator(mdl, 'cuda'), SimpleForwardSimulator(mdl, 'cpu')
-    assert np.abs(a.bulk_fill_probs(a.create_layout(circuits))
-                  - b.bulk_fill_probs(b.create_layout(circuits))).max() < 1e-10
+    assert np.abs(a.bulk_fill_probs(None, a.create_layout(circuits))
+                  - b.bulk_fill_probs(None, b.create_layout(circuits))).max() < 1e-10
     probs = SimpleForwardSimulator(ideal, 'cuda').bulk_probs(circuits)
     ideals = [i for l in design.idealout_lists for i in l]
     for c, i in zip(circuits, ideals):

@@ -4,9 +4,9 @@ Every public name of each namespace of ``pygsti_tpu`` -- the attributes its
 ``__init__`` exposes and the modules of its package -- is in the
 counterpart namespace of ``pygsti_tpu_torch``, as the same kind of object
 (module, class, function), except the names listed in NOT_PORTED (each
-with its ROADMAP.md queue 1 item) and DELIBERATELY_ABSENT.  A later slice
-that ports one of them takes it off the list: the test holds every listed
-name absent from the port.
+with its ROADMAP.md queue 1 item; empty now that every item is ported) and
+DELIBERATELY_ABSENT: the test holds every listed name absent from the
+port.
 """
 
 import importlib
@@ -26,19 +26,8 @@ NAMESPACES = ['', 'algorithms', 'baseobjs', 'circuits', 'data', 'extras', 'forwa
               'extras.crosstalk', 'extras.devices', 'extras.ibmq', 'extras.idletomography',
               'extras.interpygate', 'extras.lfh', 'extras.paritybenchmarking', 'report']
 
-# name -> the ROADMAP.md queue 1 item that ports it
-NOT_PORTED = {
-    # item 9: the remaining Jacobian and probability modes (the simulator
-    # base class with dprobs/hprobs, its aliases, the product cache)
-    'forwardsims.ForwardSimulator': 9, 'forwardsims.MapForwardSimulator': 9,
-    'forwardsims.MatrixForwardSimulator': 9, 'forwardsims.TorchForwardSimulator': 9,
-    'forwardsims.create_forward_simulator': 9, 'forwardsims.mapforwardsim': 9,
-    'forwardsims.matrixforwardsim': 9, 'forwardsims.torchfwdsim': 9,
-    'layouts.prodcache': 9, 'models.explicitcalc': 9,
-    # item 10: multi-device (resourceallocation re-exports parallel.mesh's)
-    'parallel': 10, 'forwardsims.distforwardsim': 10, 'tools.launchtools': 10,
-    'tools.mpitools': 10, 'tools.sharedmemtools': 10, 'baseobjs.resourceallocation': 10,
-}
+# name -> the ROADMAP.md queue 1 item that ports it (every item is ported)
+NOT_PORTED = {}
 
 # not carried over on purpose (ROADMAP.md queue 1, "Deliberately not carried over")
 DELIBERATELY_ABSENT = {
@@ -122,8 +111,30 @@ def test_listed_names_are_public_in_jax_and_absent_here(key):
 
 
 def test_not_ported_items_are_later_queue_items():
-    """The list holds only queue 1 items 9-10 (item 8 is ported)."""
-    assert set(NOT_PORTED.values()) <= {9, 10}
+    """The list is empty: queue 1 items 1-10 are ported."""
+    assert NOT_PORTED == {}
+
+
+# the names of queue 1 items 9 and 10, the last on the list
+PORTED_LAST = {
+    'forwardsims.ForwardSimulator': 9, 'forwardsims.MapForwardSimulator': 9,
+    'forwardsims.MatrixForwardSimulator': 9, 'forwardsims.TorchForwardSimulator': 9,
+    'forwardsims.create_forward_simulator': 9, 'forwardsims.mapforwardsim': 9,
+    'forwardsims.matrixforwardsim': 9, 'forwardsims.torchfwdsim': 9,
+    'layouts.prodcache': 9, 'models.explicitcalc': 9,
+    'parallel': 10, 'forwardsims.distforwardsim': 10, 'tools.launchtools': 10,
+    'tools.mpitools': 10, 'tools.sharedmemtools': 10, 'baseobjs.resourceallocation': 10,
+}
+
+
+@pytest.mark.parametrize("key", sorted(PORTED_LAST))
+def test_last_listed_names_are_ported(key):
+    """Each name of items 9 and 10 is public in the JAX package and in the
+    port, as the same kind of object."""
+    ns, _, name = key.rpartition('.')
+    assert name in _public_names(ns)
+    ours = _port_attr(ns, name)
+    assert ours is not None and _kind(ours) == _kind(_jax_attr(ns, name))
 
 
 def test_top_level_names_are_the_jax_packages():

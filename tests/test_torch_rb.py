@@ -460,7 +460,7 @@ def test_rb_circuit_probabilities_on_a_crosstalk_free_model():
             else:
                 assert 0.3 < ps < 1
         p = SimpleForwardSimulator(tm, 'cpu').bulk_fill_probs(
-            SimpleForwardSimulator(tm, 'cpu').create_layout(tcircs))
+            None, SimpleForwardSimulator(tm, 'cpu').create_layout(tcircs))
         assert np.max(np.abs(p.reshape(len(tcircs), 4).sum(axis=1) - 1)) < 1e-12
 
 

@@ -63,7 +63,7 @@ def _off_ties(setup, scale=1e-2):
         x = theta + scale * np.random.RandomState(seed).randn(len(theta))
         m = tt.copy()
         m.from_vector(x)
-        if np.min(np.abs(SimpleForwardSimulator(m, 'cpu').bulk_fill_probs(lay)
+        if np.min(np.abs(SimpleForwardSimulator(m, 'cpu').bulk_fill_probs(None, lay)
                          - counts / totals)) > 1e-4:
             return x
     raise AssertionError("no point off the ties")
@@ -213,15 +213,17 @@ def test_forward_mode_matches_blocked(uniform_setup, monkeypatch, jax_mode, torc
 
 
 def test_jac_mode_rule_and_refusals(uniform_setup, sparse_setup):
-    """jac_mode=None follows the JAX package's rule; 'prodjac' is not
-    ported and says where it waits; 'blocked' refuses a sparse layout."""
+    """jac_mode=None follows the JAX package's rule; 'prodjac' serves when
+    asked (the rule never picks it) and refuses a layout without rows;
+    'blocked' refuses a sparse layout."""
     jt, tt, jc, tc, jds, tds, _ = uniform_setup
     assert tof.ObjectiveFunctionBuilder('logl').build(tt, tds, tc, device='cpu').jac_mode \
         == jof.ObjectiveFunctionBuilder('logl').build(jt, jds, jc)._fns['jac_mode'] \
         == 'blocked'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tof.ObjectiveFunctionBuilder('logl', jac_mode='prodjac').build(tt, tds, tc,
-                                                                        device='cpu')
+    assert tof.ObjectiveFunctionBuilder('logl', jac_mode='prodjac').build(
+        tt, tds, tc, device='cpu').jac_mode == 'prodjac'
+    with pytest.raises(ValueError, match='prodjac'):
+        tof.choose_jac_mode(SimpleForwardSimulator(tt, 'cpu').create_layout([]), 'prodjac')
     with pytest.raises(ValueError):
         tof.ObjectiveFunctionBuilder('logl', jac_mode='scan').build(tt, tds, tc, device='cpu')
     lay = SimpleForwardSimulator(sparse_setup[1], 'cpu').create_layout(

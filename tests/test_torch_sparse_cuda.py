@@ -86,7 +86,7 @@ def test_instrument_layout_on_the_card_matches_the_cpu(card):
     iz = Circuit([Label('Iz', 0)], line_labels=(0, 1))
     circuits = [p + iz * k + m for k in (1, 2) for p in mp.prep_fiducials()[::3]
                 for m in mp.meas_fiducials()[::2]] + list(mp.germs()[:8])
-    probs = [SimpleForwardSimulator(model, dev).bulk_fill_probs(
+    probs = [SimpleForwardSimulator(model, dev).bulk_fill_probs(None,
         SimpleForwardSimulator(model, dev).create_layout(circuits)) for dev in ('cuda', 'cpu')]
     assert probs[0].shape == probs[1].shape
     assert np.max(np.abs(probs[0] - probs[1])) < 1e-10

@@ -49,9 +49,9 @@ def test_statevec_against_dense_and_jax(nq):
     circuits = [Circuit(s) for s in strs]
     sv = TSV(tm, 'cpu')
     layout = sv.create_layout(circuits)
-    p_sv = sv.bulk_fill_probs(layout)
+    p_sv = sv.bulk_fill_probs(None, layout)
     dense = SimpleForwardSimulator(tm, 'cpu')
-    p_dense = dense.bulk_fill_probs(dense.create_layout(circuits))
+    p_dense = dense.bulk_fill_probs(None, dense.create_layout(circuits))
     jsv = JSV(jm)
     p_jax = np.asarray(jsv.bulk_fill_probs(None, jsv.create_layout([JCircuit(s)
                                                                     for s in strs])))
@@ -69,8 +69,8 @@ def test_statevec_parallel_layers_and_full_unitary():
     circuits = [Circuit(s) for s in ('[Gxpi2:0Gypi2:1]Gcnot:0:1@(0,1)',
                                      'Gxpi2:1[Gypi2:0Gxpi2:1]Gxpi2:0@(0,1)')]
     sv, dense = TSV(tm, 'cpu'), SimpleForwardSimulator(tm, 'cpu')
-    p_sv = sv.bulk_fill_probs(sv.create_layout(circuits))
-    p_dense = dense.bulk_fill_probs(dense.create_layout(circuits))
+    p_sv = sv.bulk_fill_probs(None, sv.create_layout(circuits))
+    p_dense = dense.bulk_fill_probs(None, dense.create_layout(circuits))
     assert np.max(np.abs(p_sv - p_dense)) < 1e-12
     assert abs(sum(sv.probs(circuits[0]).values()) - 1) < 1e-12
 
@@ -88,7 +88,7 @@ def test_statevec_expression_model():
     p_jax = np.asarray(jsv.bulk_fill_probs(None, jsv.create_layout([JCircuit(s)
                                                                     for s in strs])))
     sv = TSV(tm, 'cpu')
-    p_sv = sv.bulk_fill_probs(sv.create_layout([Circuit(s) for s in strs]))
+    p_sv = sv.bulk_fill_probs(None, sv.create_layout([Circuit(s) for s in strs]))
     assert np.max(np.abs(p_sv - p_jax)) < 1e-12
 
 
