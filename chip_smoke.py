@@ -98,10 +98,12 @@ Phases, each fatal on failure:
                 on the card and fitted as in 18; mirror-RB circuits of one
                 depth back to their ideal outcomes
  20. cloudfit3 -- phase 16 at 3 qubits (534 parameters, d 64, eight
-                outcomes): the op stack beyond a block's shared memory, read
-                by the kernel from global memory; the kernel at this
-                layout's buckets, Tv against jacfwd, the fit, its own launch
-                count; the card's design at maxL 2 against the CPU path's count
+                outcomes): the op stack beyond a block's shared memory, so
+                the kernel's two-stage route; the kernel at this layout's
+                buckets (bitwise between launches, each stage's time), Tv
+                against jacfwd, the fit, its own launch count (the buckets
+                times the LM iterations); the card's design at maxL 2
+                against the CPU path's count
  21. statistics -- phase 3's 'full' estimate: the Gauss-Newton Hessian
                 through the kernel (against its plain version and finite
                 differences), the exact Hessian (symmetry, finite
@@ -866,17 +868,64 @@ def phase_sparse(datagen, fitted, ds, lists, device):
                          "diff %.3e" % rel)
 
 
-def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None):
+# Run in a fresh process by stage_split_ms: torch.profiler drops device
+# events outside its capture window, and on the card's machine its clocks
+# drift apart within minutes of a process's life, so a session of a few ms
+# deep in this script records no kernel at all.
+STAGE_SPLIT_CHILD = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate
+G, cases = torch.load(sys.argv[2])
+G = G.cuda()
+acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+out = []
+for cols, E, F in cases:
+    args = (cols.cuda(), G, E.cuda(), F.cuda())
+    bwd_jacobian_accumulate(*args)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(3):
+            bwd_jacobian_accumulate(*args)
+        torch.cuda.synchronize()
+    ms = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            name = e.key.split('<')[0].split('::')[-1]
+            ms[name] = ms.get(name, 0.0) + e.self_device_time_total / 3e3
+    out.append(ms)
+print(json.dumps(out))
+"""
+
+
+def stage_split_ms(G, cases):
+    """Device ms per kernel launched by one call of the kernel's wrapper on
+    each case (cols, E, F) with op stack G, profiled in a fresh process on
+    the same card: [{kernel name: ms}, ...]."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'cases.pt')
+        torch.save((G.cpu(), [tuple(t.cpu() for t in c) for c in cases]), path)
+        run = subprocess.run([sys.executable, '-c', STAGE_SPLIT_CHILD, HERE, path],
+                             capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise SystemExit("the stage profile's process failed:\n%s" % run.stderr[-3000:])
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None, stages=None):
     """The kernel against its plain version at every bucket shape of
     `layout` on the model's own op stack (at `at_time`, for a model with
-    time-dependent members) and random E and F, f64 and f32,
-    one line per shape; returns ({dtype: max relative error}, and f64 ms
-    per Jacobian of the kernel, of the plain version, of the einsum
-    yardstick, the least time the card could take for the same work, and
-    the bucket shapes)."""
+    time-dependent members) and random E and F, f64 and f32, and bitwise
+    between two launches, one line per shape with its route (and, on the
+    two-stage route, the card's fill of A and each stage's device time,
+    profiled in a fresh process, summed into `stages` where given); returns ({dtype: max relative error}, and f64 ms per Jacobian of
+    the kernel, of the plain version, of the einsum yardstick, the least
+    time the card could take for the same work, and the bucket shapes)."""
     from pygsti_tpu_torch.objectivefns.objectivefns import bucket_plan
     from pygsti_tpu_torch.ops.bwd_jacobian import (bwd_jacobian_accumulate,
-                                                   bwd_jacobian_accumulate_plain)
+                                                   bwd_jacobian_accumulate_plain,
+                                                   g_in_shared_memory)
     n_out, d = layout.num_elements // layout.num_rows, model.dim
     K1 = len(model.op_keys) + 1
     # an explicit model's composite slots follow its operations; an implicit
@@ -890,6 +939,7 @@ def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None):
     ten = model.tensors_fn()(v) if at_time is None else model.tensors_fn_t()(v, at_time)
     G64 = torch.cat([ten.ops, torch.eye(d, dtype=torch.float64)[None]]).to(device)
     errs, ms, plain_ms, einsum_ms, bound_ms = {}, 0.0, 0.0, 0.0, 0.0
+    split_cases = []            # f64 (cols, E, F) of the two-stage route's buckets
     for dtype in (torch.float64, torch.float32):
         G = G64.to(dtype)
         for bk in buckets:
@@ -898,6 +948,12 @@ def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None):
             E = torch.randn((B, n_out, d), generator=gen, dtype=torch.float64).to(device, dtype)
             F = torch.randn((B, D, d), generator=gen, dtype=torch.float64).to(device, dtype)
             A, Bf = bwd_jacobian_accumulate(cols, G, E, F)
+            A_again, Bf_again = bwd_jacobian_accumulate(cols, G, E, F)
+            torch.cuda.synchronize()
+            if not (torch.equal(A, A_again) and torch.equal(Bf, Bf_again)):
+                raise SystemExit("kernel bwd_jacobian is not bitwise deterministic at a bucket "
+                                 "of the %s layout: %s B=%d D=%d" % (prefix, dtype, B, D))
+            del A_again, Bf_again
             A2, Bf2 = bwd_jacobian_accumulate_plain(cols, G, E, F)
             err = max(float((A - A2).abs().max()), float((Bf - Bf2).abs().max()))
             scale = max(float(A2.abs().max()), float(Bf2.abs().max()))
@@ -918,14 +974,33 @@ def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None):
                                              + B * n_out * K1 * d * d + B * n_out * d) * 8
                 flops = B * n_out * D * 2 * (2 * d * d)
                 b_ms = max(nbytes / PEAK_BYTES_PER_S, flops / PEAK_FLOPS[dtype]) * 1e3
-                log("%s: kernel bwd_jacobian float64 bucket B=%d D=%d (d %d, NOUT %d, K1 %d): "
-                    "%.4f ms, bound %.4f ms (%.1f%% of it, %.1f MB), plain %.3f ms, einsum "
-                    "yardstick %.3f ms, rel err %.3e"
-                    % (prefix, B, D, d, n_out, K1, k_ms, b_ms, 100 * b_ms / k_ms, nbytes / 1e6,
-                       p_ms, e_ms, err / scale))
+                shared = g_in_shared_memory(G, n_out)
+                split = ''
+                if not shared:
+                    split_cases.append((cols, E, F))
+                    # the card's own fill of A's bytes: the store rate to beat
+                    fill = cuda_time_ms(lambda: A.zero_(), 5)
+                    split = " (A.zero_() %.4f ms)" % fill
+                    if stages is not None:
+                        stages['fill'] = stages.get('fill', 0.0) + fill
+                log("%s: kernel bwd_jacobian float64 bucket B=%d D=%d (d %d, NOUT %d, K1 %d), "
+                    "%s route: %.4f ms%s, bound %.4f ms (%.1f%% of it, %.1f MB), plain %.3f ms, "
+                    "einsum yardstick %.3f ms, rel err %.3e"
+                    % (prefix, B, D, d, n_out, K1, 'shared' if shared else 'two-stage', k_ms,
+                       split, b_ms, 100 * b_ms / k_ms, nbytes / 1e6, p_ms, e_ms, err / scale))
                 ms, plain_ms, einsum_ms, bound_ms = (ms + k_ms, plain_ms + p_ms,
                                                      einsum_ms + e_ms, bound_ms + b_ms)
             del A, Bf, A2, Bf2
+    if split_cases:
+        for (cols, _, _), by_kernel in zip(split_cases, stage_split_ms(G64, split_cases)):
+            chain = sum(v for n, v in by_kernel.items() if 'chain' in n)
+            tiles = sum(v for n, v in by_kernel.items() if 'tile' in n)
+            log("%s: kernel bwd_jacobian float64 bucket B=%d D=%d, two-stage route, profiled "
+                "in a fresh process: chain %.4f ms, tiles %.4f ms"
+                % (prefix, *cols.shape, chain, tiles))
+            if stages is not None:
+                stages['chain'] = stages.get('chain', 0.0) + chain
+                stages['tiles'] = stages.get('tiles', 0.0) + tiles
     return errs, ms, plain_ms, einsum_ms, bound_ms, [tuple(b['cols'].shape) for b in buckets]
 
 
@@ -1801,14 +1876,20 @@ def phase_cloudfit3(device):
            'shared' if shared else 'global'))
     if start.num_params != 534 or start.dim != 64 or shared:
         raise SystemExit("unexpected 3-qubit cloud model, or its op stack in shared memory")
-    kernel = hold_kernel_at_buckets(layout, start, device, 'cloudfit3')
+    stages = {}
+    kernel = hold_kernel_at_buckets(layout, start, device, 'cloudfit3', stages=stages)
     errs, kms, kplain, keinsum, kbound, shapes = kernel
-    log("cloudfit3: kernel bwd_jacobian at this layout's %d bucket shapes %s: max rel err f64 "
-        "%.3e (tol 1e-12), f32 %.3e (tol 1e-5); %.4f ms per Jacobian f64 against a bound of "
-        "%.4f ms (%.1f%% of it; G read through L2, not counted); plain %.2f ms, einsum "
-        "yardstick %.2f ms"
-        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], kms, kbound,
-           100 * kbound / kms, kplain, keinsum))
+    log("cloudfit3: kernel bwd_jacobian (two-stage route) at this layout's %d bucket shapes %s: "
+        "max rel err f64 %.3e (tol 1e-12), f32 %.3e (tol 1e-5), bitwise between two launches; "
+        "%.4f ms per Jacobian f64 (profiled in a fresh process: chain %.4f ms, tiles %.4f "
+        "ms; the card's A.zero_() of the same blocks %.4f ms) against a bound of %.4f ms "
+        "(%.1f%% of it; G read through L2, not counted); plain %.2f ms, einsum yardstick "
+        "%.2f ms (%s)"
+        % (len(shapes), shapes, errs[torch.float64], errs[torch.float32], kms,
+           stages.get('chain', 0.0), stages.get('tiles', 0.0), stages.get('fill', 0.0), kbound,
+           100 * kbound / kms, kplain, keinsum, card_name_and_limit()))
+    if not (stages.get('chain', 0.0) > 0 and stages.get('tiles', 0.0) > 0):
+        raise SystemExit("the stage profile recorded no chain or tile kernel")
     x = torch.as_tensor(vt, device=device)
     t0 = time.time()
     Tv = start.flat_tensors_jacobian_fn()(x)
@@ -1846,8 +1927,30 @@ def phase_cloudfit3(device):
         "2*DeltaLogL %.6f (the truth's %.6f), k %d, N_sigma %.4f; planted idle H_X on qubit 0 "
         "0.03, fitted %.6f; peak device memory %.1f MB"
         % (iters[0], iters[1], fit_s, launches, tdl_fit, tdl_truth, k, nsig, rate, peak))
+    log("cloudfit3: %.1f ms per LM iteration; launches %d = %d buckets x %d Jacobians"
+        % (1e3 * fit_s / sum(iters), launches, len(shapes), sum(iters)))
+    # where one iteration's time goes: one J^T J / J^T f at the fitted point
+    objective.jtj_jtf()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        objective.jtj_jtf()
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    kernels = sorted((e for e in prof.key_averages() if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    log("cloudfit3: profile of one jtj_jtf at the fit: wall %.1f ms (profiled), the card busy "
+        "%.1f ms in %d launches; by kernel: %s"
+        % (1e3 * wall, busy, sum(e.count for e in kernels), "; ".join(
+            "%s %.2f ms x%d" % (e.key.split('<')[0].split('::')[-1][:48],
+                                e.self_device_time_total / 1e3, e.count) for e in kernels[:10])))
     if launches == 0:
         raise SystemExit("the 3-qubit cloud-noise fit never launched the bwd_jacobian kernel")
+    if launches != len(shapes) * sum(iters):
+        raise SystemExit("the 3-qubit cloud-noise fit's kernel launches are not the buckets "
+                         "times the LM iterations")
     if not (abs(rate - 0.03) < 0.01 and tdl_fit < tdl_truth + 10 and abs(nsig) < 10):
         raise SystemExit("the 3-qubit cloud-noise fit missed the planted rate or the optimum")
     return launches, kernel

@@ -1530,8 +1530,9 @@ def block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out):
     `tf` [NT] of a model of `n_ops` op-stack slots, `n_preps` preps and
     `n_eff` effect rows on dimension `dim`: the forward scan stashing the
     state before each layer, then the backward accumulation kernel binning
-    per-op gradients.  The static and the time-resolved objectives both
-    take their blocks here."""
+    per-op gradients straight into the op columns of Jt (the prep and
+    effect columns are filled after it).  The static and the time-resolved
+    objectives both take their blocks here."""
     device = tf.device
     j_dtype = DTYPE
     o_sz, p_sz = n_ops * dim * dim, n_preps * dim
@@ -1549,14 +1550,16 @@ def block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out):
     for t in range(Dk):
         F[:, t] = S
         S = torch.bmm(G[cols64[:, t]], S.unsqueeze(-1)).squeeze(-1)
-    A, B_final = bwd_jacobian_accumulate(bk['cols'], G, E, F)
+    Jt = torch.empty((nb, n_out, NT), dtype=j_dtype, device=device)
+    # the op blocks land in Jt's first o_sz columns
+    _, B_final = bwd_jacobian_accumulate(bk['cols'], G, E, F, Jt)
     p = torch.einsum('bni,bi->bn', E, S)
-    J_ops = A[:, :, :n_ops].reshape(nb, n_out, o_sz)
     prep_oh = torch.nn.functional.one_hot(bk['prep'], n_preps).to(j_dtype)
-    J_preps = torch.einsum('br,bnj->bnrj', prep_oh, B_final).reshape(nb, n_out, p_sz)
+    Jt[:, :, o_sz:o_sz + p_sz] = torch.einsum('br,bnj->bnrj', prep_oh,
+                                              B_final).reshape(nb, n_out, p_sz)
     eff_oh = torch.nn.functional.one_hot(bk['eff'], n_eff).to(j_dtype)
-    J_eff = torch.einsum('bne,bj->bnej', eff_oh, S).reshape(nb, n_out, n_eff * dim)
-    Jt = torch.cat([J_ops, J_preps, J_eff], dim=2)
+    Jt[:, :, o_sz + p_sz:] = torch.einsum('bne,bj->bnej', eff_oh,
+                                          S).reshape(nb, n_out, n_eff * dim)
     return p.reshape(-1), Jt.reshape(nb * n_out, NT)
 
 

@@ -93,6 +93,103 @@ def test_plain_matches_pallas_kernel_f32():
     assert _rel(Bf_t.numpy(), np.asarray(Bf_j)) < 1e-5
 
 
+@pytest.mark.parametrize("extra", [0, 5], ids=['R_exact', 'R_wider'])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_plain_out_matches_default(shape, extra):
+    """With ``out`` [B, NOUT, R], R = (K1 - 1) d^2 + extra, the op blocks
+    k < K1 - 1 land in out's rows bit for bit as the default call's A; the
+    identity slot and the columns past (K1 - 1) d^2 are not written."""
+    cols, G, E, F = (torch.as_tensor(a) for a in _inputs(6, *shape))
+    B, _, K1, d, NOUT = shape
+    A, Bf = bwd_jacobian_accumulate(cols, G, E, F)
+    out = torch.full((B, NOUT, (K1 - 1) * d * d + extra), 7.5, dtype=G.dtype)
+    got, Bf2 = bwd_jacobian_accumulate(cols, G, E, F, out)
+    assert got is out and torch.equal(Bf, Bf2)
+    assert torch.equal(out[:, :, :(K1 - 1) * d * d],
+                       A[:, :, :K1 - 1].reshape(B, NOUT, -1))
+    assert bool((out[:, :, (K1 - 1) * d * d:] == 7.5).all())
+    got, _ = bwd_jacobian_accumulate_plain(cols.long(), G, E, F, out.clone())
+    assert torch.equal(got, out)
+
+
+@pytest.mark.parametrize("bad", ['rows', 'outcomes', 'narrow', 'dims', 'dtype',
+                                 'strided', 'device'])
+def test_wrapper_rejects_bad_out(bad):
+    """The wrapper refuses an ``out`` of the wrong shape, dtype, layout or
+    device, before it computes anything."""
+    B, D, K1, d, NOUT = 4, 3, 3, 4, 2
+    cols, G, E, F = (torch.as_tensor(a) for a in _inputs(2, B, D, K1, d, NOUT))
+    R = (K1 - 1) * d * d
+    out = {'rows': lambda: torch.zeros((B + 1, NOUT, R), dtype=G.dtype),
+           'outcomes': lambda: torch.zeros((B, NOUT - 1, R), dtype=G.dtype),
+           'narrow': lambda: torch.zeros((B, NOUT, R - 1), dtype=G.dtype),
+           'dims': lambda: torch.zeros((B, NOUT, K1 - 1, d * d), dtype=G.dtype),
+           'dtype': lambda: torch.zeros((B, NOUT, R), dtype=torch.float32),
+           'strided': lambda: torch.zeros((B, NOUT, 2 * R), dtype=G.dtype)[:, :, ::2],
+           'device': lambda: torch.zeros((B, NOUT, R), dtype=G.dtype, device='meta'),
+           }[bad]()
+    with pytest.raises(TypeError if bad == 'dtype' else ValueError):
+        bwd_jacobian_accumulate(cols, G, E, F, out)
+
+
+def _block_probs_jac_by_concatenation(tf, bk, dim, n_ops, n_preps, n_eff, n_out):
+    """block_probs_jac as it was before the kernel wrote into Jt: the whole
+    A returned, its op blocks reshaped and concatenated with the prep and
+    effect columns."""
+    j_dtype = torch.float64
+    o_sz, p_sz = n_ops * dim * dim, n_preps * dim
+    NT = o_sz + p_sz + n_eff * dim
+    ops = tf[:o_sz].reshape(n_ops, dim, dim)
+    preps = tf[o_sz:o_sz + p_sz].reshape(n_preps, dim)
+    effects = tf[o_sz + p_sz:].reshape(n_eff, dim)
+    G = torch.cat([ops, torch.eye(dim, dtype=j_dtype)[None]], dim=0)
+    cols64 = bk['cols64']
+    nb, Dk = cols64.shape
+    E = effects[bk['eff']]
+    F = torch.empty((nb, Dk, dim), dtype=j_dtype)
+    S = preps[bk['prep']]
+    for t in range(Dk):
+        F[:, t] = S
+        S = torch.bmm(G[cols64[:, t]], S.unsqueeze(-1)).squeeze(-1)
+    A, B_final = bwd_jacobian_accumulate(bk['cols'], G, E, F)
+    p = torch.einsum('bni,bi->bn', E, S)
+    J_ops = A[:, :, :n_ops].reshape(nb, n_out, o_sz)
+    prep_oh = torch.nn.functional.one_hot(bk['prep'], n_preps).to(j_dtype)
+    J_preps = torch.einsum('br,bnj->bnrj', prep_oh, B_final).reshape(nb, n_out, p_sz)
+    eff_oh = torch.nn.functional.one_hot(bk['eff'], n_eff).to(j_dtype)
+    J_eff = torch.einsum('bne,bj->bnej', eff_oh, S).reshape(nb, n_out, n_eff * dim)
+    Jt = torch.cat([J_ops, J_preps, J_eff], dim=2)
+    return p.reshape(-1), Jt.reshape(nb * n_out, NT)
+
+
+# (dim, n_ops, n_preps, n_eff, n_out, nb, D): 1 qubit, and 3 qubits with a
+# few op slots
+BLOCKS = [(4, 3, 1, 2, 2, 64, 9), (64, 5, 1, 8, 8, 6, 7)]
+
+
+@pytest.mark.parametrize("block", BLOCKS, ids=['1q', '3q'])
+def test_block_probs_jac_fills_jt_as_before(block):
+    """block_probs_jac, with the op blocks written straight into Jt, gives
+    the probabilities and Jt of the concatenating form bit for bit (short
+    circuits padded with the identity slot, as bucket_plan pads them)."""
+    from pygsti_tpu_torch.objectivefns.objectivefns import block_probs_jac
+    dim, n_ops, n_preps, n_eff, n_out, nb, D = block
+    rng = np.random.RandomState(8)
+    NT = n_ops * dim * dim + n_preps * dim + n_eff * dim
+    tf = torch.as_tensor(rng.randn(NT) / np.sqrt(dim))
+    cols = rng.randint(0, n_ops, (nb, D)).astype(np.int32)
+    depth = rng.randint(1, D + 1, nb)
+    cols[np.arange(D)[None, :] >= depth[:, None]] = n_ops      # identity padding
+    bk = {'cols': torch.as_tensor(cols), 'cols64': torch.as_tensor(cols).long(),
+          'prep': torch.as_tensor(rng.randint(0, n_preps, nb)),
+          'eff': torch.as_tensor(rng.randint(0, n_eff, (nb, n_out)))}
+    p, Jt = block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out)
+    p0, Jt0 = _block_probs_jac_by_concatenation(tf, bk, dim, n_ops, n_preps, n_eff, n_out)
+    assert Jt.shape == (nb * n_out, NT) and Jt.is_contiguous()
+    assert torch.equal(p, p0) and torch.equal(Jt, Jt0)
+    assert Jt[:, :n_ops * dim * dim].abs().max() > 0
+
+
 def test_wrapper_rejects_bad_inputs():
     cols, G, E, F = (torch.as_tensor(a) for a in _inputs(2, 4, 3, 3, 4, 2))
     with pytest.raises(TypeError):
