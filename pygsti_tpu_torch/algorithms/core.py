@@ -14,7 +14,7 @@ import time
 
 import numpy as np
 
-from pygsti_tpu_torch.baseobjs.profiler import DummyProfiler
+from pygsti_tpu_torch.baseobjs.profiler import Profiler, span
 from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
 from pygsti_tpu_torch.circuits.circuit import Circuit
 from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator, simulator_for
@@ -154,10 +154,11 @@ def run_gst_fit_simple(dataset, start_model, circuits, optimizer,
                        objective_function_builder, verbosity=0, device="cuda"):
     """Convenience: build the objective and optimize `start_model` in place;
     returns (result, objective)."""
-    optimizer = SimplerLMOptimizer.cast(optimizer)
-    objective = ObjectiveFunctionBuilder.cast(objective_function_builder).build(
-        start_model, dataset, circuits, device=device)
-    return optimizer.run(objective), objective
+    with span('fit'):
+        optimizer = SimplerLMOptimizer.cast(optimizer)
+        objective = ObjectiveFunctionBuilder.cast(objective_function_builder).build(
+            start_model, dataset, circuits, device=device)
+        return optimizer.run(objective), objective
 
 
 def run_gst_fit(mdc_store, optimizer, objective_function_builder):
@@ -185,7 +186,7 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
     accumulates the seconds of each stage's objective build and
     optimization."""
     printer = VerbosityPrinter.create_printer(verbosity)
-    profiler = profiler if profiler is not None else DummyProfiler()
+    profiler = profiler if profiler is not None else Profiler()
     optimizers = [SimplerLMOptimizer.cast(o) for o in
                   validate_and_extend_optimizer(optimizer, len(circuit_lists))]
     iteration_objfn_builders = [ObjectiveFunctionBuilder.cast(b)
@@ -196,8 +197,9 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
     lists = [list(cl) for cl in circuit_lists]
     n_iters = len(lists)
     nested = all(lists[i] == lists[-1][:len(lists[i])] for i in range(n_iters - 1))
-    shared_layout = simulator_for(mdl, device).create_layout(lists[-1], dataset) \
-        if nested else None
+    with span('fit.layout'):
+        shared_layout = simulator_for(mdl, device).create_layout(lists[-1], dataset) \
+            if nested else None
 
     def make_objective(builder, i):
         if nested:
@@ -219,7 +221,6 @@ def iterative_gst_generator(dataset, start_model, circuit_lists, optimizer,
             with profiler.timing('iteration %d: %s optimize' % (i, b.name)):
                 result = optimizers[i].run(objective)
             opt_results.append(result)
-            profiler.add_count('LM stages')
             printer.log("    %s stage: %.1fs (f=%.1f)" % (b.name, time.time() - t0, result.f))
         yield opt_results, mdl.copy()
 

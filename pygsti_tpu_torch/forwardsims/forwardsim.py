@@ -31,6 +31,7 @@ import torch
 
 from pygsti_tpu_torch import DTYPE
 from pygsti_tpu_torch.baseobjs.outcomelabeldict import OutcomeLabelDict
+from pygsti_tpu_torch.baseobjs.profiler import span
 from pygsti_tpu_torch.circuits.circuit import Circuit
 from pygsti_tpu_torch.layouts.layout import CircuitOutcomeProbabilityLayout
 
@@ -93,17 +94,18 @@ def propagate(G, rho, op_idx, plan=None):
     G [K1, d, d] (the last slot the identity); returns the final states
     [B, d].  With a grouped_plan the rows of each op are multiplied
     together: the same products, summed in another order."""
-    if plan is None:
-        for t in range(op_idx.shape[1]):
-            rho = torch.bmm(G[op_idx[:, t]], rho.unsqueeze(-1)).squeeze(-1)
-        return rho
-    steps, back = plan
-    identity = G.shape[0] - 1
-    for gather, segments in steps:
-        s = rho[gather]
-        rho = torch.cat([s[a:b] if k == identity else s[a:b] @ G[k].T
-                         for k, a, b in segments])
-    return rho[back]
+    with span('scan'):
+        if plan is None:
+            for t in range(op_idx.shape[1]):
+                rho = torch.bmm(G[op_idx[:, t]], rho.unsqueeze(-1)).squeeze(-1)
+            return rho
+        steps, back = plan
+        identity = G.shape[0] - 1
+        for gather, segments in steps:
+            s = rho[gather]
+            rho = torch.cat([s[a:b] if k == identity else s[a:b] @ G[k].T
+                             for k, a, b in segments])
+        return rho[back]
 
 
 def fact_tensors(layout, device):
@@ -391,7 +393,8 @@ class SimpleForwardSimulator(ForwardSimulator):
             ft = fact_tensors(layout, self.device)
 
             def probs(v, t=None):
-                ten = compute(v) if t is None else compute(v, t)
+                with span('model.tensors'):
+                    ten = compute(v) if t is None else compute(v, t)
                 T = cache_products(stack(ten), ft['levels'])
                 return factorized_probs(T, ten.preps, ten.effects, ft)[0]
 
@@ -401,7 +404,8 @@ class SimpleForwardSimulator(ForwardSimulator):
         plan = grouped_plan(layout, self.device) if gathered > GATHER_BYTES_MAX else None
 
         def probs(v, t=None):
-            ten = compute(v) if t is None else compute(v, t)
+            with span('model.tensors'):
+                ten = compute(v) if t is None else compute(v, t)
             rho = propagate(stack(ten), ten.preps[idx['prep_index']], idx['op_indices'], plan)
             E = ten.effects[idx['elem_effect']]           # [E, d]
             return (E * rho[idx['elem_circuit']]).sum(dim=1)

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from pygsti_tpu_torch import DTYPE
+from pygsti_tpu_torch.baseobjs.profiler import span
 from pygsti_tpu_torch.forwardsims.forwardsim import (SimpleForwardSimulator, cache_products,
                                                      fact_tensors, factorized_probs,
                                                      layout_shard, layout_tensors,
@@ -653,10 +654,11 @@ class ObjectiveFunctionBuilder(object):
 
     def build(self, model, dataset, circuits, device="cuda", layout=None,
               num_active_circuits=None):
-        return TimeIndependentMDCObjectiveFunction(
-            self.build_raw(), model, dataset, circuits, name=self.name, layout=layout,
-            num_active_circuits=num_active_circuits, penalties=self.penalties,
-            jac_mode=self.jac_mode, device=device, **self.jac_options)
+        with span('objective.build'):
+            return TimeIndependentMDCObjectiveFunction(
+                self.build_raw(), model, dataset, circuits, name=self.name, layout=layout,
+                num_active_circuits=num_active_circuits, penalties=self.penalties,
+                jac_mode=self.jac_mode, device=device, **self.jac_options)
 
     def build_from_store(self, mdc_store):
         return self.build(mdc_store.model, mdc_store.dataset, mdc_store.circuits,
@@ -1547,9 +1549,10 @@ def block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out):
     E = effects[bk['eff']]                            # [nb, n_out, d]
     F = torch.empty((nb, Dk, dim), dtype=j_dtype, device=device)
     S = preps[bk['prep']]                             # [nb, d]
-    for t in range(Dk):
-        F[:, t] = S
-        S = torch.bmm(G[cols64[:, t]], S.unsqueeze(-1)).squeeze(-1)
+    with span('scan'):
+        for t in range(Dk):
+            F[:, t] = S
+            S = torch.bmm(G[cols64[:, t]], S.unsqueeze(-1)).squeeze(-1)
     Jt = torch.empty((nb, n_out, NT), dtype=j_dtype, device=device)
     # the op blocks land in Jt's first o_sz columns
     _, B_final = bwd_jacobian_accumulate(bk['cols'], G, E, F, Jt)
@@ -1577,6 +1580,11 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
     j_dtype = DTYPE
     buckets, inv_perm = bucket_plan(layout, n_out, NT, device)
 
+    def tensors(v):
+        """(flat tensor entries [NT], Tv [NT, P]) at v."""
+        with span('model.tensors'):
+            return compute_flat(v), tensors_jacobian(v)
+
     def block(tf, bk):
         return block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out)
 
@@ -1592,8 +1600,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
 
     @torch.no_grad()
     def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
-        tf = compute_flat(v)
-        Tv = tensors_jacobian(v)                          # [NT, P]
+        tf, Tv = tensors(v)                               # Tv [NT, P]
         side = Tv.shape[1] if chain_first else NT
         M = torch.zeros((side, side), dtype=v.dtype, device=device)
         q = torch.zeros(side, dtype=v.dtype, device=device)
@@ -1620,8 +1627,8 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
 
     @torch.no_grad()
     def dlsvec_fn(v, counts, totals, freqs, flag, regs):
-        tf = compute_flat(v)
-        Tv = tensors_jacobian(v).to(j_dtype)
+        tf, Tv = tensors(v)
+        Tv = Tv.to(j_dtype)
         J_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)
@@ -1636,8 +1643,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         """Tv^T (sum over buckets of Jt^T diag(w) Jt) Tv for per-element
         weights w (layout order; signed, so no square root is taken), by
         the same blocks and chain-first rule as jtj_jtf."""
-        tf = compute_flat(v)
-        Tv = tensors_jacobian(v)
+        tf, Tv = tensors(v)
         side = Tv.shape[1] if chain_first else NT
         M = torch.zeros((side, side), dtype=v.dtype, device=device)
         Tvj = Tv.to(j_dtype) if chain_first else None
@@ -1652,8 +1658,8 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
     @torch.no_grad()
     def jacobian_fn(v):
         """d probabilities / d v [E, P], block by block through the kernel."""
-        tf = compute_flat(v)
-        Tv = tensors_jacobian(v).to(j_dtype)
+        tf, Tv = tensors(v)
+        Tv = Tv.to(j_dtype)
         parts = [(block(tf, bk)[1] @ Tv).to(v.dtype)[:bk['nk'] * n_out]
                  for bk in buckets]
         return torch.cat(parts, dim=0)[inv_perm]
@@ -2021,11 +2027,21 @@ def _objective_fns(model, layout, sim, raw, penalties, jac_mode, prodjac_options
             with torch.enable_grad():
                 return torch.autograd.functional.jacobian(pen_fn, v)
         fns = _with_rows(fns, pen_fn, pen_jac)
+    fns['lsvec'] = _spanned('objective.lsvec', fns['lsvec'])
+    fns['jtj_jtf'] = _spanned('objective.jtj_jtf', fns['jtj_jtf'])
     fns['probs'] = probs_fn
     fns['gram'] = gram_fn
     fns['jacobian'] = jacobian_fn
     fns['jac_mode'] = jac_mode
     return fns
+
+
+def _spanned(name, fn):
+    """`fn` inside span `name` (baseobjs/profiler.py)."""
+    def spanned(*args):
+        with span(name):
+            return fn(*args)
+    return spanned
 
 
 def _with_rows(fns, rows_fn, rows_jac, gram=lambda v, Jr: Jr.T @ Jr):

@@ -31,6 +31,8 @@ from typing import NamedTuple, Any
 
 import torch
 
+from pygsti_tpu_torch.baseobjs.profiler import span
+
 
 class _LMState(NamedTuple):
     k: int
@@ -261,7 +263,8 @@ def make_device_lm(jtj_jtf_fn, lsvec_fn, ls_beta=0.25, ls_max_evals=6,
     def lm_run(state, max_iter, tols):
         """Iterate until an exit code is set or `max_iter` iterations."""
         while state.k < max_iter and int(state.exit_code) == 0:
-            state = iteration(state, tols)
+            with span('lm.iteration'):
+                state = iteration(state, tols)
         return state
 
     def lm_finalize(final, max_iter):

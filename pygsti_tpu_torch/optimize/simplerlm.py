@@ -19,6 +19,7 @@ import types
 import numpy as np
 import scipy.linalg as _spl
 
+from pygsti_tpu_torch.baseobjs.profiler import span
 from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
 
 MACH_PRECISION = 1e-12
@@ -97,48 +98,49 @@ class SimplerLMOptimizer(object):
         loop ('device' or 'host'), its iterations, its wall seconds and, for
         the host loop, the objective's evaluations (each one read from the
         device)."""
-        printer = VerbosityPrinter.create_printer(printer if printer is not None else 1)
-        x0 = objective.model.to_vector()
-        t0 = time.time()
-        if self._uses_device_loop():
-            x, converged, msg, mu, nu, norm_f, f, iters = objective.run_device_lm(
-                x0, maxiter=self.maxiter, tol=self.tol, linesearch=self.linesearch,
-                oob_check_interval=self.oob_check_interval, solver=self.solver)
-            extra = {'loop': 'device', 'iterations': iters}
-        else:
-            counts = {'lsvec': 0, 'jtj_jtf': 0}
+        with span('lm.run'):
+            printer = VerbosityPrinter.create_printer(printer if printer is not None else 1)
+            x0 = objective.model.to_vector()
+            t0 = time.time()
+            if self._uses_device_loop():
+                x, converged, msg, mu, nu, norm_f, f, iters = objective.run_device_lm(
+                    x0, maxiter=self.maxiter, tol=self.tol, linesearch=self.linesearch,
+                    oob_check_interval=self.oob_check_interval, solver=self.solver)
+                extra = {'loop': 'device', 'iterations': iters}
+            else:
+                counts = {'lsvec': 0, 'jtj_jtf': 0}
 
-            def obj_fn(x, oob_check=False):
-                counts['lsvec'] += 1
-                return objective.lsvec(x, oob_check)
+                def obj_fn(x, oob_check=False):
+                    counts['lsvec'] += 1
+                    return objective.lsvec(x, oob_check)
 
-            def jtj_jtf_fn(x):
-                counts['jtj_jtf'] += 1
-                return objective.jtj_jtf(x)
+                def jtj_jtf_fn(x):
+                    counts['jtj_jtf'] += 1
+                    return objective.jtj_jtf(x)
 
-            x, converged, msg, mu, nu, norm_f, f = simplish_leastsq(
-                obj_fn, jtj_jtf_fn, x0, max_iter=self.maxiter, num_fd_iters=self.fditer,
-                f_norm2_tol=self.tol['f'], jac_norm_tol=self.tol['jac'],
-                rel_ftol=self.tol['relf'], rel_xtol=self.tol['relx'],
-                max_dx_scale=self.tol['maxdx'], init_munu=self.init_munu,
-                oob_check_interval=self.oob_check_interval, oob_action=self.oob_action,
-                oob_check_mode=self.oob_check_mode, linesearch=self.linesearch,
-                damping_mode=getattr(self, 'damping_mode', 'identity'),
-                damping_clip=getattr(self, 'damping_clip', None),
-                uphill_step_threshold=getattr(self, 'uphill_step_threshold', 0.0),
-                verbosity=printer.verbosity - 1)
-            extra = {'loop': 'host', 'iterations': counts['jtj_jtf'],
-                     'evaluations': counts['lsvec'] + counts['jtj_jtf']}
-        wall = time.time() - t0
-        printer.log("Least squares message = %s" % msg, 2)
-        if not converged:
-            raise RuntimeError("Failed to converge: %s" % msg)
-        objective.model.from_vector(x)
-        unpenalized_normf = float(np.sum(f[:objective.num_elements] ** 2))
-        return OptimizerResult(
-            objective, x, norm_f, None, unpenalized_normf,
-            objective.chi2k_distributed_qty(unpenalized_normf),
-            {'msg': msg, 'mu': mu, 'nu': nu, 'fvec': f, 'wall_s': wall, **extra})
+                x, converged, msg, mu, nu, norm_f, f = simplish_leastsq(
+                    obj_fn, jtj_jtf_fn, x0, max_iter=self.maxiter, num_fd_iters=self.fditer,
+                    f_norm2_tol=self.tol['f'], jac_norm_tol=self.tol['jac'],
+                    rel_ftol=self.tol['relf'], rel_xtol=self.tol['relx'],
+                    max_dx_scale=self.tol['maxdx'], init_munu=self.init_munu,
+                    oob_check_interval=self.oob_check_interval, oob_action=self.oob_action,
+                    oob_check_mode=self.oob_check_mode, linesearch=self.linesearch,
+                    damping_mode=getattr(self, 'damping_mode', 'identity'),
+                    damping_clip=getattr(self, 'damping_clip', None),
+                    uphill_step_threshold=getattr(self, 'uphill_step_threshold', 0.0),
+                    verbosity=printer.verbosity - 1)
+                extra = {'loop': 'host', 'iterations': counts['jtj_jtf'],
+                         'evaluations': counts['lsvec'] + counts['jtj_jtf']}
+            wall = time.time() - t0
+            printer.log("Least squares message = %s" % msg, 2)
+            if not converged:
+                raise RuntimeError("Failed to converge: %s" % msg)
+            objective.model.from_vector(x)
+            unpenalized_normf = float(np.sum(f[:objective.num_elements] ** 2))
+            return OptimizerResult(
+                objective, x, norm_f, None, unpenalized_normf,
+                objective.chi2k_distributed_qty(unpenalized_normf),
+                {'msg': msg, 'mu': mu, 'nu': nu, 'fvec': f, 'wall_s': wall, **extra})
 
 
 def damp_coeff_update(mu, nu, half_max_nu, reject_msg, printer):

@@ -26,7 +26,7 @@ import time
 from pygsti_tpu_torch.algorithms import core as _alg
 from pygsti_tpu_torch.algorithms.gaugeopt import gaugeopt_to_target
 from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
-from pygsti_tpu_torch.baseobjs.profiler import Profiler
+from pygsti_tpu_torch.baseobjs.profiler import Profiler, span
 from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
 from pygsti_tpu_torch.circuits.circuit import Circuit
 from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists
@@ -476,87 +476,88 @@ class GateSetTomography(Protocol):
         circuit list as ``{checkpoint_path}_iteration_{i}.json`` (default
         stem ``gst_checkpoints/<name>`` under the working directory); pass
         one read back from such a file as `checkpoint` to resume."""
-        device = self.device if device is None else device
-        printer = VerbosityPrinter.create_printer(self.verbosity)
-        edesign = data.edesign
-        ds = data.dataset
-        target = edesign.target_model
+        with span('fit'):
+            device = self.device if device is None else device
+            printer = VerbosityPrinter.create_printer(self.verbosity)
+            edesign = data.edesign
+            ds = data.dataset
+            target = edesign.target_model
 
-        circuit_lists = edesign.circuit_lists
-        n_iters = len(circuit_lists)
+            circuit_lists = edesign.circuit_lists
+            n_iters = len(circuit_lists)
 
-        if disable_checkpointing:
-            checkpoint = None
-            starting_index = 0
-        else:
-            checkpoint, checkpoint_path = _open_checkpoint(
-                checkpoint, checkpoint_path, 'GateSetTomography',
-                GateSetTomographyCheckpoint, self.name)
-            starting_index = checkpoint.last_completed_iter + 1
-            if starting_index > 0:
-                printer.log("Resuming from checkpoint: %d of %d iterations done"
-                            % (starting_index, n_iters))
+            if disable_checkpointing:
+                checkpoint = None
+                starting_index = 0
+            else:
+                checkpoint, checkpoint_path = _open_checkpoint(
+                    checkpoint, checkpoint_path, 'GateSetTomography',
+                    GateSetTomographyCheckpoint, self.name)
+                starting_index = checkpoint.last_completed_iter + 1
+                if starting_index > 0:
+                    printer.log("Resuming from checkpoint: %d of %d iterations done"
+                                % (starting_index, n_iters))
 
-        if checkpoint is not None and checkpoint.mdl_list:
-            seed_model = checkpoint.mdl_list[-1].copy()
-            models = [m.copy() for m in checkpoint.mdl_list]
-        else:
-            seed_model = self.initial_model.retrieve_model(edesign, None, ds)
-            models = []
+            if checkpoint is not None and checkpoint.mdl_list:
+                seed_model = checkpoint.mdl_list[-1].copy()
+                models = [m.copy() for m in checkpoint.mdl_list]
+            else:
+                seed_model = self.initial_model.retrieve_model(edesign, None, ds)
+                models = []
 
-        profiler = Profiler()
-        tstart = time.time()
-        opt_results = []
-        gen = _alg.iterative_gst_generator(
-            ds, seed_model, circuit_lists, self.optimizer,
-            self.objfn_builders.iteration_builders, self.objfn_builders.final_builders,
-            starting_index=starting_index, verbosity=self.verbosity - 1,
-            profiler=profiler, device=device)
-        for i in range(starting_index, n_iters):
-            iter_opt_results, mdl = next(gen)
-            models.append(mdl)
-            opt_results.append(iter_opt_results)
-            if checkpoint is not None:
-                checkpoint.mdl_list = models
-                checkpoint.last_completed_iter = i
-                checkpoint.last_completed_circuit_list = list(circuit_lists[i])
-                if i == n_iters - 1:
-                    checkpoint.final_objfn = \
-                        iter_opt_results[-1].chi2_k_distributed_qty
-                with profiler.timing('checkpoint writes'):
-                    checkpoint.write("%s_iteration_%d.json" % (checkpoint_path, i))
-        fit_time = time.time() - tstart
+            profiler = Profiler()
+            tstart = time.time()
+            opt_results = []
+            gen = _alg.iterative_gst_generator(
+                ds, seed_model, circuit_lists, self.optimizer,
+                self.objfn_builders.iteration_builders, self.objfn_builders.final_builders,
+                starting_index=starting_index, verbosity=self.verbosity - 1,
+                profiler=profiler, device=device)
+            for i in range(starting_index, n_iters):
+                iter_opt_results, mdl = next(gen)
+                models.append(mdl)
+                opt_results.append(iter_opt_results)
+                if checkpoint is not None:
+                    checkpoint.mdl_list = models
+                    checkpoint.last_completed_iter = i
+                    checkpoint.last_completed_circuit_list = list(circuit_lists[i])
+                    if i == n_iters - 1:
+                        checkpoint.final_objfn = \
+                            iter_opt_results[-1].chi2_k_distributed_qty
+                    with profiler.timing('checkpoint writes'):
+                        checkpoint.write("%s_iteration_%d.json" % (checkpoint_path, i))
+            fit_time = time.time() - tstart
 
-        results = ModelEstimateResults(data, self)
-        final_circuits = list(circuit_lists[-1])
-        if opt_results:
-            final_objfn_value = opt_results[-1][-1].chi2_k_distributed_qty
-        else:  # fully resumed from checkpoint
-            final_objfn_value = checkpoint.final_objfn
-            if final_objfn_value is None:
-                obj = TimeIndependentMDCObjectiveFunction(
-                    RawPoissonPicDeltaLogLFunction(), models[-1], ds, final_circuits,
-                    device=device)
-                final_objfn_value = 2 * obj.fn()
-        dof = ds.degrees_of_freedom(final_circuits) - models[-1].num_params
-        params = {
-            'protocol': self,
-            'final_objfn_value': final_objfn_value,
-            'final_dof': max(dof, 1),
-            'fit_time': fit_time,
-            'raw_objective_values': [[r.f for r in rs] for rs in opt_results],
-            'optimizer_results': opt_results,
-        }
-        est = Estimate.create_gst_estimate(results, target, seed_model, models, params)
-        est.device = device
-        results.add_estimate(est, estimate_key=self.name)
-        with profiler.timing('gauge optimization + badfit'):
-            _add_gaugeopt_and_badfit(results, self.name, target, self.gaugeopt_suite,
-                                     self.badfit_options, printer,
-                                     optimizer=self.optimizer, device=device)
-        est.parameters['profiler'] = dict(profiler.timers)
-        printer.log("Phase times:\n" + profiler.format_times(), 3)
-        return results
+            results = ModelEstimateResults(data, self)
+            final_circuits = list(circuit_lists[-1])
+            if opt_results:
+                final_objfn_value = opt_results[-1][-1].chi2_k_distributed_qty
+            else:  # fully resumed from checkpoint
+                final_objfn_value = checkpoint.final_objfn
+                if final_objfn_value is None:
+                    obj = TimeIndependentMDCObjectiveFunction(
+                        RawPoissonPicDeltaLogLFunction(), models[-1], ds, final_circuits,
+                        device=device)
+                    final_objfn_value = 2 * obj.fn()
+            dof = ds.degrees_of_freedom(final_circuits) - models[-1].num_params
+            params = {
+                'protocol': self,
+                'final_objfn_value': final_objfn_value,
+                'final_dof': max(dof, 1),
+                'fit_time': fit_time,
+                'raw_objective_values': [[r.f for r in rs] for rs in opt_results],
+                'optimizer_results': opt_results,
+            }
+            est = Estimate.create_gst_estimate(results, target, seed_model, models, params)
+            est.device = device
+            results.add_estimate(est, estimate_key=self.name)
+            with profiler.timing('gauge optimization + badfit'):
+                _add_gaugeopt_and_badfit(results, self.name, target, self.gaugeopt_suite,
+                                         self.badfit_options, printer,
+                                         optimizer=self.optimizer, device=device)
+            est.parameters['profiler'] = dict(profiler.timers)
+            printer.log("Phase times:\n" + profiler.format_times(), 3)
+            return results
 
 
 class LinearGateSetTomography(Protocol):

@@ -18,7 +18,7 @@ from pygsti_tpu.protocols.protocol import ProtocolData as JProtocolData
 
 import pygsti_tpu_torch.modelpacks.smq1Q_XYI as tmp
 from pygsti_tpu_torch.baseobjs.nicelyserializable import NicelySerializable
-from pygsti_tpu_torch.baseobjs.profiler import DummyProfiler, Profiler
+from pygsti_tpu_torch.baseobjs.profiler import Profiler, span
 from pygsti_tpu_torch.baseobjs.verbosityprinter import VerbosityPrinter
 from pygsti_tpu_torch.circuits.gstcircuits import create_lsgst_circuit_lists as t_lists
 from pygsti_tpu_torch.data.dataset import DataSet
@@ -591,9 +591,9 @@ def test_printer_and_profiler(capsys, tmp_path):
         pass
     with prof.timing('a'):
         pass
-    prof.add_count('n')
-    prof.add_count('n', 2)
-    assert prof.counters == {'n': 3} and prof.timers['a'] >= 0
+    assert list(prof.timers) == ['a'] and prof.timers['a'] >= 0
+    assert not hasattr(prof, 'counters') and not hasattr(prof, 'add_count')
     assert prof.format_times().startswith("  a ")
-    with DummyProfiler().timing('a'):
-        DummyProfiler().add_count('n')
+    with prof.timing('b'), span('scan'):     # tracing off: timers only
+        pass
+    assert sorted(prof.timers) == ['a', 'b'] and prof.num_spans == 0
