@@ -264,6 +264,7 @@ T_START = time.time()
 # multiply-adds run.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float64: 33.5e12, torch.float32: 67e12}
+PEAK_F64_TENSOR_FLOPS = 67e12    # f64 on the tensor cores (cuBLAS's DGEMM)
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 MAXL = 64
 LM_MAXITER = 100     # the optimizer's default cap on every stage
@@ -1002,6 +1003,48 @@ def hold_kernel_at_buckets(layout, model, device, prefix, at_time=None, stages=N
                 stages['chain'] = stages.get('chain', 0.0) + chain
                 stages['tiles'] = stages.get('tiles', 0.0) + tiles
     return errs, ms, plain_ms, einsum_ms, bound_ms, [tuple(b['cols'].shape) for b in buckets]
+
+
+def chain_numbers(model, layout, device):
+    """The chain through Tv of one chain-first jtj_jtf at the model's point,
+    every row block's Jt from the kernel and a row scale: CUDA-event ms of
+    the chain packed by op slot (objectivefns.tv_chain, its packing of Tv
+    included) and of the dense (scale * Jt) @ Tv it replaced, summed over
+    the blocks; the bound max(useful FLOP / f64 tensor-core peak, bytes /
+    HBM rate) at the useful FLOPs (each slot's mapped columns and the SPAM
+    columns; Jt, Tv and the result moved once); the packed route's
+    density; and the largest difference relative to the dense result's
+    largest entry.  Raises where they differ beyond 1e-12."""
+    from pygsti_tpu_torch.objectivefns.objectivefns import block_probs_jac, bucket_plan, tv_chain
+    dim, n_ops, P = model.dim, len(model.op_keys), model.num_params
+    n_out = layout.num_elements // layout.num_rows
+    n_eff = sum(model.povms[k].num_outcomes for k in model.povm_keys)
+    NT = n_ops * dim * dim + (len(model.prep_keys) + n_eff) * dim
+    buckets, _ = bucket_plan(layout, n_out, NT, device)
+    v = torch.as_tensor(model.to_vector(), device=device)
+    tf, Tv = model.flat_tensors_fn()(v), model.flat_tensors_jacobian_fn()(v)
+    cols = model.op_param_indices()
+    bind = tv_chain(cols, n_ops, dim, P, device)
+    bind(Tv)
+    gen = torch.Generator(device='cpu').manual_seed(7)
+    packed_ms = cuda_time_ms(lambda: bind(Tv), 3)
+    dense_ms, rows, rel = 0.0, 0, 0.0
+    chain = bind(Tv)
+    for bk in buckets:
+        _, Jt = block_probs_jac(tf, bk, dim, n_ops, len(model.prep_keys), n_eff, n_out)
+        s = torch.rand(Jt.shape[0], generator=gen, dtype=torch.float64).to(device)
+        packed_ms += cuda_time_ms(lambda: chain(Jt, s), 3)
+        dense_ms += cuda_time_ms(lambda: (s[:, None] * Jt) @ Tv, 3)
+        want = (s[:, None] * Jt) @ Tv
+        rel = max(rel, float((chain(Jt, s) - want).abs().max() / want.abs().max()))
+        rows += Jt.shape[0]
+        del Jt, want
+    flops = 2 * rows * (dim * dim * sum(len(c) for c in cols) + (NT - n_ops * dim * dim) * P)
+    nbytes = 8 * (rows * NT + NT * P + rows * P)
+    bound = max(flops / PEAK_F64_TENSOR_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3
+    if not rel <= 1e-12:
+        raise SystemExit("the packed chain through Tv differs from the dense one by %g" % rel)
+    return packed_ms, dense_ms, bound, tv_chain.density, rel
 
 
 def fit_launches(gst, data, prefix, lists):
@@ -1829,7 +1872,7 @@ def phase_cloudfit3(device):
     from pygsti_tpu_torch.forwardsims.forwardsim import SimpleForwardSimulator
     from pygsti_tpu_torch.models.cloudnoisemodel import \
         create_cloud_crosstalk_model_from_hops_and_weights
-    from pygsti_tpu_torch.objectivefns.objectivefns import two_delta_logl
+    from pygsti_tpu_torch.objectivefns.objectivefns import tv_chain, two_delta_logl
     from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate, g_in_shared_memory
     from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec
 
@@ -1904,6 +1947,7 @@ def phase_cloudfit3(device):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     bwd_jacobian_accumulate.launches = 0
+    tv_chain.packed = tv_chain.dense = 0
     t0 = time.time()
     iters = []
     for name in ('chi2', 'logl'):
@@ -1927,8 +1971,13 @@ def phase_cloudfit3(device):
         "2*DeltaLogL %.6f (the truth's %.6f), k %d, N_sigma %.4f; planted idle H_X on qubit 0 "
         "0.03, fitted %.6f; peak device memory %.1f MB"
         % (iters[0], iters[1], fit_s, launches, tdl_fit, tdl_truth, k, nsig, rate, peak))
-    log("cloudfit3: %.1f ms per LM iteration; launches %d = %d buckets x %d Jacobians"
-        % (1e3 * fit_s / sum(iters), launches, len(shapes), sum(iters)))
+    if tv_chain.dense or tv_chain.packed != launches:
+        raise SystemExit("the 3-qubit fit chained %d blocks through all of Tv and %d packed, "
+                         "against %d launches" % (tv_chain.dense, tv_chain.packed, launches))
+    log("cloudfit3: %.1f ms per LM iteration; launches %d = %d buckets x %d Jacobians; chains "
+        "through Tv packed %d, dense %d (density %.4f)"
+        % (1e3 * fit_s / sum(iters), launches, len(shapes), sum(iters), tv_chain.packed,
+           tv_chain.dense, tv_chain.density))
     # where one iteration's time goes: one J^T J / J^T f at the fitted point
     objective.jtj_jtf()
     torch.cuda.synchronize()
@@ -1946,6 +1995,13 @@ def phase_cloudfit3(device):
         % (1e3 * wall, busy, sum(e.count for e in kernels), "; ".join(
             "%s %.2f ms x%d" % (e.key.split('<')[0].split('::')[-1][:48],
                                 e.self_device_time_total / 1e3, e.count) for e in kernels[:10])))
+    packed_ms, dense_ms, bound_ms, density, rel = chain_numbers(start, layout, device)
+    log("cloudfit3: the chain through Tv of one jtj_jtf at the fit (CUDA events, %d blocks): "
+        "packed by op slot %.3f ms (density %.4f), dense %.3f ms, bound %.3f ms at the useful "
+        "FLOPs (%.1f%% of it packed, %.1f%% dense); packed against dense max rel %.3e (tol "
+        "1e-12) (%s)" % (len(shapes), packed_ms, density, dense_ms, bound_ms,
+                         100 * bound_ms / packed_ms, 100 * bound_ms / dense_ms, rel,
+                         card_name_and_limit()))
     if launches == 0:
         raise SystemExit("the 3-qubit cloud-noise fit never launched the bwd_jacobian kernel")
     if launches != len(shapes) * sum(iters):

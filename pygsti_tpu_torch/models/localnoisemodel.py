@@ -293,6 +293,20 @@ class LocalNoiseModel(OpModel):
 
         return jacobian
 
+    def op_param_indices(self):
+        """Per op-stack slot, in op_keys order, the sorted parameter indices
+        in whose columns that slot's rows of Tv (flat_tensors_jacobian_fn)
+        can be nonzero: the union of the gpindices of its recipe's
+        parameterized leaves, read from the structure, never from values.
+        Every other column of the slot's rows is exactly 0."""
+        leaves, recipes, _, _ = self._plan()
+        every = np.arange(len(self._paramvec))
+        out = []
+        for recipe in recipes:
+            idx = [every[leaves[k].gpindices] for k, _ in recipe if leaves[k].num_params > 0]
+            out.append(np.unique(np.concatenate(idx)) if idx else np.empty(0, np.int64))
+        return out
+
     # -- convenience --------------------------------------------------------------
     def probabilities(self, circuit, outcomes=None, device="cuda"):
         """{outcome: probability} of one circuit, simulated on `device`."""

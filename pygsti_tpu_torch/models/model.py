@@ -115,6 +115,12 @@ class OpModel(Model):
     def _iter_parameterized_objs(self):
         raise NotImplementedError()
 
+    def op_param_indices(self):
+        """Per op-stack slot, the parameter indices in whose columns its
+        rows of Tv can be nonzero, or None where the model states no such
+        map (then the blocked Jacobian chains through all of Tv)."""
+        return None
+
     def _rebuild_paramvec(self):
         off = 0
         vecs = []

@@ -26,7 +26,9 @@ package's rule (``jac_mode=None``) picks one of the first two:
               (where the [NT, NT] Gram of the tensor entries would pass
               JAC_BLOCK_BYTES and the model has fewer parameters than
               entries, as at 3 qubits, each block is chained through Tv
-              first and the Gram taken over the parameters);
+              first and the Gram taken over the parameters; the chain
+              takes only each op slot's own parameter columns where the
+              model maps them, tv_chain);
   'linearize' any other layout (sparse outcomes): P forward-mode tangents
               of the probabilities, pushed through the scan in chunks,
               then one Gram.  The JAX package's 'fwd' computes the same J
@@ -1566,6 +1568,74 @@ def block_probs_jac(tf, bk, dim, n_ops, n_preps, n_eff, n_out):
     return p.reshape(-1), Jt.reshape(nb * n_out, NT)
 
 
+def tv_chain(op_params, n_ops, dim, P, device):
+    """The chain of a block's Jacobian Jt = d probs / d tensor entries
+    [rows, NT] through Tv [NT, P]: a function bind(Tv) -> chain, with
+    chain(Jt, scale=None) = diag(scale) (Jt @ Tv) [rows, P], the row scale
+    taken after the product (it commutes with it).
+
+    `op_params` (model.op_param_indices()) names, per op slot, the only
+    columns where its d^2 rows of Tv can be nonzero.  With it, bind packs
+    Tv's op rows once a call into Tvp [n_ops, d^2, W] (each slot's own
+    columns first, W the widest slot's; the padding rows of the product
+    are summed into no parameter), and chain takes Jt's op part as the
+    strided view [n_ops, d^2, rows] (no copy of Jt), one batched product
+    of the slots, one fixed-order gather-and-sum of each parameter's rows
+    of that product, and the SPAM columns' dense product.  Without a map,
+    or where a slot has every parameter or none has any, chain is the
+    dense Jt @ Tv.
+    Counters, in the manner of bwd_jacobian_accumulate.launches:
+    tv_chain.packed and tv_chain.dense count chains by route;
+    tv_chain.density is the last packed bind's product FLOPs over the
+    dense product's."""
+    d2 = dim * dim
+    o_sz = n_ops * d2
+    W = max(map(len, op_params), default=0) if op_params is not None else P
+    if not 0 < W < P:
+        def bind_dense(Tv):
+            def chain(Jt, scale=None):
+                tv_chain.dense += 1
+                J = Jt @ Tv
+                return J if scale is None else scale[:, None] * J
+            return chain
+        return bind_dense
+    # row k * W + c of the slots' product is parameter idx[k, c] of slot k
+    idx = np.zeros((n_ops, W), np.int64)
+    bags = [[] for _ in range(P)]
+    for k, cols in enumerate(op_params):
+        idx[k, :len(cols)] = cols
+        for c, p in enumerate(cols):
+            bags[p].append(k * W + c)
+    table = torch.as_tensor([r for b in bags for r in b], dtype=torch.int64, device=device)
+    starts = torch.as_tensor(np.cumsum([0] + [len(b) for b in bags[:-1]]), device=device)
+    idx = torch.as_tensor(idx[:, None, :], device=device).expand(n_ops, d2, W)
+
+    def bind_packed(Tv):
+        NT = Tv.shape[0]
+        Tvp = torch.gather(Tv[:o_sz].reshape(n_ops, d2, P), 2, idx)         # [n_ops, d^2, W]
+        TvpT, spamT = Tvp.transpose(1, 2), Tv[o_sz:].T               # [n_ops, W, d^2], [P, NT - o_sz]
+        tv_chain.density = (o_sz * W + (NT - o_sz) * P) / (NT * P)
+
+        def chain(Jt, scale=None):
+            tv_chain.packed += 1
+            rows = Jt.shape[0]
+            JopT = Jt[:, :o_sz].reshape(rows, n_ops, d2).permute(1, 2, 0)     # [n_ops, d^2, rows]
+            R = torch.bmm(TvpT, JopT).reshape(n_ops * W, rows)
+            # each parameter's bag of rows of R, summed in slot order
+            JT = torch.nn.functional.embedding_bag(table, R, starts, mode='sum')  # [P, rows]
+            JT = torch.addmm(JT, spamT, Jt[:, o_sz:].T)
+            return (JT if scale is None else JT * scale[None, :]).T
+
+        return chain
+
+    return bind_packed
+
+
+tv_chain.packed = 0
+tv_chain.dense = 0
+tv_chain.density = None
+
+
 def _blocked_jacobian_fns(model, layout, sim, raw):
     """jtj_jtf and dlsvec from the blocked Jacobian (module note)."""
     device = sim.device
@@ -1597,6 +1667,7 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
     # would be large and the parameters fewer (3-qubit models: NT 10^5)
     chain_first = NT * NT * torch.finfo(DTYPE).bits // 8 > JAC_BLOCK_BYTES \
         and model.num_params < NT
+    bind_chain = tv_chain(model.op_param_indices(), n_ops, dim, model.num_params, device)
 
     @torch.no_grad()
     def jtj_jtf_fn(v, counts, totals, freqs, flag, regs):
@@ -1604,16 +1675,16 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         side = Tv.shape[1] if chain_first else NT
         M = torch.zeros((side, side), dtype=v.dtype, device=device)
         q = torch.zeros(side, dtype=v.dtype, device=device)
-        Tvj = Tv.to(j_dtype) if chain_first else None
+        chain = bind_chain(Tv.to(j_dtype)) if chain_first else None
         ls_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)
             p, Jt = block(tf, bk)
             p = p.to(v.dtype)
             ls = raw.lsvec(p, cb, tb, fb, flag, regs)
-            Jw = raw.dlsvec(p, cb, tb, fb, flag, regs).to(j_dtype)[:, None] * Jt
-            if chain_first:
-                Jw = Jw @ Tvj                             # [rows, P]
+            dls = raw.dlsvec(p, cb, tb, fb, flag, regs).to(j_dtype)
+            Jw = chain(Jt, dls) if chain_first else dls[:, None] * Jt
+            del Jt              # before the next block makes its own
             # the per-bucket Gram runs at the Jacobian dtype, the sum across
             # buckets at the model dtype: float32 accumulation of the partial
             # Grams degraded LM convergence on the TPU (Nsigma 500 -> 1039)
@@ -1628,13 +1699,14 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
     @torch.no_grad()
     def dlsvec_fn(v, counts, totals, freqs, flag, regs):
         tf, Tv = tensors(v)
-        Tv = Tv.to(j_dtype)
+        chain = bind_chain(Tv.to(j_dtype))
         J_parts = []
         for bk in buckets:
             cb, tb, fb = bucket_data(bk, counts, totals, freqs)
             p, Jt = block(tf, bk)
             dls = raw.dlsvec(p.to(v.dtype), cb, tb, fb, flag, regs)
-            Jb = ((dls.to(j_dtype)[:, None] * Jt) @ Tv).to(v.dtype)
+            Jb = chain(Jt, dls.to(j_dtype)).to(v.dtype)
+            del Jt
             J_parts.append(Jb[:bk['nk'] * n_out])
         return torch.cat(J_parts, dim=0)[inv_perm]
 
@@ -1646,12 +1718,12 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
         tf, Tv = tensors(v)
         side = Tv.shape[1] if chain_first else NT
         M = torch.zeros((side, side), dtype=v.dtype, device=device)
-        Tvj = Tv.to(j_dtype) if chain_first else None
+        chain = bind_chain(Tv.to(j_dtype)) if chain_first else None
         for bk in buckets:
             (wb,) = bucket_data(bk, w)
             _, Jt = block(tf, bk)
             if chain_first:
-                Jt = Jt @ Tvj
+                Jt = chain(Jt)
             M += (Jt.T @ (wb.to(j_dtype)[:, None] * Jt)).to(v.dtype)
         return M if chain_first else Tv.T @ (M @ Tv)
 
@@ -1659,9 +1731,8 @@ def _blocked_jacobian_fns(model, layout, sim, raw):
     def jacobian_fn(v):
         """d probabilities / d v [E, P], block by block through the kernel."""
         tf, Tv = tensors(v)
-        Tv = Tv.to(j_dtype)
-        parts = [(block(tf, bk)[1] @ Tv).to(v.dtype)[:bk['nk'] * n_out]
-                 for bk in buckets]
+        chain = bind_chain(Tv.to(j_dtype))
+        parts = [chain(block(tf, bk)[1]).to(v.dtype)[:bk['nk'] * n_out] for bk in buckets]
         return torch.cat(parts, dim=0)[inv_perm]
 
     return jtj_jtf_fn, dlsvec_fn, gram_fn, jacobian_fn

@@ -3,7 +3,8 @@ the JAX package: the kernel's plain version against the JAX package's
 reference at the 3-qubit shapes, and one jtj_jtf and one lsvec of the
 534-parameter 3-qubit cloud-noise model, whose op stack no longer fits a
 block's shared memory on the card and whose Gram the port takes over the
-parameters."""
+parameters; the map of its op slots' parameter columns and the chain
+through Tv packed by it (test_torch_chain.py holds the smaller models)."""
 
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from pygsti_tpu_torch.models import cloudnoisemodel as tcnm
 from pygsti_tpu_torch.objectivefns import objectivefns as tof
 from pygsti_tpu_torch.ops.bwd_jacobian import bwd_jacobian_accumulate_plain
 from pygsti_tpu_torch.processors.processorspec import QubitProcessorSpec as TSpec
+from test_torch_chain import check_map, dense_chain, four_results
 
 GATES = ['Gxpi2', 'Gypi2', 'Gcnot']
 
@@ -113,3 +115,34 @@ def test_blocked_objective_at_three_qubits(cloud3, name):
         b = np.asarray(b)
         assert a.shape == b.shape
         assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b))
+
+
+def test_op_param_indices_at_three_qubits(cloud3):
+    """The 534-parameter model's map of each op slot's parameter columns is
+    exact and tight at the fixture's seeded point (no zero entry)."""
+    tm, theta = cloud3['tm'], cloud3['theta']
+    assert np.all(theta != 0)
+    cols = check_map(tm, theta)
+    assert 0 < sum(len(c) for c in cols) < len(cols) * tm.num_params
+
+
+@pytest.mark.parametrize("name", ['chi2', 'logl'])
+def test_packed_chain_at_three_qubits(cloud3, monkeypatch, name):
+    """jtj_jtf, dlsvec, the weighted Gram and the probability Jacobian of
+    the 3-qubit cloud model (chain-first): the chain packed by op slot
+    against the dense (dls * Jt) @ Tv within 1e-13 relative, bit for bit
+    between two calls, one packed chain per block per call."""
+    tm, theta = cloud3['tm'], cloud3['theta']
+    circuits = [Circuit(s) for s in cloud3['strs']]
+    obj = tof.ObjectiveFunctionBuilder(name).build(tm, cloud3['tds'], circuits, device='cpu')
+    monkeypatch.setattr(tof.tv_chain, 'packed', 0)
+    packed = four_results(obj, theta)
+    assert tof.tv_chain.packed == 4 and 0 < tof.tv_chain.density < 1
+    assert all(np.array_equal(a, b) for a, b in zip(packed, four_results(obj, theta)))
+    with monkeypatch.context() as m:
+        m.setattr(tof, 'tv_chain', dense_chain)
+        dense = four_results(tof.ObjectiveFunctionBuilder(name).build(
+            tm, cloud3['tds'], circuits, device='cpu'), theta)
+    for a, b in zip(packed, dense):
+        assert a.shape == b.shape
+        assert np.max(np.abs(a - b)) <= 1e-13 * np.max(np.abs(b))
